@@ -1,0 +1,178 @@
+"""int4-COMPUTE matmul (W4A16): the Hopper port of the TPU kernel in
+``align_anything_tpu/ops/int4_matmul.py``.
+
+``int4_matmul`` takes x (..., K) and an ``Int4Weight`` whose groups run over
+x's full last dim, and returns (..., *out_dims) in ``dtype``:
+
+- on a CUDA tensor it launches the hand-written kernel in
+  ``csrc/int4_matmul.cu`` (built by nvcc for sm_90a at first use);
+- on a CPU tensor it runs ``int4_matmul_reference``, the kernel's plain
+  PyTorch version, with the same rounding.
+
+Both compute what the TPU kernel computes: x rounded to bf16, the weight
+dequantized as (q * scale) in fp32 and rounded to bf16, the product summed
+in fp32, the result cast to ``dtype``.
+
+It returns None, and the caller dequantizes and runs a plain matmul, where
+the JAX wrapper also declines: when the grouping does not run over x's last
+dim (the 'o' projection of ``quantize_decoder_int4``, grouped over heads
+only), and for prefill-sized inputs of more than ``KERNEL_MAX_ROWS`` rows,
+where the weight read is amortized over many rows and the dense matmul's
+tensor cores win (crossover measured on the H100, see PERF.md).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from align_anything_tpu_torch.models.quantization import Int4Weight
+
+# Largest row count (prod of x's leading dims) sent to the kernel.  Decode
+# runs at M = number of slots (<= 128); larger M is prefill.
+KERNEL_MAX_ROWS = 128
+
+_SRC = Path(__file__).resolve().parents[1] / 'csrc' / 'int4_matmul.cu'
+BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '--ptxas-options=-v')
+_MAX_GRID_Y = 65535
+_TILE_N = 128          # columns per block in the kernel
+
+_build_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ''         # nvcc/ptxas output of the last build in this process
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
+
+    if CUDA_HOME is None:
+        raise RuntimeError('CUDA toolkit not found: set CUDA_HOME')
+    return os.path.join(CUDA_HOME, 'bin', 'nvcc')
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/int4_matmul.cu`` (once per source hash) into
+    ``BUILD_DIR`` and load it.  Raises if nvcc fails."""
+    global _lib, build_log
+    with _build_lock:
+        if _lib is not None:
+            return _lib
+        src = _SRC.read_bytes()
+        tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+        so = BUILD_DIR / f'int4_matmul_{tag}.so'
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_SRC)],
+                capture_output=True, text=True)
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed for {_SRC}:\n{build_log}')
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        fn = lib.int4_matmul_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def int4_matmul_reference(x: torch.Tensor, values: torch.Tensor,
+                          scales: torch.Tensor,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of the kernel.  x (M, K); values (G, gs/2, N)
+    int8; scales (G, N) fp32 -> (M, N) in ``dtype``."""
+    w = Int4Weight(values, scales[:, None, :]).dequantize(torch.bfloat16)
+    return (x.to(torch.bfloat16).to(torch.float32)
+            @ w.to(torch.float32)).to(dtype)
+
+
+def int4_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
+                     scales: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Launch the CUDA kernel.  x (M, K) bf16; values (G, gs/2, N) int8;
+    scales (G, N) fp32, all contiguous on one CUDA device -> (M, N) in
+    ``dtype`` (bf16 or fp32).  Counts each launch in
+    ``int4_matmul_cuda.launches``."""
+    g, half, n = values.shape
+    m, k = x.shape
+    dev = x.device
+    if dev.type != 'cuda' or values.device != dev or scales.device != dev:
+        raise ValueError('int4_matmul_cuda needs x, values and scales on one '
+                         f'CUDA device (got {x.device}, {values.device}, '
+                         f'{scales.device})')
+    if (x.dtype != torch.bfloat16 or values.dtype != torch.int8
+            or scales.dtype != torch.float32):
+        raise ValueError('int4_matmul_cuda takes bf16 x, int8 values and fp32 '
+                         f'scales (got {x.dtype}, {values.dtype}, '
+                         f'{scales.dtype})')
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'output dtype must be bf16 or fp32 (got {dtype})')
+    if k != g * 2 * half or tuple(scales.shape) != (g, n):
+        raise ValueError(f'shape mismatch: x {tuple(x.shape)}, values '
+                         f'{tuple(values.shape)}, scales {tuple(scales.shape)}')
+    if not (x.is_contiguous() and values.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError('int4_matmul_cuda needs contiguous tensors')
+    if -(-n // _TILE_N) > _MAX_GRID_Y:
+        raise ValueError(f'N={n} exceeds the kernel grid')
+    out = torch.empty((m, n), dtype=dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    vec = int(n % 4 == 0 and values.data_ptr() % 4 == 0
+              and scales.data_ptr() % 16 == 0)
+    lib = build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.int4_matmul_launch(
+            x.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            m, k, n, half, int(dtype == torch.float32), vec, stream)
+    if err != 0:
+        raise RuntimeError(f'int4_matmul kernel launch failed: CUDA error {err}')
+    int4_matmul_cuda.launches += 1
+    return out
+
+
+int4_matmul_cuda.launches = 0
+
+
+def int4_matmul(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
+                ) -> torch.Tensor | None:
+    """x (..., K) x Int4Weight (layer-sliced; contraction over its dims
+    0-1) -> (..., *out_dims) in ``dtype``, or None when the kernel does not
+    apply (see the module docstring)."""
+    vals, sc = w.values, w.scales
+    if vals.ndim < 3:
+        return None
+    g, half = vals.shape[:2]
+    k = g * 2 * half
+    if x.shape[-1] != k:
+        return None                       # grouping not over x's last dim
+    out_dims = tuple(vals.shape[2:])
+    n = math.prod(out_dims)
+    m_dims = tuple(x.shape[:-1])
+    m = math.prod(m_dims)
+    if m > KERNEL_MAX_ROWS:
+        return None                       # prefill-sized x: dense matmul
+    x2 = x.reshape(m, k).to(torch.bfloat16).contiguous()
+    v2 = vals.reshape(g, half, n)
+    s2 = sc.reshape(g, n)
+    if x.device.type == 'cpu':
+        out = int4_matmul_reference(x2, v2, s2, dtype)
+    elif x.device.type == 'cuda':
+        out = int4_matmul_cuda(x2, v2, s2, dtype)
+    else:
+        raise ValueError(f'int4_matmul: unsupported device {x.device}')
+    return out.reshape(m_dims + out_dims)
