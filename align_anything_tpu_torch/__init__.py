@@ -8,7 +8,10 @@ never ``jax``.  Every Pallas TPU kernel on a ported path becomes a kernel
 written by hand for Hopper under ``csrc/``, built by nvcc at first use.
 
 Ported so far: the int4 serving path (``generation/continuous.py`` over
-``models/transformer.py`` with the int4 matmul kernel).
+``models/transformer.py`` with the int4 matmul kernel) and the text-to-text
+DPO train step (``trainers/text_to_text/dpo.py`` over the decoder's
+training path with the flash-attention kernel).  Entry points run on the
+first CUDA device unless given ``device='cpu'``.
 """
 
 __version__ = '0.1.0'

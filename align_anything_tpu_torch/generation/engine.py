@@ -15,6 +15,7 @@ import torch
 from align_anything_tpu_torch.generation.sampling import sample_token
 from align_anything_tpu_torch.models import transformer
 from align_anything_tpu_torch.models.config import ModelConfig
+from align_anything_tpu_torch.utils.tools import default_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +94,7 @@ def generate(params: dict, model_cfg: ModelConfig, gen_cfg: GenerationConfig,
 
 class GenerationEngine:
     """Host-side wrapper: tokenization, prompt bucketing and decoding of
-    the completions."""
+    the completions, on ``device`` (default: the first CUDA device)."""
 
     def __init__(self, model_cfg: ModelConfig, tokenizer,
                  prompt_buckets: tuple[int, ...] = (64, 128, 256, 512, 1024),
@@ -101,7 +102,7 @@ class GenerationEngine:
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
         self.prompt_buckets = prompt_buckets
-        self.device = device
+        self.device = default_device(device)
 
     def _pad_prompts(self, prompts: list[list[int]]
                      ) -> tuple[np.ndarray, np.ndarray]:

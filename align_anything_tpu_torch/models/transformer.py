@@ -6,7 +6,10 @@ tree (see ``models/bridge.py``): layer leaves stacked on a leading
 compute in ``config.compute_dtype`` with fp32 softmax, norms and logits.
 
 ``forward`` covers three paths:
-- no cache (training and scoring): causal attention over the inputs;
+- no cache (training and scoring): ``ops/attention.causal_attention`` over
+  the inputs (the flash-attention kernel on the card), each layer under
+  ``torch.utils.checkpoint`` with the config's remat policy when gradients
+  are being recorded;
 - prefill: a cache and ``cache_offset == 0``; K/V are written at [0, L)
   and attention runs over the fresh K/V;
 - decode: one token per row written at ``cache_offset``, a Python int, a
@@ -15,25 +18,34 @@ compute in ``config.compute_dtype`` with fp32 softmax, norms and logits.
 
 The cache is a plain (L, B, KH, S, D) tensor pair, updated IN PLACE (one
 ``index_put_`` per layer and step), unlike the JAX package's functional
-update.  The layer loop is a Python loop.
+update.  The layer loop is a Python loop.  Prefill and decode attend
+with ``_masked_attention``, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from align_anything_tpu_torch.models.config import ModelConfig
 from align_anything_tpu_torch.models.quantization import Int4Weight
+from align_anything_tpu_torch.ops.attention import causal_attention
 from align_anything_tpu_torch.ops.int4_matmul import int4_matmul
 from align_anything_tpu_torch.ops.norms import layer_norm, rms_norm
 from align_anything_tpu_torch.ops.rope import apply_rope, rope_table
+from align_anything_tpu_torch.utils.tools import default_device
 
 NEG_INF = -2.3819763e38  # close to bf16 -inf without overflow
+# remat policies of the JAX ``_remat_policy`` that the port runs; the others
+# ('dots_nb', 'dots_flash', 'dots_saveable_flash', 'dots_mlp_lean',
+# 'dots_mlp_lean_flash', 'save_attn') raise in ``check_supported``
+REMAT_POLICIES = ('none', 'full', 'dots_saveable', 'save_flash')
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -48,8 +60,8 @@ def check_supported(c: ModelConfig) -> None:
         missing.append('MoE (num_experts)')
     if c.pp_stages > 1:
         missing.append('pipeline stages (pp_stages)')
-    if c.remat != 'none':
-        missing.append('remat')
+    if c.remat not in REMAT_POLICIES:
+        missing.append(f'remat policy {c.remat!r}')
     if c.mrope_section is not None:
         missing.append('m-rope (mrope_section)')
     if (c.sliding_window is not None or c.layer_is_sliding is not None
@@ -81,6 +93,8 @@ class ModelOutput:
 def init_cache(config: ModelConfig, batch_size: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str | None = None) -> KVCache:
+    """Zeroed cache on ``device`` (default: the first CUDA device)."""
+    device = default_device(device)
     shape = (config.num_layers, batch_size, config.num_kv_heads, max_len,
              config.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -103,7 +117,10 @@ def _norm_params(c: ModelConfig, n: int | None, dim: int,
 def init_params(config: ModelConfig, generator: torch.Generator,
                 device: torch.device | str | None = None) -> dict:
     """Random fp32 init with the JAX package's tree and shapes (the numbers
-    differ: convert a JAX tree with ``models/bridge.py`` for parity)."""
+    differ: convert a JAX tree with ``models/bridge.py`` for parity), on
+    ``device`` (default: the first CUDA device; ``generator`` must live
+    there too)."""
+    device = default_device(device)
     c = config
     check_supported(c)
     n, e, h, kh, d, f = (c.num_layers, c.hidden_size, c.num_heads,
@@ -302,8 +319,6 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
         q = apply_rope(q, positions, sin, cos)
         k = apply_rope(k, positions, sin, cos)
 
-    kT = k.transpose(1, 2)                                  # (B, KH, L, D)
-    vT = v.transpose(1, 2)
     prefill = isinstance(cache_offset, int) and cache_offset == 0
     if layer_cache is not None and not prefill:
         if l != 1:
@@ -322,25 +337,30 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
         if attention_mask is not None:
             mask = mask & attention_mask[:, None, None, :].bool()
         attn = _masked_attention(q, ck.to(dtype), cv.to(dtype), mask)
-    else:
-        if layer_cache is not None:
-            # prefill: write [0, L), then attend over the fresh K/V as
-            # stored (rounded to the cache dtype)
-            ck, cv = layer_cache
-            ck[:, :, :l] = kT.to(ck.dtype)
-            cv[:, :, :l] = vT.to(cv.dtype)
-            kT, vT = ck[:, :, :l].to(dtype), cv[:, :, :l].to(dtype)
+    elif layer_cache is not None:
+        # prefill: write [0, L), then attend over the fresh K/V as stored
+        # (rounded to the cache dtype)
+        ck, cv = layer_cache
+        ck[:, :, :l] = k.transpose(1, 2).to(ck.dtype)      # (B, KH, L, D)
+        cv[:, :, :l] = v.transpose(1, 2).to(cv.dtype)
         idx = torch.arange(l, device=x.device)
         mask = (idx[None, :] <= idx[:, None])[None, None]   # (1, 1, L, L)
         if attention_mask is not None:
             mask = mask & attention_mask[:, None, None, :l].bool()
-        attn = _masked_attention(q, kT, vT, mask)
+        attn = _masked_attention(q, ck[:, :, :l].to(dtype),
+                                 cv[:, :, :l].to(dtype), mask)
+    else:
+        attn = causal_attention(q, k, v, attention_mask, causal=True,
+                                impl=c.attention_impl)
 
     out = _wmm('blhd,hde->ble', attn, lp['o']['w'], dtype, n_contract=2)
     if 'b' in lp['o']:
         out = out + lp['o']['b'].to(dtype)
     if c.sandwich_norms:
         out = _norm(c, lp['post_attn_norm'], out)
+    if layer_cache is None and c.remat == 'save_flash':
+        # the JAX 'attn_out' name: 'save_flash' keeps the attention output
+        out = torch.ops.aat_torch.checkpoint_name(out, 'attn_out')
     x = x + out
 
     h = _norm(c, lp['mlp_norm'], x)
@@ -365,6 +385,56 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
     if c.sandwich_norms:
         down = _norm(c, lp['post_mlp_norm'], down)
     return x + down
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op('aat_torch::checkpoint_name', mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` that a remat policy can save by ``name``: the JAX
+    ``checkpoint_name``.  Custom ops may not return their input, hence the
+    copy; the policy saves the copy, so it costs no memory beyond the save."""
+    return x.clone()
+
+
+checkpoint_name.register_fake(lambda x, name: torch.empty_like(x))
+checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None),
+    setup_context=lambda ctx, inputs, output: None)
+
+
+def _saved_ops(remat: str) -> frozenset:
+    """Ops whose outputs a remat policy keeps; the rest are recomputed in
+    the backward (the JAX ``_remat_policy``, ``transformer.py:624``)."""
+    aten = torch.ops.aten
+    if remat == 'dots_saveable':
+        # matmul outputs; the flash kernel's forward is recomputed, as in
+        # JAX where its residuals are anonymous to this policy
+        return frozenset({aten.mm.default, aten.bmm.default,
+                          aten.addmm.default, aten.baddbmm.default})
+    if remat == 'save_flash':
+        # the attention output and the kernel's (out, lse): the backward
+        # runs the backward kernels without re-running the forward kernel
+        return frozenset({torch.ops.aat_torch.checkpoint_name.default,
+                          torch.ops.aat_torch.flash_attention_fwd.default})
+    return frozenset()                    # 'full': nothing saved
+
+
+@functools.lru_cache(maxsize=None)
+def _remat_context(remat: str):
+    """``context_fn`` for ``torch.utils.checkpoint`` under ``remat``."""
+    if remat == 'full':
+        return ckpt.noop_context_fn
+    saved = _saved_ops(remat)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
 
 
 def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
@@ -406,11 +476,19 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
         sin, cos = rope_table(table_len, c.head_dim, theta=c.rope_theta,
                               llama3=c.rope_llama3, device=dev)
 
+    remat = (cache is None and c.remat != 'none'
+             and torch.is_grad_enabled())
     for li in range(c.num_layers):
         lp = layer_params(params['layers'], li)
         layer_cache = None if cache is None else (cache.k[li], cache.v[li])
-        x = _decoder_layer(c, lp, x, positions, sin, cos, attention_mask,
-                           layer_cache, cache_offset)
+        if remat:
+            x = ckpt.checkpoint(_decoder_layer, c, lp, x, positions, sin, cos,
+                                attention_mask, None, cache_offset,
+                                use_reentrant=False,
+                                context_fn=_remat_context(c.remat))
+        else:
+            x = _decoder_layer(c, lp, x, positions, sin, cos, attention_mask,
+                               layer_cache, cache_offset)
 
     x = _norm(c, params['final_norm'], x)
     if not need_logits:

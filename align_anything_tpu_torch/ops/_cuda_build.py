@@ -1,0 +1,75 @@
+"""nvcc build and ctypes binding of the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` has a plain C interface; ``CudaLibrary``
+compiles it for sm_90a into the gitignored ``_build/`` directory at first
+use (one shared library per hash of source + flags, so an edited source is
+rebuilt and an unchanged one reused), loads it with ctypes and lets the
+caller set the argument types.  Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable
+
+CSRC = Path(__file__).resolve().parents[1] / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '--ptxas-options=-v')
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
+
+    if CUDA_HOME is None:
+        raise RuntimeError('CUDA toolkit not found: set CUDA_HOME')
+    return os.path.join(CUDA_HOME, 'bin', 'nvcc')
+
+
+class CudaLibrary:
+    """``csrc/<name>.cu`` built and loaded once per process.
+
+    ``bind(lib)`` sets the ctypes signatures of the loaded library.
+    ``build_log`` holds nvcc's and ptxas's output of the build this process
+    ran (empty when the library was already built)."""
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.source = CSRC / f'{name}.cu'
+        self._bind = bind
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+        self.build_log = ''
+
+    def compile(self) -> Path:
+        """Run nvcc unless the library for this source + flags exists;
+        raises with nvcc's output if it fails."""
+        src = self.source.read_bytes()
+        tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+        so = BUILD_DIR / f'{self.name}_{tag}.so'
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(self.source)],
+                capture_output=True, text=True)
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f'nvcc failed for {self.source}:\n{self.build_log}')
+            os.replace(tmp, so)
+        return so
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.compile()))
+                self._bind(lib)
+                self._lib = lib
+            return self._lib

@@ -24,69 +24,31 @@ tensor cores win (crossover measured on the H100, see PERF.md).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from align_anything_tpu_torch.models.quantization import Int4Weight
+from align_anything_tpu_torch.ops._cuda_build import CudaLibrary
 
 # Largest row count (prod of x's leading dims) sent to the kernel.  Decode
 # runs at M = number of slots (<= 128); larger M is prefill.
 KERNEL_MAX_ROWS = 128
 
-_SRC = Path(__file__).resolve().parents[1] / 'csrc' / 'int4_matmul.cu'
-BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '--ptxas-options=-v')
 _MAX_GRID_Y = 65535
 _TILE_N = 128          # columns per block in the kernel
 
-_build_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-build_log = ''         # nvcc/ptxas output of the last build in this process
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.int4_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
-
-    if CUDA_HOME is None:
-        raise RuntimeError('CUDA toolkit not found: set CUDA_HOME')
-    return os.path.join(CUDA_HOME, 'bin', 'nvcc')
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/int4_matmul.cu`` (once per source hash) into
-    ``BUILD_DIR`` and load it.  Raises if nvcc fails."""
-    global _lib, build_log
-    with _build_lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        so = BUILD_DIR / f'int4_matmul_{tag}.so'
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_SRC)],
-                capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed for {_SRC}:\n{build_log}')
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.int4_matmul_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+# csrc/int4_matmul.cu, built by nvcc at first use (LIBRARY.build_log holds
+# nvcc's and ptxas's output)
+LIBRARY = CudaLibrary('int4_matmul', _bind)
 
 
 def int4_matmul_reference(x: torch.Tensor, values: torch.Tensor,
@@ -133,7 +95,7 @@ def int4_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
         return out
     vec = int(n % 4 == 0 and values.data_ptr() % 4 == 0
               and scales.data_ptr() % 16 == 0)
-    lib = build()
+    lib = LIBRARY.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.int4_matmul_launch(

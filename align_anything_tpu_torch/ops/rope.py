@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from align_anything_tpu_torch.utils.tools import default_device
+
 
 def rope_table(max_len: int, head_dim: int, theta: float = 10000.0,
                scaling: float = 1.0,
@@ -20,7 +22,9 @@ def rope_table(max_len: int, head_dim: int, theta: float = 10000.0,
 
     ``llama3``: (factor, low_freq_factor, high_freq_factor,
     original_max_position_embeddings), the Llama-3.1 frequency-banded
-    scaling (HF modeling_rope_utils._compute_llama3_parameters)."""
+    scaling (HF modeling_rope_utils._compute_llama3_parameters).  On
+    ``device``, by default the first CUDA device."""
+    device = default_device(device)
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     inv_freq = 1.0 / (theta ** exps)

@@ -1,0 +1,120 @@
+"""Optimizer + LR schedule factory: the port of
+``align_anything_tpu/trainers/optimizer.py``.
+
+``optax.chain(clip_by_global_norm, adamw(schedule))`` becomes
+``torch.optim.AdamW`` over the leaves of a param tree plus a global-norm
+clip and a schedule, with optax's semantics: the learning rate of update t
+(counted from 0) is ``schedule(t)``; weight decay is decoupled; eps is added
+outside the square root; the clip scales by max_norm / norm only when the
+norm reaches max_norm, and ``max_grad_norm=0`` turns it off.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable
+
+import torch
+
+from align_anything_tpu_torch.utils.tools import param_leaves
+
+Schedule = Callable[[int], float]
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    """optax.linear_schedule: init -> end over ``steps``, then end."""
+    return lambda t: init + (end - init) * min(max(t, 0), steps) / steps
+
+
+def _cosine(init: float, steps: int) -> Schedule:
+    """optax.cosine_decay_schedule with alpha 0."""
+    return lambda t: init * 0.5 * (1 + math.cos(
+        math.pi * min(max(t, 0), steps) / steps))
+
+
+def make_schedule(learning_rate: float, lr_scheduler_type: str,
+                  total_steps: int, lr_warmup_ratio: float = 0.0) -> Schedule:
+    """Constant, linear or cosine decay after an optional linear warmup."""
+    warmup_steps = int(lr_warmup_ratio * total_steps)
+    kind = (lr_scheduler_type or 'constant').lower()
+    decay_steps = max(total_steps - warmup_steps, 1)
+    if kind == 'constant':
+        after: Schedule = lambda t: learning_rate  # noqa: E731
+    elif kind == 'linear':
+        after = _linear(learning_rate, 0.0, decay_steps)
+    elif kind == 'cosine':
+        after = _cosine(learning_rate, decay_steps)
+    else:
+        raise ValueError(f'unknown lr_scheduler_type: {lr_scheduler_type}')
+    if warmup_steps == 0:
+        return after
+    warmup = _linear(0.0, learning_rate, warmup_steps)
+    # optax.join_schedules: the second schedule sees t - boundary
+    return lambda t: warmup(t) if t < warmup_steps else after(t - warmup_steps)
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over all elements, fp32, on device."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+class ClippedAdamW:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule,
+    b1, b2, eps, weight_decay))`` for torch.
+
+    ``init(params)`` makes the ``torch.optim.AdamW`` over the tree's leaves
+    (its state holds the moments); ``apply_(optimizer, step)`` clips the
+    leaves' ``.grad`` in place, sets the learning rate to ``schedule(step)``
+    and steps, updating the params in place.  It returns the global norm of
+    the gradients before clipping."""
+
+    def __init__(self, schedule: Schedule, b1: float, b2: float, eps: float,
+                 weight_decay: float, max_grad_norm: float):
+        self.schedule = schedule
+        self.betas = (b1, b2)
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.max_grad_norm = max_grad_norm
+
+    def init(self, params: dict) -> torch.optim.AdamW:
+        return torch.optim.AdamW(param_leaves(params), lr=self.schedule(0),
+                                 betas=self.betas, eps=self.eps,
+                                 weight_decay=self.weight_decay)
+
+    def apply_(self, optimizer: torch.optim.Optimizer,
+               step: int) -> torch.Tensor:
+        grads = [p.grad for group in optimizer.param_groups
+                 for p in group['params'] if p.grad is not None]
+        norm = global_norm(grads)
+        if self.max_grad_norm:
+            scale = torch.where(norm < self.max_grad_norm,
+                                torch.ones_like(norm),
+                                self.max_grad_norm / norm)
+            for g in grads:
+                g.mul_(scale)
+        for group in optimizer.param_groups:
+            group['lr'] = self.schedule(step)
+        optimizer.step()
+        return norm
+
+
+def make_optimizer(learning_rate: float, *,
+                   lr_scheduler_type: str = 'constant', total_steps: int = 1, lr_warmup_ratio: float = 0.0,
+                   weight_decay: float = 0.0,
+                   adam_betas: tuple[float, float] = (0.9, 0.95),
+                   adam_epsilon: float = 1e-8,
+                   max_grad_norm: float = 1.0,
+                   gradient_accumulation_steps: int = 1,
+                   frozen_labels: dict | None = None,
+                   ) -> tuple[ClippedAdamW, Schedule]:
+    """(optimizer, schedule), the JAX ``make_optimizer``'s signature."""
+    if frozen_labels is not None:
+        raise NotImplementedError('frozen modules (frozen_labels) are not '
+                                  'ported yet')
+    if gradient_accumulation_steps > 1:
+        raise NotImplementedError('gradient accumulation is not ported yet')
+    schedule = make_schedule(learning_rate, lr_scheduler_type, total_steps,
+                             lr_warmup_ratio)
+    return ClippedAdamW(schedule, adam_betas[0], adam_betas[1], adam_epsilon,
+                        weight_decay, max_grad_norm), schedule

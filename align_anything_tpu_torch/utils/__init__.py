@@ -1,3 +1,11 @@
-from align_anything_tpu_torch.utils.tools import bucket_length, left_padding
+from align_anything_tpu_torch.utils.tools import (
+    bucket_length,
+    default_device,
+    gather_log_probabilities,
+    left_padding,
+    param_leaves,
+    tree_map,
+)
 
-__all__ = ['bucket_length', 'left_padding']
+__all__ = ['bucket_length', 'default_device', 'gather_log_probabilities',
+           'left_padding', 'param_leaves', 'tree_map']

@@ -1,10 +1,38 @@
-"""Host-side helpers used by the generation engines."""
+"""Helpers shared across the port: the device default, param-tree walks,
+host-side padding, and the log-probability gather of
+``align_anything_tpu/utils/tools.py``."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
+import torch
+
+
+def default_device(device: torch.device | str | None = None) -> torch.device:
+    """``device`` as given, else the first CUDA device.  Raises where there
+    is none: the port runs on the card unless the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           'CPU')
+    return torch.device('cuda', 0)
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` applied to every leaf of a nested dict; same structure out."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def param_leaves(tree: Any) -> list[torch.Tensor]:
+    """Tensor leaves of a nested dict, in a fixed (insertion) order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in param_leaves(v)]
+    return [tree]
 
 
 def left_padding(sequences: Sequence[np.ndarray], padding_value: int | float,
@@ -25,3 +53,18 @@ def bucket_length(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def gather_log_probabilities(logits: torch.Tensor,
+                             labels: torch.Tensor) -> torch.Tensor:
+    """Log-probabilities of ``labels`` under ``logits``: (B, L, V), (B, L)
+    -> (B, L) fp32, as logit[label] - logsumexp(logits).  Out-of-vocab
+    labels do not poison the batch: as JAX ``take_along_axis(mode='clip')``
+    does, a negative label counts from the end and the result is clipped
+    into [0, V)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    v = logits.shape[-1]
+    idx = labels.to(torch.long)
+    idx = torch.where(idx < 0, idx + v, idx).clamp(0, v - 1)
+    return torch.gather(logits, -1, idx[..., None]).squeeze(-1) - lse

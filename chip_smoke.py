@@ -5,24 +5,57 @@
 
 Phases (any failure raises and the run exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
-  1. build the hand-written kernels from csrc/ with nvcc (sm_90a);
+  1. build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
+     per source, started together;
   2. hold the int4 matmul kernel against its plain PyTorch version at the
-     serving path's shapes (Llama-3-8B widths) and time both;
+     serving path's shapes (Llama-3-8B widths) and time both, beside the
+     bound and PyTorch's own int4 GEMM;
   3. build Llama-3-8B-geometry int4-COMPUTE weights on the card from a seed,
      layer by layer, without holding the fp model;
   4. serve ~48 requests through the continuous-batching engine's serving
      mode in a worker thread, as the HTTP server's worker does; check every
      request's budget, the kernel's launch count, and one decode step
-     against the plain int4 path.
+     against the plain int4 path;
+  5. report the flash-attention kernels' registers, spills and shared
+     memory;
+  6. hold the flash-attention forward (out, lse) and backward (dq, dk, dv)
+     against their plain versions at the training shapes, check that the
+     backward repeats bit for bit, and time kernel, plain version and
+     ``scaled_dot_product_attention`` (a yardstick only) at the two main
+     shapes;
+  7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
+     grads and AdamW moments of all 32 layers would not fit in 80 GB):
+     4 steps of ``DPOTrainer.step`` with remat 'dots_saveable'; step 1's
+     loss is ln 2, the attention kernels run on every layer of every step,
+     and step 1 recomputed with the kernels patched to their plain versions
+     agrees;
+  8. ``bench.py``'s DPO config at its shape (0.4 B params, 6 pairs, seq
+     1024), timed: tokens/s per GPU and MFU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
+
+    python3 chip_smoke.py --profile   # instead: trace one DPO step of the
+                                      # phase 7 and phase 8 configs
+
+``--profile`` runs no checks: after a warm-up step it traces one step of
+each DPO config with ``torch.profiler`` and prints device time by kernel,
+grouped, and the device's idle share of the step.
+
+    python3 chip_smoke.py --planted-faults
+
+builds three broken copies of ``flash_attention.cu`` (one tile skipped
+for the second half of the rows, in the forward, dQ or dK/dV kernel) into
+the gitignored build directory, and fails unless phase 6's check passes
+the kernel as written and fails each broken copy; it also prints phase
+7's step-1 recompute under each build.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -30,17 +63,24 @@ import sys
 import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import align_anything_tpu_torch
 from align_anything_tpu_torch.generation import (ContinuousBatchingEngine,
                                                  GenerationConfig)
 from align_anything_tpu_torch.models import llama_config, transformer
 from align_anything_tpu_torch.models import quantization as q
+from align_anything_tpu_torch.ops import flash_attention as fa
 from align_anything_tpu_torch.ops import int4_matmul as k2
+from align_anything_tpu_torch.trainers.optimizer import (global_norm,
+                                                          make_optimizer)
+from align_anything_tpu_torch.trainers.text_to_text.dpo import DPOTrainer
+from align_anything_tpu_torch.utils.tools import param_leaves, tree_map
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -54,6 +94,34 @@ GROUP = 64
 SHAPES = [('qkv', 4096, 6144), ('o', 4096, 4096), ('gate_up', 4096, 28672),
           ('down', 14336, 4096), ('head', 4096, 128256)]
 TOL = {'bfloat16': 1e-2, 'float32': 1e-4}   # x max|plain|
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
+# cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+# flash attention at the training path's shapes:
+# (name, B, L, H, KH, D, causal, window, padded rows, dtype, timed)
+FLASH_SHAPES = [
+    ('bench', 12, 1024, 16, 8, 64, True, None, 0, torch.bfloat16, True),
+    ('llama8b', 4, 1024, 32, 8, 128, True, None, 2, torch.bfloat16, True),
+    ('d256', 2, 512, 8, 4, 256, True, None, 1, torch.bfloat16, False),
+    ('window256', 2, 1024, 16, 8, 64, True, 256, 1, torch.bfloat16, False),
+    ('full', 2, 1024, 16, 8, 128, False, None, 1, torch.bfloat16, False),
+    ('ragged1000', 2, 1000, 16, 8, 128, True, None, 1, torch.bfloat16, False),
+    ('fp32', 2, 512, 8, 4, 128, True, None, 1, torch.float32, False),
+]
+# x each row's max|plain| (row_scaled_error).  bf16: kernel and plain both
+# round an fp32 result once, so they differ by at most one ulp, which is
+# 2^-8 to 2^-7 of the row's max: the limit leaves 2.5x room over that.
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+LSE_TOL = 1e-3
+DPO_LAYERS, DPO_PAIRS, DPO_SEQ, DPO_STEPS = 4, 2, 1024, 4
+# step 1 through the kernels against the same step through the plain
+# attention, relative: per-sequence response log-prob sums, and the grad
+# norm.  H100 readings were 2.8e-5 and 7e-7 (bf16 rounding differences);
+# with one tile skipped in any one attention kernel (--planted-faults) the
+# grad norm moved by 2.5e-3 or more.
+DPO_SUM_TOL, DPO_NORM_TOL = 2e-4, 2e-5
+BENCH_PAIRS, BENCH_SEQ, BENCH_STEPS = 6, 1024, 4      # bench.py:82, :124
 
 
 def log(msg: str) -> None:
@@ -84,12 +152,51 @@ def time_ms(fn, iters: int, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of the operations at
+    the peak rate of ``dtype`` and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
+                                       else 'bytes')
+
+
+def int4pack(qw, k: int, n: int):
+    """PyTorch's own int4-weight GEMM operands for ``qw`` (tinygemm layout:
+    unsigned nibbles q + 8 with zero point 0, bf16 scales), packed once,
+    outside any timed region."""
+    low, high = q.unpack_int4(qw.values)
+    w = (torch.cat([low, high], 1).reshape(k, n) + 8).t().contiguous()
+    packed = torch._convert_weight_to_int4pack(
+        (w[:, ::2] << 4 | w[:, 1::2]).to(torch.uint8), 8)
+    sc = qw.scales.reshape(k // GROUP, n)
+    return packed, torch.stack([sc, torch.zeros_like(sc)], -1).to(
+        torch.bfloat16).contiguous()
+
+
+def library_int4_ms(qw, x, k: int, n: int, flush) -> tuple[float | None, str]:
+    """Time of ``torch._weight_int4pack_mm`` on the same weight and x, or
+    None and the reason where it does not take the shape."""
+    try:
+        packed, sz = int4pack(qw, k, n)
+        out = torch._weight_int4pack_mm(x, packed, GROUP, sz)
+        ref = k2.int4_matmul_reference(x, qw.values,
+                                       qw.scales.reshape(k // GROUP, n),
+                                       torch.float32)
+        err = float((out.float() - ref).abs().max() / ref.abs().max())
+        ms = time_ms(lambda: torch._weight_int4pack_mm(x, packed, GROUP, sz),
+                     10, flush)
+        return ms, f'rel_err_vs_plain={err:.2e}'
+    except (RuntimeError, TypeError, AttributeError) as exc:
+        return None, f'{type(exc).__name__}: {str(exc).splitlines()[0]}'
+
+
 def check_kernel(dev) -> dict:
     """Phase 2: kernel against plain at every serving shape."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     worst = 0.0
-    step_ms = {'kernel': 0.0, 'plain': 0.0}
+    step_ms = {'kernel': 0.0, 'plain': 0.0, 'bound': 0.0, 'library': 0.0}
+    bound_kind: dict = {}           # 'bytes' / 'operations' -> ms
     n_layers = llama_config().num_layers
     for name, k, n in SHAPES:
         w = torch.randn((k, n), generator=gen, device=dev,
@@ -113,10 +220,15 @@ def check_kernel(dev) -> dict:
                     x, vals, sc, dtype), 10, flush)
                 pms = time_ms(lambda: k2.int4_matmul_reference(
                     x, vals, sc, dtype), 3, flush)
+                bms, by = bound(2 * m * k * n, vals.numel() + sc.numel() * 4
+                                + x.numel() * 2
+                                + m * n * (4 if dtype == torch.float32 else 2),
+                                torch.bfloat16)
                 log(f'phase2 {name:8s} M={m:<4d} K={k:<6d} N={n:<7d} '
                     f'out={str(dtype)[6:]:9s} max_abs_err={err:.3e} '
                     f'max|plain|={scale:.3e} tol={tol:g} '
                     f'kernel_ms={kms:.4f} plain_ms={pms:.4f} '
+                    f'bound_ms={bms:.4f} ({by}) '
                     f'{"ok" if ok else "FAIL"}')
                 if not ok:
                     raise AssertionError(
@@ -127,8 +239,17 @@ def check_kernel(dev) -> dict:
                 if m == DECODE_SLOTS and (
                         (name == 'head') == (dtype == torch.float32)):
                     reps = 1 if name == 'head' else n_layers
+                    lms, note = library_int4_ms(qw, x, k, n, flush)
+                    log(f'phase2 library {name:8s} M={m} '
+                        f'torch._weight_int4pack_mm ms='
+                        f'{"none" if lms is None else f"{lms:.4f}"} ({note})')
                     step_ms['kernel'] += reps * kms
                     step_ms['plain'] += reps * pms
+                    step_ms['bound'] += reps * bms
+                    bound_kind[by] = bound_kind.get(by, 0.0) + reps * bms
+                    step_ms['library'] = (None if lms is None
+                                          or step_ms['library'] is None
+                                          else step_ms['library'] + reps * lms)
         if name in ('gate_up', 'down'):
             # crossover: kernel against the dense path that _wmm takes above
             # KERNEL_MAX_ROWS (dequantize to bf16, bf16 matmul)
@@ -164,10 +285,15 @@ def check_kernel(dev) -> dict:
                 and err <= TOL['float32'] * float(ref.abs().max())):
             raise AssertionError(f'int4 kernel on layer view {li} disagrees')
         worst = max(worst, err)
+    lib = step_ms['library']
     log(f'phase2 one decode step (32 slots, 4x32 layer matmuls + head): '
-        f'kernel_ms={step_ms["kernel"]:.3f} plain_ms={step_ms["plain"]:.3f}')
+        f'kernel_ms={step_ms["kernel"]:.3f} plain_ms={step_ms["plain"]:.3f} '
+        f'bound_ms={step_ms["bound"]:.3f} '
+        f'library_ms={"none" if lib is None else f"{lib:.3f}"}')
     return {'max_abs_err': worst, 'ms': step_ms['kernel'],
-            'plain_ms': step_ms['plain']}
+            'plain_ms': step_ms['plain'], 'bound_ms': step_ms['bound'],
+            'bound_by': max(bound_kind, key=bound_kind.get),
+            'library_ms': lib}
 
 
 def build_params(cfg, dev) -> dict:
@@ -321,6 +447,476 @@ def recompute_step(params, cfg, prompt, out, dev):
     return kern.float(), plain.float(), out[j + 1]
 
 
+def build_kernels() -> dict:
+    """Phase 1: one nvcc per source, all started together."""
+    libs = {'int4_matmul': k2.LIBRARY, 'flash_attention': fa.LIBRARY}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(lib.load) for name, lib in libs.items()}
+        for fut in futures.values():
+            fut.result()
+    log(f'phase1 built {", ".join(libs)} in {time.perf_counter() - t0:.1f} s')
+    return libs
+
+
+def ptxas_lines(build_log: str) -> list[str]:
+    return [line.strip() for line in build_log.splitlines()
+            if 'registers' in line or 'spill' in line]
+
+
+def flash_inputs(b, l, h, kh, d, pad_rows, dtype, dev, seed):
+    """q, k, v, mask, dout from a seed; the last ``pad_rows`` rows end
+    100-200 tokens early."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v, dout = rnd(b, l, h, d), rnd(b, l, kh, d), rnd(b, l, kh, d), \
+        rnd(b, l, h, d)
+    mask = None
+    if pad_rows:
+        rng = np.random.default_rng(seed)
+        mask = torch.ones((b, l), dtype=torch.int32, device=dev)
+        for r in range(b - pad_rows, b):
+            mask[r, l - int(rng.integers(100, 201)):] = 0
+    return q, k, v, mask, dout
+
+
+def flash_bounds(b, l, h, kh, d, causal, window, mask, dtype, dev):
+    """(fwd, bwd) bounds, each (ms, kind), for this run's inputs: 4*D FLOPs
+    per visible (query, key) pair and head forward, 10*D backward (five
+    products); each input read once, each output written once."""
+    i = torch.arange(l, device=dev)[:, None]
+    j = torch.arange(l, device=dev)[None, :]
+    vis = torch.ones((l, l), dtype=torch.bool, device=dev)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= (i - j) < window
+    keys = (mask.bool() if mask is not None
+            else torch.ones((b, l), dtype=torch.bool, device=dev))
+    pairs = int((vis[None] & keys[:, None, :]).sum()) * h
+    e = torch.empty((), dtype=dtype).element_size()
+    qo, kv, lse = b * l * h * d * e, b * l * kh * d * e, b * h * l * 4
+    extra = lse + (0 if mask is None else b * l)
+    return (bound(4 * d * pairs, 2 * qo + 2 * kv + extra, dtype),
+            bound(10 * d * pairs, 4 * qo + 4 * kv + extra, dtype))
+
+
+def sdpa_ms(q, k, v, dout, causal, flush) -> tuple[float, float]:
+    """The library yardstick, timed only: PyTorch's fused attention on the
+    same q, k, v (heads-first views), causal, no padding mask."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd, 10, flush)
+    out = fwd()
+    g = dout.transpose(1, 2)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
+                                                 retain_graph=True), 10, flush)
+    return fwd_ms, bwd_ms
+
+
+def check_flash(dev) -> dict:
+    """Phase 6: the flash kernels against their plain versions."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    worst = {'fwd': 0.0, 'bwd': 0.0}
+    timed = {}
+    for seed, (name, b, l, h, kh, d, causal, window, pad_rows, dtype,
+               is_timed) in enumerate(FLASH_SHAPES):
+        q, k, v, mask, dout = flash_inputs(b, l, h, kh, d, pad_rows, dtype,
+                                           dev, SEED + 20 + seed)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, mask, causal, window)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                            causal, window)
+        again = fa.flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                            causal, window)
+        rout, rlse = fa.flash_attention_fwd_reference(q, k, v, mask, causal,
+                                                      window)
+        rgrads = fa.flash_attention_bwd_reference(q, k, v, mask, out, lse,
+                                                  dout, causal, window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        parts = []
+        for label, got, ref in (('out', out, rout),
+                                ('dq', grads[0], rgrads[0]),
+                                ('dk', grads[1], rgrads[1]),
+                                ('dv', grads[2], rgrads[2])):
+            err = float((got.float() - ref.float()).abs().max())
+            rel = fa.row_scaled_error(got, ref)
+            parts.append(f'{label} {rel:.2e} (abs {err:.2e})')
+            if not (bool(torch.isfinite(got).all()) and rel <= tol):
+                raise AssertionError(f'flash {label} disagrees at {name}: '
+                                     f'{rel} > {tol} x the row max|plain|')
+            key = 'fwd' if label == 'out' else 'bwd'
+            worst[key] = max(worst[key], err)
+        lse_err = float((lse - rlse).abs().max())
+        same = all(torch.equal(g1, g2) for g1, g2 in zip(grads, again))
+        log(f'phase6 {name:10s} B={b} L={l} H={h} KH={kh} D={d} '
+            f'causal={causal} window={window} pad_rows={pad_rows} '
+            f'{str(dtype)[6:]}: max over rows of max|kernel-plain|/max|plain| '
+            f'{", ".join(parts)} (tol {tol:g}); lse {lse_err:.2e} '
+            f'(tol {LSE_TOL:g}); backward repeats bit for bit: {same}')
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f'flash lse disagrees at {name}: {lse_err}')
+        if not same:
+            raise AssertionError(f'flash backward not deterministic at {name}')
+        if is_timed:
+            (fb, fby), (bb, bby) = flash_bounds(b, l, h, kh, d, causal, window,
+                                                mask, dtype, dev)
+            lib_f, lib_b = sdpa_ms(q, k, v, dout, causal, flush)
+            t = {'ms': time_ms(lambda: fa.flash_attention_fwd_cuda(
+                     q, k, v, mask, causal, window), 10, flush),
+                 'bwd_ms': time_ms(lambda: fa.flash_attention_bwd_cuda(
+                     q, k, v, mask, out, lse, dout, causal, window), 10,
+                     flush),
+                 'plain_ms': time_ms(lambda: fa.flash_attention_fwd_reference(
+                     q, k, v, mask, causal, window), 3, flush),
+                 'plain_bwd_ms': time_ms(
+                     lambda: fa.flash_attention_bwd_reference(
+                         q, k, v, mask, out, lse, dout, causal, window), 3,
+                     flush),
+                 'bound_ms': fb, 'bound_by': fby, 'bwd_bound_ms': bb,
+                 'bwd_bound_by': bby, 'library_ms': lib_f,
+                 'library_bwd_ms': lib_b}
+            timed[name] = t
+            log(f'phase6 {name:10s} time: forward kernel_ms={t["ms"]:.4f} '
+                f'plain_ms={t["plain_ms"]:.4f} sdpa_ms={lib_f:.4f} '
+                f'bound_ms={fb:.4f} ({fby}); backward kernel_ms='
+                f'{t["bwd_ms"]:.4f} plain_ms={t["plain_bwd_ms"]:.4f} '
+                f'sdpa_ms={lib_b:.4f} bound_ms={bb:.4f} ({bby})')
+        del q, k, v, mask, dout, out, lse, grads, again, rout, rlse, rgrads
+    return {'worst': worst, 'timed': timed}
+
+
+def dpo_flops_per_token(n_params: int, seq: int, hidden: int,
+                        layers: int) -> float:
+    """``bench.py:68``: PaLM-convention FLOPs per trained token of a DPO
+    step, policy fwd+bwd (6N + 12*L*h*layers) + frozen reference fwd
+    (2N + 4*L*h*layers)."""
+    return 8 * n_params + 16 * seq * hidden * layers
+
+
+def dpo_batch(cfg, pairs: int, seq: int, dev, seed: int,
+              pad: bool) -> dict:
+    """Better rows above worse; ``pad``: the worse rows end 64-192 tokens
+    early.  The response is the second half (``bench.py:98-100``)."""
+    rng = np.random.default_rng(seed)
+    b = 2 * pairs
+    ids = rng.integers(0, min(cfg.vocab_size, 32000), size=(b, seq))
+    mask = np.ones((b, seq), np.int64)
+    if pad:
+        for r in range(pairs, b):
+            n = int(rng.integers(64, 193))
+            mask[r, seq - n:] = 0
+            ids[r, seq - n:] = cfg.pad_token_id
+    rmask = (np.arange(seq - 1)[None, :] >= seq // 2) & (mask[:, 1:] == 1)
+    return {'input_ids': torch.as_tensor(ids, device=dev),
+            'attention_mask': torch.as_tensor(mask, device=dev),
+            'response_mask': torch.as_tensor(rmask, dtype=torch.float32,
+                                             device=dev)}
+
+
+def dpo_setup(cfg, dev, seed: int, **opt):
+    """fp32 params from a seed, the reference as a bf16 copy
+    (``bench.py:88``), the trainer and its state."""
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    ref = tree_map(lambda t: t.detach().to(torch.bfloat16), params)
+    tx, schedule = make_optimizer(1e-6, max_grad_norm=1.0, **opt)
+    trainer = DPOTrainer(cfg, tx, schedule)
+    return trainer, trainer.init_state(params), ref
+
+
+def step1_quantities(trainer, params, ref, batch) -> tuple:
+    """Per-sequence response log-prob sums and the gradient norm of the
+    DPO loss at ``params`` (step 1's, recomputed)."""
+    for p in param_leaves(params):
+        p.grad = None
+    logp = trainer.compute_token_logprobs(params, batch)
+    with torch.no_grad():
+        ref_logp = trainer.compute_token_logprobs(ref, batch)
+    trainer.preference_loss(logp, ref_logp, batch)['loss'].backward()
+    norm = global_norm([p.grad for p in param_leaves(params)])
+    sums = (logp.detach() * batch['response_mask']).sum(-1)
+    return sums.double().cpu(), float(norm)
+
+
+def train_dpo(dev, smi) -> dict:
+    """Phase 7: DPO at Llama-3-8B widths, 4 layers."""
+    cfg = llama_config(layers=DPO_LAYERS).replace(
+        compute_dtype='bfloat16', remat='dots_saveable')
+    trainer, state, ref = dpo_setup(cfg, dev, SEED + 10)
+    init = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                    state.params)
+    n_params = sum(t.numel() for t in param_leaves(state.params))
+    batch = dpo_batch(cfg, DPO_PAIRS, DPO_SEQ, dev, SEED + 11, pad=True)
+    tokens = 2 * DPO_PAIRS * DPO_SEQ
+    log(f'phase7 config: Llama-3-8B widths (vocab {cfg.vocab_size}, hidden '
+        f'{cfg.hidden_size}, {cfg.num_heads} heads, {cfg.num_kv_heads} KV '
+        f'heads, D {cfg.head_dim}, MLP {cfg.mlp_dim}), {cfg.num_layers} '
+        f'layers (cut from 32), {n_params / 1e9:.3f} B params, remat '
+        f'{cfg.remat}; {DPO_PAIRS} pairs x seq {DPO_SEQ}, worse rows padded')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    losses, norms, seconds = [], [], []
+    for i in range(DPO_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, ref, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(metrics['train/loss']))
+        norms.append(float(metrics['train/grad_norm']))
+        log(f'phase7 step {i + 1}: loss={losses[-1]:.9f} '
+            f'grad_norm={norms[-1]:.6e} reward_accuracy='
+            f'{float(metrics["train/reward_accuracy"]):.3f} '
+            f'seconds={seconds[-1]:.4f}')
+    launches = {'fwd': fa.flash_attention_fwd_cuda.launches,
+                'bwd': fa.flash_attention_bwd_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    need = {'fwd': DPO_STEPS * 3 * cfg.num_layers,
+            'bwd': DPO_STEPS * cfg.num_layers}
+    step_s = statistics.median(seconds[1:])
+    tps = tokens / step_s
+    mfu = tps * dpo_flops_per_token(n_params, DPO_SEQ, cfg.hidden_size,
+                                    cfg.num_layers) \
+        / PEAK_FLOPS[torch.bfloat16]
+    log(f'phase7 step time {step_s:.4f} s (median of steps 2-{DPO_STEPS}), '
+        f'{tps:.1f} tokens/s, peak memory {peak / 1e9:.3f} GB, MFU '
+        f'{mfu:.4f} (bench.py convention, 989 TFLOP/s); flash launches '
+        f'fwd {launches["fwd"]} (need >= {need["fwd"]}) bwd '
+        f'{launches["bwd"]} (need >= {need["bwd"]}); card {smi}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'step 1 loss {losses[0]} != ln 2')
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError('non-finite loss or grad norm')
+    if len(set(losses)) == 1:
+        raise AssertionError('the loss did not move over the steps')
+    for kind in need:
+        if launches[kind] < need[kind]:
+            raise AssertionError(f'flash {kind} launched {launches[kind]} '
+                                 f'times, expected >= {need[kind]}')
+
+    del state
+    torch.cuda.empty_cache()
+    sums, norm = step1_quantities(trainer, init, ref, batch)
+    with mock.patch.object(fa, 'flash_attention_fwd_cuda',
+                           fa.flash_attention_fwd_reference), \
+            mock.patch.object(fa, 'flash_attention_bwd_cuda',
+                              fa.flash_attention_bwd_reference):
+        psums, pnorm = step1_quantities(trainer, init, ref, batch)
+    diff = (sums - psums).abs()
+    rel = float((diff / psums.abs().clamp_min(1e-30)).max())
+    norm_rel = abs(norm - pnorm) / abs(pnorm)
+    log(f'phase7 step 1 recomputed: log-prob sums kernel {sums.tolist()} '
+        f'plain {psums.tolist()} (max rel diff {rel:.3e}, tol '
+        f'{DPO_SUM_TOL:g}); grad norm kernel {norm:.9e} plain {pnorm:.9e} '
+        f'(rel diff {norm_rel:.3e}, tol {DPO_NORM_TOL:g}; step 1 reported '
+        f'{norms[0]:.9e})')
+    if not (bool((diff <= DPO_SUM_TOL * psums.abs()).all())
+            and norm_rel <= DPO_NORM_TOL):
+        raise AssertionError('DPO step 1 disagrees with the plain attention')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'peak_gb': peak / 1e9, 'mfu': mfu}
+
+
+def bench_dpo(dev, smi) -> dict:
+    """Phase 8: ``bench.py``'s ``bench_t2t_dpo`` config and shape, timed:
+    ~0.4 B params, 6 pairs, seq 1024, remat 'dots_saveable', the optax
+    AdamW defaults ``bench.py`` runs (b2 0.999, weight decay 1e-4)."""
+    cfg = llama_config(vocab_size=32768, hidden=1024, layers=20, heads=16,
+                       kv_heads=8, mlp=4096, max_pos=2048).replace(
+        compute_dtype='bfloat16', remat='dots_saveable')
+    trainer, state, ref = dpo_setup(cfg, dev, SEED + 30,
+                                    adam_betas=(0.9, 0.999),
+                                    weight_decay=1e-4)
+    n_params = sum(t.numel() for t in param_leaves(state.params))
+    pairs, seq, steps = BENCH_PAIRS, BENCH_SEQ, BENCH_STEPS
+    batch = dpo_batch(cfg, pairs, seq, dev, SEED + 31, pad=False)
+    state, metrics = trainer.step(state, ref, batch)          # warm-up
+    first = float(metrics['train/loss'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = trainer.step(state, ref, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tps = 2 * pairs * seq * steps / dt
+    mfu = tps * dpo_flops_per_token(n_params, seq, cfg.hidden_size,
+                                    cfg.num_layers) \
+        / PEAK_FLOPS[torch.bfloat16]
+    last = float(metrics['train/loss'])
+    log(f'phase8 bench_t2t_dpo: {n_params / 1e9:.3f} B params, {pairs} '
+        f'pairs x seq {seq}, {steps} steps in {dt:.4f} s: '
+        f'tokens_per_sec_per_gpu={tps:.1f} mfu={mfu:.4f} step_time_s='
+        f'{dt / steps:.4f} peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; loss {first:.6f}'
+        f' -> {last:.6f}; card {smi}')
+    if not (math.isfinite(last) and abs(first - math.log(2)) <= 1e-6):
+        raise AssertionError('bench DPO loss is off')
+    return {'tokens_per_s': tps, 'mfu': mfu}
+
+
+# --planted-faults: flash_attention.cu with one tile skipped for the second
+# half of the rows.  (name, loop text, the broken loop, which occurrence)
+PLANTED_FAULTS = (
+    ('forward skips its last key tile', 'k0 < k_hi; k0 += BK',
+     'k0 < k_hi - (q0 >= L / 2 ? BK : 0); k0 += BK', 0),
+    ('dQ skips its last key tile', 'k0 < k_hi; k0 += BK',
+     'k0 < k_hi - (q0 >= L / 2 ? BK : 0); k0 += BK', 1),
+    ('dK/dV skips its last query tile', 'q0 < q_hi; q0 += BQ',
+     'q0 < q_hi - (k0 >= L / 2 ? BQ : 0); q0 += BQ', 0),
+)
+
+
+def planted_source(src: str, loop: str, broken: str, which: int) -> str:
+    at = -1
+    for _ in range(which + 1):
+        at = src.index(loop, at + 1)
+    return src[:at] + broken + src[at + len(loop):]
+
+
+def planted_faults(dev, smi) -> None:
+    """``--planted-faults``: build the kernel with each fault of
+    ``PLANTED_FAULTS`` (into the gitignored build directory) and show that
+    phase 6's per-row check fails on it at the two main shapes where the
+    kernel as written passes; report the whole-tensor measure it replaced
+    and phase 7's step-1 recompute under each build."""
+    from align_anything_tpu_torch.ops import _cuda_build  # noqa: PLC0415
+
+    src = fa.LIBRARY.source.read_text()
+    builds = {'as written': fa.LIBRARY}
+    for name, loop, broken, which in PLANTED_FAULTS:
+        path = _cuda_build.BUILD_DIR / 'planted' / f'fault{len(builds)}.cu'
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(planted_source(src, loop, broken, which))
+        lib = _cuda_build.CudaLibrary('flash_attention', fa._bind)
+        lib.source = path
+        builds[name] = lib
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda lib: lib.load(), builds.values()))
+    for name, lib in builds.items():
+        with mock.patch.object(fa, 'LIBRARY', lib):
+            for si, shape in enumerate(FLASH_SHAPES[:2]):
+                sname, b, l, h, kh, d, causal, window, pad_rows, dtype, _ = \
+                    shape
+                q, k, v, mask, dout = flash_inputs(
+                    b, l, h, kh, d, pad_rows, dtype, dev, SEED + 20 + si)
+                out, lse = fa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+                grads = fa.flash_attention_bwd_cuda(q, k, v, mask, out, lse,
+                                                    dout, causal)
+                rout, _ = fa.flash_attention_fwd_reference(q, k, v, mask,
+                                                           causal)
+                rgrads = fa.flash_attention_bwd_reference(
+                    q, k, v, mask, out, lse, dout, causal)
+                rows, parts = {}, []
+                for label, got, ref in zip(('out', 'dq', 'dk', 'dv'),
+                                           (out, *grads), (rout, *rgrads)):
+                    whole = float((got.float() - ref.float()).abs().max()
+                                  / ref.float().abs().max())
+                    rows[label] = fa.row_scaled_error(got, ref)
+                    parts.append(f'{label} per row {rows[label]:.3e} whole '
+                                 f'{whole:.3e}')
+                log(f'planted [{name}] {sname}: {", ".join(parts)} (limit '
+                    f'{FLASH_TOL[dtype]:g} on both)')
+                caught = any(r > FLASH_TOL[dtype] for r in rows.values())
+                if caught != (lib is not builds['as written']):
+                    raise AssertionError(f'the phase 6 check is wrong on '
+                                         f'[{name}] at {sname}')
+    cfg = llama_config(layers=DPO_LAYERS).replace(
+        compute_dtype='bfloat16', remat='dots_saveable')
+    trainer, state, ref = dpo_setup(cfg, dev, SEED + 10)
+    batch = dpo_batch(cfg, DPO_PAIRS, DPO_SEQ, dev, SEED + 11, pad=True)
+    with mock.patch.object(fa, 'flash_attention_fwd_cuda',
+                           fa.flash_attention_fwd_reference), \
+            mock.patch.object(fa, 'flash_attention_bwd_cuda',
+                              fa.flash_attention_bwd_reference):
+        psums, pnorm = step1_quantities(trainer, state.params, ref, batch)
+    for name, lib in builds.items():
+        with mock.patch.object(fa, 'LIBRARY', lib):
+            sums, norm = step1_quantities(trainer, state.params, ref, batch)
+        rel = float(((sums - psums).abs() / psums.abs()).max())
+        log(f'planted [{name}] phase 7 step-1 recompute: log-prob sums max '
+            f'rel diff {rel:.3e} (limit {DPO_SUM_TOL:g}; max abs '
+            f'{float((sums - psums).abs().max()):.4f} nats), grad norm rel '
+            f'diff {abs(norm - pnorm) / pnorm:.3e} (limit {DPO_NORM_TOL:g}); '
+            f'card {smi}')
+
+
+KERNEL_GROUPS = (   # (group, substrings of the kernel name), first match
+    ('flash attention (this port)', ('fwd_kernel', 'dkdv_kernel',
+                                     'dq_kernel', 'delta_kernel')),
+    ('matmul (cuBLAS)', ('gemm', 'xmma', 'cutlass', 'nvjet', 'ampere_',
+                         'sm90_')),
+    ('optimizer (foreach)', ('multi_tensor_apply',)),
+    ('softmax / logsumexp / reductions', ('softmax', 'reduce', 'logsumexp')),
+)
+
+
+def profile_dpo(dev, smi) -> None:
+    """``--profile``: device time by kernel of one DPO step per config."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    configs = {
+        'llama8b_4layers': (llama_config(layers=DPO_LAYERS).replace(
+            compute_dtype='bfloat16', remat='dots_saveable'), DPO_PAIRS,
+            DPO_SEQ, True),
+        'bench': (llama_config(vocab_size=32768, hidden=1024, layers=20,
+                               heads=16, kv_heads=8, mlp=4096,
+                               max_pos=2048).replace(
+            compute_dtype='bfloat16', remat='dots_saveable'), BENCH_PAIRS,
+            BENCH_SEQ, False)}
+    for name, (cfg, pairs, seq, pad) in configs.items():
+        trainer, state, ref = dpo_setup(cfg, dev, SEED + 40)
+        batch = dpo_batch(cfg, pairs, seq, dev, SEED + 41, pad=pad)
+        state, _ = trainer.step(state, ref, batch)              # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = trainer.step(state, ref, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side events only: kernels, copies and fills on the card (a
+        # CPU op's entry repeats the time of the kernels it launched, and a
+        # span such as 'Optimizer.step#AdamW.step' covers them)
+        kernels = {evt.key: (evt.self_device_time_total, evt.count)
+                   for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA
+                   and evt.self_device_time_total > 0
+                   and not getattr(evt, 'is_user_annotation', False)
+                   and not evt.key.startswith(('Optimizer.', 'ProfilerStep',
+                                               'Command Buffer'))}
+        busy = sum(us for us, _ in kernels.values()) / 1e6
+        groups: dict = {}
+        for key, (us, _) in kernels.items():
+            group = next((g for g, subs in KERNEL_GROUPS
+                          if any(x in key.lower() for x in subs)),
+                         'other (elementwise, casts, copies)')
+            groups[group] = groups.get(group, 0.0) + us / 1e6
+        log(f'profile {name}: step {wall:.4f} s (traced), device busy '
+            f'{busy:.4f} s, idle share {1 - busy / wall:.4f}; card {smi}')
+        for group, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f'profile {name} group {group}: {sec:.4f} s '
+                f'({sec / wall:.4f} of the step)')
+        for key, (us, count) in sorted(kernels.items(),
+                                       key=lambda kv: -kv[1][0])[:25]:
+            log(f'profile {name} kernel {us / 1e3:10.3f} ms x{count:<6d} '
+                f'{key[:110]}')
+        del trainer, state, ref, batch, prof
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on the GPU',
@@ -339,12 +935,15 @@ def main() -> int:
         f'cuda={torch.version.cuda}')
     log(f'phase0 nvidia-smi: {smi}')
 
-    t0 = time.perf_counter()
-    k2.build()
-    log(f'phase1 built int4_matmul in {time.perf_counter() - t0:.1f} s')
-    for line in k2.build_log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            log(f'phase1 ptxas: {line.strip()}')
+    libs = build_kernels()
+    if '--profile' in sys.argv[1:]:
+        profile_dpo(dev, smi)
+        return 0
+    if '--planted-faults' in sys.argv[1:]:
+        planted_faults(dev, smi)
+        return 0
+    for line in ptxas_lines(libs['int4_matmul'].build_log):
+        log(f'phase1 int4_matmul ptxas: {line}')
 
     kstats = check_kernel(dev)
 
@@ -407,6 +1006,30 @@ def main() -> int:
     if not (torch.isfinite(kern).all() and err <= 2e-2 * scale and same):
         raise AssertionError('decode step disagrees with the plain int4 path')
 
+    del params, engine, served
+    torch.cuda.empty_cache()
+
+    for line in ptxas_lines(libs['flash_attention'].build_log):
+        log(f'phase5 flash_attention ptxas: {line}')
+    for d in fa.SUPPORTED_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kname, info in fa.kernel_info(d, dtype).items():
+                log(f'phase5 flash_attention {kname:7s} D={d:<3d} '
+                    f'{str(dtype)[6:]:8s} registers={info["registers"]} '
+                    f'spill_bytes={info["spill_bytes"]} '
+                    f'smem_bytes={info["smem_bytes"]}')
+
+    fstats = check_flash(dev)
+    dpo = train_dpo(dev, smi)
+    torch.cuda.empty_cache()
+    bench_dpo(dev, smi)
+
+    t8 = fstats['timed']['llama8b']
+    flash = {'route': 'cuda',
+             'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
+             'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
+                      '(Llama-3-8B widths); library_ms: '
+                      'scaled_dot_product_attention, causal, no padding'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -414,7 +1037,28 @@ def main() -> int:
         'also_replaces': 'align_anything_tpu/ops/int4_matmul.py:153',
         'launches': launches, 'max_abs_err': kstats['max_abs_err'],
         'ms': kstats['ms'], 'plain_ms': kstats['plain_ms'],
-        'ms_is': 'one decode step at 32 slots: 4x32 layer matmuls + head'}]}))
+        'bound_ms': kstats['bound_ms'], 'bound_by': kstats['bound_by'],
+        'library_ms': kstats['library_ms'],
+        'ms_is': 'one decode step at 32 slots: 4x32 layer matmuls + head; '
+                 'library_ms: torch._weight_int4pack_mm'}, {
+        'name': 'flash_attention_fwd', **flash,
+        'replaces': 'align_anything_tpu/ops/attention.py:87',
+        'also_replaces': 'align_anything_tpu/ops/attention.py:73, '
+                         'align_anything_tpu/ops/attention.py:186, '
+                         'align_anything_tpu/ops/attention.py:225',
+        'launches': dpo['launches']['fwd'],
+        'max_abs_err': fstats['worst']['fwd'], 'ms': t8['ms'],
+        'plain_ms': t8['plain_ms'], 'bound_ms': t8['bound_ms'],
+        'bound_by': t8['bound_by'], 'library_ms': t8['library_ms']}, {
+        'name': 'flash_attention_bwd', **flash,
+        'replaces': 'align_anything_tpu/ops/attention.py:99',
+        'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
+                         'align_anything_tpu/ops/attention.py:225',
+        'launches': dpo['launches']['bwd'],
+        'max_abs_err': fstats['worst']['bwd'], 'ms': t8['bwd_ms'],
+        'plain_ms': t8['plain_bwd_ms'], 'bound_ms': t8['bwd_bound_ms'],
+        'bound_by': t8['bwd_bound_by'],
+        'library_ms': t8['library_bwd_ms']}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -52,7 +52,7 @@ def model(jx):
         jx.t.init_params(jcfg, jx.jax.random.PRNGKey(3)), compute=True)
     tcfg = tiny_config(**args).replace(compute_dtype='float32',
                                        attention_impl='xla')
-    return params, from_jax_tree(np_tree(params)), jcfg, tcfg
+    return params, from_jax_tree(np_tree(params), device='cpu'), jcfg, tcfg
 
 
 def _jax_engine(jx, jparams, jcfg, prompts, gen_kw, max_len=64,
@@ -203,7 +203,8 @@ def test_generation_engine_chat(model):
         def decode(self, ids, skip_special_tokens=True):
             return ' '.join(str(i) for i in ids)
 
-    eng = GenerationEngine(tcfg, Tokenizer(), prompt_buckets=(8,))
+    eng = GenerationEngine(tcfg, Tokenizer(), prompt_buckets=(8,),
+                           device='cpu')
     gen = GenerationConfig(max_new_tokens=5, greedy=True, eos_token_id=-1)
     texts = eng.chat(tparams, ['hello', 'hi'], gen)
     ids, mask = eng._pad_prompts([[3 + ord(c) % 100 for c in t]

@@ -49,7 +49,7 @@ def _pair(jx, m, k, n, gs, seed=0):
     x = rng.normal(size=(m, k)).astype(np.float32)
     jw = jx.q.quantize_int4(jx.jnp.asarray(w), (0,), group_size=gs,
                             compute=True)
-    return x, jw, from_jax_tree(np_tree(jw))
+    return x, jw, from_jax_tree(np_tree(jw), device='cpu')
 
 
 def _close(got, ref):
@@ -82,7 +82,8 @@ def test_multi_dim_batch_and_out_dims(jx):
     jw = jx.q.quantize_int4(jx.jnp.asarray(w), (0,), group_size=64,
                             compute=True)
     ref = jx.k.int4_matmul(jx.jnp.asarray(x), jw, dtype=jx.jnp.float32)
-    got = tk.int4_matmul(torch.from_numpy(x), from_jax_tree(np_tree(jw)),
+    got = tk.int4_matmul(torch.from_numpy(x),
+                         from_jax_tree(np_tree(jw), device='cpu'),
                          dtype=torch.float32)
     assert got.shape == (4, 3, 8, 64)
     _close(got, ref)
@@ -97,7 +98,7 @@ def test_layer_indexed_matches_jax(jx):
     stacked = jx.q.Int4Weight(values=jx.jnp.stack([w.values for w in per]),
                               scales=jx.jnp.stack([w.scales for w in per]),
                               compute=True)
-    tw = from_jax_tree(np_tree(stacked))
+    tw = from_jax_tree(np_tree(stacked), device='cpu')
     for li in range(nl):
         ref = jx.k.int4_matmul(jx.jnp.asarray(x), stacked,
                                dtype=jx.jnp.float32,
@@ -129,7 +130,8 @@ def test_dequantize_matches_astype(jx, dtype):
     w = (np.random.default_rng(5).normal(size=(192, 8, 4)) * 0.1
          ).astype(np.float32)
     jw = jx.q.quantize_int4(jx.jnp.asarray(w), (0,), group_size=64)
-    got = from_jax_tree(np_tree(jw)).dequantize(getattr(torch, dtype))
+    got = from_jax_tree(np_tree(jw), device='cpu').dequantize(
+        getattr(torch, dtype))
     ref = np.asarray(jw.astype(jx.jnp.dtype(dtype)).astype(jx.jnp.float32))
     np.testing.assert_array_equal(got.float().numpy(), ref)
 
@@ -143,8 +145,8 @@ def test_quantize_decoder_int4_byte_identical(jx, fuse):
                       kv_heads=2, mlp=256)
     params = init_params(cfg, jx.jax.random.PRNGKey(0))
     ref = np_tree(jx.q.quantize_decoder_int4(params, compute=True, fuse=fuse))
-    got = tq.quantize_decoder_int4(from_jax_tree(np_tree(params)),
-                                   compute=True, fuse=fuse)
+    got = tq.quantize_decoder_int4(
+        from_jax_tree(np_tree(params), device='cpu'), compute=True, fuse=fuse)
     assert set(got['layers']) == set(ref['layers'])
     pairs = [(got['lm_head'], ref['lm_head'])] + [
         (got['layers'][k]['w'], ref['layers'][k]['w'])
