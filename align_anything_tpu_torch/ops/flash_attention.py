@@ -17,7 +17,9 @@ dividing H, in bf16 or fp32; it returns (B, L, H, D) in q's dtype.
 Both compute: scores (q . k) * D^-0.5 in fp32; key j is visible from query
 i when it is not padding (``attention_mask[b, j]``) and, if ``causal``,
 j <= i and, with a ``window``, i - j < window; softmax in fp32; out in q's
-dtype and lse (B, H, L) in fp32.  A query with no visible key gives zeros,
+dtype and lse (B, H, L) in fp32.  Where K1a rounds, both round to q's
+dtype (a no-op in fp32): the probabilities P before P V (forward) and
+before dV, and dS before dK and dQ; sums stay fp32.  A query with no visible key gives zeros,
 lse 0 and zero gradients (``xla_attention`` gives the mean of v there; such
 rows do not occur in right-padded training batches).
 
@@ -40,6 +42,10 @@ import torch
 from align_anything_tpu_torch.ops._cuda_build import CudaLibrary
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
+# bf16 at these head dims runs the tensor-core (wgmma) kernels; fp32 and
+# bf16 at D 256 run the CUDA-core ones (csrc/flash_attention.cu
+# ``on_tensor_cores``)
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID = 65535
 _MIN_TILE = 32         # smallest query / key tile of the kernels
@@ -111,6 +117,12 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.einsum('blkgd,bskd->bkgls', qg, k.float()) * d ** -0.5
 
 
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to ``dtype`` and back: the operand that K1a (and
+    the kernels) feed to a product in the input type."""
+    return x.to(dtype).float()
+
+
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor,
                                   attention_mask: torch.Tensor | None = None,
@@ -118,7 +130,8 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   window: int | None = None
                                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel -> (out (B, L, H, D) in q's
-    dtype, lse (B, H, L) fp32)."""
+    dtype, lse (B, H, L) fp32).  P is rounded to q's dtype before P V and
+    the row sum taken in fp32, as in K1a."""
     b, l, h, d = q.shape
     s = _scores(q, k).masked_fill(
         ~_visible(l, attention_mask, causal, window, q.device), -math.inf)
@@ -127,7 +140,7 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - m)
     denom = p.sum(-1, keepdim=True)
     seen = denom > 0
-    o = torch.einsum('bkgls,bskd->bkgld', p, v.float())
+    o = torch.einsum('bkgls,bskd->bkgld', _rounded(p, q.dtype), v.float())
     o = torch.where(seen, o / torch.where(seen, denom, torch.ones_like(denom)),
                     torch.zeros_like(o))
     lse = torch.where(seen, m + torch.log(torch.where(seen, denom, 1.0)),
@@ -146,7 +159,8 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                              torch.Tensor]:
     """Plain version of the backward kernels: P recomputed from the saved
     lse, delta = rowsum(dO * O), dS = P * (dP - delta) -> (dq, dk, dv) in
-    q's dtype."""
+    q's dtype.  P (for dV) and dS (for dK, dQ) are rounded to q's dtype,
+    as in K1a."""
     b, l, h, d = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -157,9 +171,9 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     do = dout.float().reshape(b, l, kh, g, d)
     delta = (dout.float() * out.float()).sum(-1).reshape(b, l, kh, g)
     delta = delta.permute(0, 2, 3, 1)[..., None]          # (B, KH, G, L, 1)
-    dv = torch.einsum('bkgls,blkgd->bskd', p, do)
+    dv = torch.einsum('bkgls,blkgd->bskd', _rounded(p, q.dtype), do)
     dp = torch.einsum('blkgd,bskd->bkgls', do, v.float())
-    ds = p * (dp - delta)
+    ds = _rounded(p * (dp - delta), q.dtype)
     scale = d ** -0.5
     dq = torch.einsum('bkgls,bskd->blkgd', ds, k.float()).reshape(b, l, h, d)
     dk = torch.einsum('bkgls,blkgd->bskd', ds,

@@ -17,12 +17,14 @@ Phases (any failure raises and the run exits non-zero):
      request's budget, the kernel's launch count, and one decode step
      against the plain int4 path;
   5. report the flash-attention kernels' registers, spills and shared
-     memory;
+     memory, and count the tensor-core instructions (HMMA / HGMMA) in each
+     kernel's SASS (``cuobjdump -sass``): the bf16 forward, dK/dV and dQ
+     kernels at D 64 and D 128 must have some;
   6. hold the flash-attention forward (out, lse) and backward (dq, dk, dv)
-     against their plain versions at the training shapes, check that the
-     backward repeats bit for bit, and time kernel, plain version and
-     ``scaled_dot_product_attention`` (a yardstick only) at the two main
-     shapes;
+     against their plain versions at the training shapes and at the edges
+     of the kernels' tiles, check that the backward repeats bit for bit,
+     and time kernel, plain version and ``scaled_dot_product_attention`` (a
+     yardstick only) at the two main shapes;
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOTrainer.step`` with remat 'dots_saveable'; step 1's
@@ -45,11 +47,18 @@ grouped, and the device's idle share of the step.
 
     python3 chip_smoke.py --planted-faults
 
-builds three broken copies of ``flash_attention.cu`` (one tile skipped
-for the second half of the rows, in the forward, dQ or dK/dV kernel) into
-the gitignored build directory, and fails unless phase 6's check passes
+builds three broken copies of ``flash_attention.cu`` (64 keys or one
+64-row query tile skipped for the second half of the rows, in the bf16
+tensor-core forward, dQ or dK/dV kernel) into the gitignored build
+directory, and fails unless phase 6's check passes
 the kernel as written and fails each broken copy; it also prints phase
 7's step-1 recompute under each build.
+
+    python3 chip_smoke.py --tile-sweep 'FMB=1,KMB=1,QMB=1/' '/FMI=1'
+
+builds the kernels once per spec, each overriding fields of the tensor-
+core kernels' ``WgTiles<64>`` / ``WgTiles<128>`` (D 64 fields / D 128
+fields), and times each kernel at phase 6's two timed shapes.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -98,29 +108,52 @@ TOL = {'bfloat16': 1e-2, 'float32': 1e-4}   # x max|plain|
 # cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# flash attention at the training path's shapes:
-# (name, B, L, H, KH, D, causal, window, padded rows, dtype, timed)
+# flash attention at the training path's shapes, then at the edges of the
+# tensor-core kernels' 64-row tiles: (name, B, L, H, KH, D, causal,
+# window, padded rows, padded keys per such row (None: 100-200 from the
+# seed), dtype, timed)
 FLASH_SHAPES = [
-    ('bench', 12, 1024, 16, 8, 64, True, None, 0, torch.bfloat16, True),
-    ('llama8b', 4, 1024, 32, 8, 128, True, None, 2, torch.bfloat16, True),
-    ('d256', 2, 512, 8, 4, 256, True, None, 1, torch.bfloat16, False),
-    ('window256', 2, 1024, 16, 8, 64, True, 256, 1, torch.bfloat16, False),
-    ('full', 2, 1024, 16, 8, 128, False, None, 1, torch.bfloat16, False),
-    ('ragged1000', 2, 1000, 16, 8, 128, True, None, 1, torch.bfloat16, False),
-    ('fp32', 2, 512, 8, 4, 128, True, None, 1, torch.float32, False),
+    ('bench', 12, 1024, 16, 8, 64, True, None, 0, None, torch.bfloat16, True),
+    ('llama8b', 4, 1024, 32, 8, 128, True, None, 2, None, torch.bfloat16,
+     True),
+    ('d256', 2, 512, 8, 4, 256, True, None, 1, None, torch.bfloat16, False),
+    ('window256', 2, 1024, 16, 8, 64, True, 256, 1, None, torch.bfloat16,
+     False),
+    ('full', 2, 1024, 16, 8, 128, False, None, 1, None, torch.bfloat16,
+     False),
+    ('ragged1000', 2, 1000, 16, 8, 128, True, None, 1, None, torch.bfloat16,
+     False),
+    ('fp32', 2, 512, 8, 4, 128, True, None, 1, None, torch.float32, False),
+    ('L17', 2, 17, 16, 8, 128, True, None, 1, 5, torch.bfloat16, False),
+    ('L129', 2, 129, 16, 8, 64, True, None, 1, 9, torch.bfloat16, False),
+    ('window200', 2, 1024, 16, 8, 128, True, 200, 1, None, torch.bfloat16,
+     False),
+    ('G1', 2, 512, 8, 8, 128, True, None, 1, None, torch.bfloat16, False),
+    ('G8', 2, 512, 16, 2, 64, True, None, 1, None, torch.bfloat16, False),
+    # the last row's last key tile is all padding, the tile before it none
+    ('padtile', 2, 1024, 16, 8, 128, True, None, 1, 64, torch.bfloat16,
+     False),
 ]
-# x each row's max|plain| (row_scaled_error).  bf16: kernel and plain both
-# round an fp32 result once, so they differ by at most one ulp, which is
-# 2^-8 to 2^-7 of the row's max: the limit leaves 2.5x room over that.
+# x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
+# version round P (and dS) to bf16 at K1a's places, but the forward kernel
+# rounds P = exp(s - m) against its running max m and the plain version
+# against the row's final max, and their fp32 sums run in other orders:
+# some of P's roundings differ in the last place, and the results, each
+# rounded to bf16 once, differ by about one ulp, 2^-8 to 2^-7 of the
+# row's max.  The limit leaves 2.5x room over that; a skipped tile reads
+# 0.8 or more (--planted-faults).
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-3
 DPO_LAYERS, DPO_PAIRS, DPO_SEQ, DPO_STEPS = 4, 2, 1024, 4
 # step 1 through the kernels against the same step through the plain
 # attention, relative: per-sequence response log-prob sums, and the grad
-# norm.  H100 readings were 2.8e-5 and 7e-7 (bf16 rounding differences);
-# with one tile skipped in any one attention kernel (--planted-faults) the
-# grad norm moved by 2.5e-3 or more.
-DPO_SUM_TOL, DPO_NORM_TOL = 2e-4, 2e-5
+# norm.  The grad norm follows the forward: the tensor cores' S (bf16
+# products summed in fp32 inside the MMA) moves it by about 1e-4 against
+# the plain fp32 einsum (the CUDA-core kernel read 7e-7), so its limit is
+# 2e-4, not 2e-5; with 64 keys (or one 64-row query tile) skipped in any
+# one attention kernel for half the rows (--planted-faults) it moved by
+# 2e-3 or more, 10x that.
+DPO_SUM_TOL, DPO_NORM_TOL = 2e-4, 2e-4
 BENCH_PAIRS, BENCH_SEQ, BENCH_STEPS = 6, 1024, 4      # bench.py:82, :124
 
 
@@ -464,9 +497,45 @@ def ptxas_lines(build_log: str) -> list[str]:
             if 'registers' in line or 'spill' in line]
 
 
-def flash_inputs(b, l, h, kh, d, pad_rows, dtype, dev, seed):
+def tensor_core_counts(lib) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in the SASS of
+    the built library (``cuobjdump -sass``), by mangled kernel name."""
+    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, 'bin', 'cuobjdump'), '-sass',
+         str(lib.compile())], capture_output=True, text=True,
+        check=True).stdout
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ('HMMA' in line or 'HGMMA' in line):
+            counts[name] += 1
+    return counts
+
+
+def check_tensor_cores(lib) -> None:
+    """Phase 5: the bf16 forward, dK/dV and dQ kernels at D 64 and 128
+    run their products on the tensor cores."""
+    counts = tensor_core_counts(lib)
+    for name, n in sorted(counts.items()):
+        log(f'phase5 flash_attention SASS tensor-core instructions {n:5d} '
+            f'in {name}')
+    for role in ('fwd', 'dkdv', 'dq'):
+        for d in fa.TENSOR_CORE_HEAD_DIMS:
+            tag = f'{role}_wgmma_kernelILi{d}E'
+            found = [n for name, n in counts.items() if tag in name]
+            if not found or min(found) == 0:
+                raise AssertionError(f'no tensor-core instruction in the bf16 '
+                                     f'{role} kernel at D {d} ({found})')
+
+
+def flash_inputs(b, l, h, kh, d, pad_rows, pad_len, dtype, dev, seed):
     """q, k, v, mask, dout from a seed; the last ``pad_rows`` rows end
-    100-200 tokens early."""
+    ``pad_len`` (None: 100-200, from the seed) tokens early."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape):
@@ -479,14 +548,17 @@ def flash_inputs(b, l, h, kh, d, pad_rows, dtype, dev, seed):
         rng = np.random.default_rng(seed)
         mask = torch.ones((b, l), dtype=torch.int32, device=dev)
         for r in range(b - pad_rows, b):
-            mask[r, l - int(rng.integers(100, 201)):] = 0
+            n = pad_len if pad_len is not None else int(rng.integers(100,
+                                                                     201))
+            mask[r, l - n:] = 0
     return q, k, v, mask, dout
 
 
 def flash_bounds(b, l, h, kh, d, causal, window, mask, dtype, dev):
-    """(fwd, bwd) bounds, each (ms, kind), for this run's inputs: 4*D FLOPs
-    per visible (query, key) pair and head forward, 10*D backward (five
-    products); each input read once, each output written once."""
+    """(fwd, bwd) bounds, each (ms, kind), for this run's inputs, and the
+    FLOPs of the forward: 4*D per visible (query, key) pair and head
+    forward, 10*D backward (five products); each input read once, each
+    output written once."""
     i = torch.arange(l, device=dev)[:, None]
     j = torch.arange(l, device=dev)[None, :]
     vis = torch.ones((l, l), dtype=torch.bool, device=dev)
@@ -501,7 +573,8 @@ def flash_bounds(b, l, h, kh, d, causal, window, mask, dtype, dev):
     qo, kv, lse = b * l * h * d * e, b * l * kh * d * e, b * h * l * 4
     extra = lse + (0 if mask is None else b * l)
     return (bound(4 * d * pairs, 2 * qo + 2 * kv + extra, dtype),
-            bound(10 * d * pairs, 4 * qo + 4 * kv + extra, dtype))
+            bound(10 * d * pairs, 4 * qo + 4 * kv + extra, dtype),
+            4 * d * pairs)
 
 
 def sdpa_ms(q, k, v, dout, causal, flush) -> tuple[float, float]:
@@ -528,10 +601,10 @@ def check_flash(dev) -> dict:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     worst = {'fwd': 0.0, 'bwd': 0.0}
     timed = {}
-    for seed, (name, b, l, h, kh, d, causal, window, pad_rows, dtype,
-               is_timed) in enumerate(FLASH_SHAPES):
-        q, k, v, mask, dout = flash_inputs(b, l, h, kh, d, pad_rows, dtype,
-                                           dev, SEED + 20 + seed)
+    for seed, (name, b, l, h, kh, d, causal, window, pad_rows, pad_len,
+               dtype, is_timed) in enumerate(FLASH_SHAPES):
+        q, k, v, mask, dout = flash_inputs(b, l, h, kh, d, pad_rows, pad_len,
+                                           dtype, dev, SEED + 20 + seed)
         out, lse = fa.flash_attention_fwd_cuda(q, k, v, mask, causal, window)
         grads = fa.flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout,
                                             causal, window)
@@ -568,8 +641,8 @@ def check_flash(dev) -> dict:
         if not same:
             raise AssertionError(f'flash backward not deterministic at {name}')
         if is_timed:
-            (fb, fby), (bb, bby) = flash_bounds(b, l, h, kh, d, causal, window,
-                                                mask, dtype, dev)
+            (fb, fby), (bb, bby), flops = flash_bounds(
+                b, l, h, kh, d, causal, window, mask, dtype, dev)
             lib_f, lib_b = sdpa_ms(q, k, v, dout, causal, flush)
             t = {'ms': time_ms(lambda: fa.flash_attention_fwd_cuda(
                      q, k, v, mask, causal, window), 10, flush),
@@ -587,9 +660,12 @@ def check_flash(dev) -> dict:
                  'library_bwd_ms': lib_b}
             timed[name] = t
             log(f'phase6 {name:10s} time: forward kernel_ms={t["ms"]:.4f} '
+                f'({flops / t["ms"] / 1e9:.1f} TFLOP/s) '
                 f'plain_ms={t["plain_ms"]:.4f} sdpa_ms={lib_f:.4f} '
                 f'bound_ms={fb:.4f} ({fby}); backward kernel_ms='
-                f'{t["bwd_ms"]:.4f} plain_ms={t["plain_bwd_ms"]:.4f} '
+                f'{t["bwd_ms"]:.4f} ({2.5 * flops / t["bwd_ms"] / 1e9:.1f} '
+                f'TFLOP/s at 10*D per pair) '
+                f'plain_ms={t["plain_bwd_ms"]:.4f} '
                 f'sdpa_ms={lib_b:.4f} bound_ms={bb:.4f} ({bby})')
         del q, k, v, mask, dout, out, lse, grads, again, rout, rlse, rgrads
     return {'worst': worst, 'timed': timed}
@@ -767,15 +843,18 @@ def bench_dpo(dev, smi) -> dict:
     return {'tokens_per_s': tps, 'mfu': mfu}
 
 
-# --planted-faults: flash_attention.cu with one tile skipped for the second
-# half of the rows.  (name, loop text, the broken loop, which occurrence)
+# --planted-faults: flash_attention.cu with 64 keys (or one 64-row query
+# tile) skipped for the second half of the rows, in the tensor-core
+# kernels (bf16, the main path).  (name, loop text, the broken loop,
+# which occurrence)
 PLANTED_FAULTS = (
-    ('forward skips its last key tile', 'k0 < k_hi; k0 += BK',
-     'k0 < k_hi - (q0 >= L / 2 ? BK : 0); k0 += BK', 0),
-    ('dQ skips its last key tile', 'k0 < k_hi; k0 += BK',
-     'k0 < k_hi - (q0 >= L / 2 ? BK : 0); k0 += BK', 1),
-    ('dK/dV skips its last query tile', 'q0 < q_hi; q0 += BQ',
-     'q0 < q_hi - (k0 >= L / 2 ? BQ : 0); q0 += BQ', 0),
+    ('forward skips its last 64 keys', 'k0 = k_first; k0 < k_hi; k0 += BK',
+     'k0 = k_first; k0 < k_hi - (q0 >= L / 2 ? 64 : 0); k0 += BK', 0),
+    ('dQ skips its last 64 keys', 'k0 = k_first; k0 < k_hi; k0 += BK',
+     'k0 = k_first; k0 < k_hi - (q0 >= L / 2 ? 64 : 0); k0 += BK', 1),
+    ('dK/dV skips the last query tile of each head',
+     'const int nqt = (q_hi - q_first + BQ - 1) / BQ;',
+     'const int nqt = (q_hi - q_first + BQ - 1) / BQ - (k0 >= L / 2);', 0),
 )
 
 
@@ -786,32 +865,42 @@ def planted_source(src: str, loop: str, broken: str, which: int) -> str:
     return src[:at] + broken + src[at + len(loop):]
 
 
-def planted_faults(dev, smi) -> None:
-    """``--planted-faults``: build the kernel with each fault of
-    ``PLANTED_FAULTS`` (into the gitignored build directory) and show that
-    phase 6's per-row check fails on it at the two main shapes where the
-    kernel as written passes; report the whole-tensor measure it replaced
-    and phase 7's step-1 recompute under each build."""
+def build_variants(sources: dict, subdir: str) -> dict:
+    """Build edited copies of ``flash_attention.cu`` (name -> source text)
+    into the gitignored build directory, one nvcc each, all together."""
     from align_anything_tpu_torch.ops import _cuda_build  # noqa: PLC0415
 
-    src = fa.LIBRARY.source.read_text()
-    builds = {'as written': fa.LIBRARY}
-    for name, loop, broken, which in PLANTED_FAULTS:
-        path = _cuda_build.BUILD_DIR / 'planted' / f'fault{len(builds)}.cu'
+    libs = {}
+    for i, (name, text) in enumerate(sources.items()):
+        path = _cuda_build.BUILD_DIR / subdir / f'variant{i}.cu'
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(planted_source(src, loop, broken, which))
+        path.write_text(text)
         lib = _cuda_build.CudaLibrary('flash_attention', fa._bind)
         lib.source = path
-        builds[name] = lib
-    with ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda lib: lib.load(), builds.values()))
+        libs[name] = lib
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(), libs.values()))
+    return libs
+
+
+def planted_faults(dev, smi) -> None:
+    """``--planted-faults``: build the kernel with each fault of
+    ``PLANTED_FAULTS`` and show that phase 6's per-row check fails on it at
+    the two main shapes where the kernel as written passes; report the
+    whole-tensor measure it replaced and phase 7's step-1 recompute under
+    each build."""
+    src = fa.LIBRARY.source.read_text()
+    builds = {'as written': fa.LIBRARY, **build_variants(
+        {name: planted_source(src, loop, broken, which)
+         for name, loop, broken, which in PLANTED_FAULTS}, 'planted')}
     for name, lib in builds.items():
         with mock.patch.object(fa, 'LIBRARY', lib):
             for si, shape in enumerate(FLASH_SHAPES[:2]):
-                sname, b, l, h, kh, d, causal, window, pad_rows, dtype, _ = \
-                    shape
+                (sname, b, l, h, kh, d, causal, window, pad_rows, pad_len,
+                 dtype, _) = shape
                 q, k, v, mask, dout = flash_inputs(
-                    b, l, h, kh, d, pad_rows, dtype, dev, SEED + 20 + si)
+                    b, l, h, kh, d, pad_rows, pad_len, dtype, dev,
+                    SEED + 20 + si)
                 out, lse = fa.flash_attention_fwd_cuda(q, k, v, mask, causal)
                 grads = fa.flash_attention_bwd_cuda(q, k, v, mask, out, lse,
                                                     dout, causal)
@@ -853,9 +942,85 @@ def planted_faults(dev, smi) -> None:
             f'card {smi}')
 
 
+def tiles_source(src: str, spec: str) -> str:
+    """``flash_attention.cu`` with fields of ``WgTiles<64>`` and
+    ``WgTiles<128>`` overridden: spec 'FMB=1,QMB=1/FMI=1' (the D 64 fields,
+    then the D 128 fields)."""
+    for d, fields in zip((64, 128), spec.split('/')):
+        at = src.index(f'struct WgTiles<{d}> {{')
+        end = src.index('};', at)
+        body = src[at:end]
+        for field in filter(None, fields.split(',')):
+            key, val = field.split('=')
+            body, n = re.subn(rf'\b{key} = \d+', f'{key} = {int(val)}', body)
+            if n != 1:
+                raise ValueError(f'no field {key} in WgTiles<{d}>')
+        src = src[:at] + body + src[end:]
+    return src
+
+
+def tile_sweep(dev, smi, specs: list) -> None:
+    """``--tile-sweep SPEC ...``: build the kernels once per spec of
+    ``tiles_source`` and time the forward and each backward kernel (device
+    time from ``torch.profiler``) at phase 6's two timed shapes, beside
+    their registers and the worst per-row error against the plain
+    versions; the builds run in turn, the kernel as written first and
+    last."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    src = fa.LIBRARY.source.read_text()
+    libs = {'as written': fa.LIBRARY,
+            **build_variants({sp: tiles_source(src, sp) for sp in specs},
+                             'sweep')}
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    for name in [*libs, 'as written']:
+        with mock.patch.object(fa, 'LIBRARY', libs[name]):
+            for si, shape in enumerate(FLASH_SHAPES[:2]):
+                (sname, b, l, h, kh, d, causal, _, pad_rows, pad_len, dtype,
+                 _) = shape
+                q, k, v, mask, dout = flash_inputs(
+                    b, l, h, kh, d, pad_rows, pad_len, dtype, dev,
+                    SEED + 20 + si)
+                out, lse = fa.flash_attention_fwd_cuda(q, k, v, mask, causal)
+
+                def bwd():
+                    return fa.flash_attention_bwd_cuda(q, k, v, mask, out,
+                                                       lse, dout, causal)
+
+                grads = bwd()
+                refs = (fa.flash_attention_fwd_reference(
+                    q, k, v, mask, causal)[0],
+                    *fa.flash_attention_bwd_reference(
+                        q, k, v, mask, out, lse, dout, causal))
+                err = max(fa.row_scaled_error(g, r)
+                          for g, r in zip((out, *grads), refs))
+                fwd_ms = time_ms(lambda: fa.flash_attention_fwd_cuda(
+                    q, k, v, mask, causal), 20, flush)
+                bwd_ms = time_ms(bwd, 20, flush)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        flush.zero_()
+                        bwd()
+                    torch.cuda.synchronize()
+                per = {role: sum(e.self_device_time_total
+                                 for e in prof.key_averages() if tag in e.key)
+                       / 5e3 for role, tag in (('delta', 'delta_kernel'),
+                                               ('dk_dv', 'dkdv_'),
+                                               ('dq', 'dq_'))}
+                regs = {kn: i['registers'] for kn, i in
+                        fa.kernel_info(d, dtype).items()}
+                log(f'sweep [{name}] {sname}: forward_ms={fwd_ms:.4f} '
+                    f'backward_ms={bwd_ms:.4f} ('
+                    + ' '.join(f'{r}={ms:.4f}' for r, ms in per.items())
+                    + f'); registers {regs}; worst row error {err:.2e}; '
+                    f'card {smi}')
+
+
 KERNEL_GROUPS = (   # (group, substrings of the kernel name), first match
-    ('flash attention (this port)', ('fwd_kernel', 'dkdv_kernel',
-                                     'dq_kernel', 'delta_kernel')),
+    ('flash attention (this port)', ('fwd_wgmma_kernel', 'dkdv_wgmma_kernel',
+                                     'dq_wgmma_kernel', 'fwd_kernel',
+                                     'dkdv_kernel', 'dq_kernel',
+                                     'delta_kernel')),
     ('matmul (cuBLAS)', ('gemm', 'xmma', 'cutlass', 'nvjet', 'ampere_',
                          'sm90_')),
     ('optimizer (foreach)', ('multi_tensor_apply',)),
@@ -942,6 +1107,9 @@ def main() -> int:
     if '--planted-faults' in sys.argv[1:]:
         planted_faults(dev, smi)
         return 0
+    if sys.argv[1:2] == ['--tile-sweep']:
+        tile_sweep(dev, smi, sys.argv[2:])
+        return 0
     for line in ptxas_lines(libs['int4_matmul'].build_log):
         log(f'phase1 int4_matmul ptxas: {line}')
 
@@ -1013,11 +1181,16 @@ def main() -> int:
         log(f'phase5 flash_attention ptxas: {line}')
     for d in fa.SUPPORTED_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
+            route = ('tensor cores (wgmma)' if dtype == torch.bfloat16
+                     and d in fa.TENSOR_CORE_HEAD_DIMS else 'CUDA cores')
             for kname, info in fa.kernel_info(d, dtype).items():
                 log(f'phase5 flash_attention {kname:7s} D={d:<3d} '
-                    f'{str(dtype)[6:]:8s} registers={info["registers"]} '
+                    f'{str(dtype)[6:]:8s} route='
+                    f'{"CUDA cores" if kname == "delta" else route} '
+                    f'registers={info["registers"]} '
                     f'spill_bytes={info["spill_bytes"]} '
                     f'smem_bytes={info["smem_bytes"]}')
+    check_tensor_cores(libs['flash_attention'])
 
     fstats = check_flash(dev)
     dpo = train_dpo(dev, smi)
