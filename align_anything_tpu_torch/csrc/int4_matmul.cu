@@ -36,6 +36,21 @@
 // At M of 64 and more the CUDA-core FMAs, not the bytes, become the limit;
 // tensor-core MMA (wgmma), TMA pipelining and split-K are later work.
 //
+// The kernel is templated on the per-element dequantization, so that the
+// A/B variants of scripts/bench/bench_int4_kernel_ab.py (the Pallas kernels
+// _kernel_v1 and _kernel_v2 behind run_variant and run_v2) run on the same
+// skeleton and differ from K2 only in the unpack arithmetic:
+//   * V0, K2 itself: sign-extended nibbles, w = bf16(q * s), s fp32;
+//   * V1: w = bf16(q * bf16(s)), the scale rounded to bf16 first;
+//   * V2: offset-low packing, the low nibble holds q + 8 and is read with one
+//     AND, the high nibble is signed; w_low = bf16((q + 8) * bf16(s)),
+//     w_high = bf16(q * bf16(s)), and the -8 correction, computed outside the
+//     kernel as in run_v2, is added to the sum before the store.
+// The TPU kernel of V2 takes x split into its low and high group halves
+// (split_x), because Mosaic cannot shape-cast the lane dim; here the staged
+// (x[k], x[k + gs/2]) pairs already line up with a byte's two nibbles, so V2
+// takes x as it is.
+//
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes (align_anything_tpu_torch/ops/int4_matmul.py).
 
@@ -62,11 +77,31 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <int MT, typename OutT>
+enum Variant { kV0 = 0, kV1 = 1, kV2 = 2 };
+
+// The two dequantized weights of one packed byte (sign-extended to an int)
+// with its group's fp32 scale s.  V0 and V1 sign-extend the low nibble; V2
+// stores q + 8 there and reads it with one AND.  The high nibble is signed
+// in all three.  V1 and V2 round s to bf16 here, once per byte and column,
+// where the TPU kernels round a block of groups' scales once: rounding once
+// per group instead, with the rounded scales carried across a warp's rows,
+// took 196 registers for 127 at the 16-row M tile and ran up to 1.6x
+// slower (PERF.md), so the conversion per byte is the cheaper one here.
+template <int V>
+__device__ __forceinline__ void dequant(int byte, float s, float& wl, float& wh) {
+  const int lo = V == kV2 ? (byte & 15)
+                          : static_cast<int>(static_cast<unsigned>(byte) << 28) >> 28;
+  const float sv = V == kV0 ? s : bf16_round(s);
+  wl = bf16_round((float)lo * sv);
+  wh = bf16_round((float)(byte >> 4) * sv);
+}
+
+template <int V, int MT, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
                    const int8_t* __restrict__ values,     // (K/2, N)
                    const float* __restrict__ scales,      // (G, N)
+                   const float* __restrict__ corr,        // (M, N), V2 only
                    OutT* __restrict__ out,                // (M, N)
                    int M, int K, int N, int half, int vec) {
   // one buffer, used first for the staged x pairs, then for the cross-warp sum
@@ -130,13 +165,7 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
         }
         float wl[kCols], wh[kCols];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          // sign-extended low and high nibbles
-          const int lo = static_cast<int>(static_cast<unsigned>(bytes[j]) << 28) >> 28;
-          const int hi = bytes[j] >> 4;
-          wl[j] = bf16_round((float)lo * s[j]);
-          wh[j] = bf16_round((float)hi * s[j]);
-        }
+        for (int j = 0; j < kCols; ++j) dequant<V>(bytes[j], s[j], wl[j], wh[j]);
         const float2* xp = xs + pl * MT;
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
@@ -182,30 +211,37 @@ int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
       if (m0 + m >= M) break;
       OutT* o = out + (size_t)(m0 + m) * N + n0;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        if (n0 + j < N) store_out(o + j, acc[m][j]);
+      for (int j = 0; j < kCols; ++j) {
+        if (n0 + j < N) {
+          if constexpr (V == kV2)
+            store_out(o + j, acc[m][j] + corr[(size_t)(m0 + m) * N + n0 + j]);
+          else
+            store_out(o + j, acc[m][j]);
+        }
+      }
     }
   }
 }
 
-template <int MT, typename OutT>
-void launch(const void* x, const void* values, const void* scales, void* out,
-            int M, int K, int N, int half, int vec, cudaStream_t stream) {
+template <int V, int MT, typename OutT>
+void launch(const void* x, const void* values, const void* scales, const void* corr,
+            void* out, int M, int K, int N, int half, int vec, cudaStream_t stream) {
   const dim3 grid((M + MT - 1) / MT, (N + kTileN - 1) / kTileN);
-  int4_matmul_kernel<MT, OutT><<<grid, kThreads, 0, stream>>>(
+  int4_matmul_kernel<V, MT, OutT><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(values),
-      static_cast<const float*>(scales), static_cast<OutT*>(out), M, K, N, half, vec);
+      static_cast<const float*>(scales), static_cast<const float*>(corr),
+      static_cast<OutT*>(out), M, K, N, half, vec);
 }
 
-template <typename OutT>
-void dispatch(const void* x, const void* values, const void* scales, void* out,
-              int M, int K, int N, int half, int vec, cudaStream_t stream) {
+template <int V, typename OutT>
+void dispatch(const void* x, const void* values, const void* scales, const void* corr,
+              void* out, int M, int K, int N, int half, int vec, cudaStream_t stream) {
   // the smallest power-of-two M tile that covers M, at most 16 rows
-  if (M >= 9) launch<16, OutT>(x, values, scales, out, M, K, N, half, vec, stream);
-  else if (M >= 5) launch<8, OutT>(x, values, scales, out, M, K, N, half, vec, stream);
-  else if (M >= 3) launch<4, OutT>(x, values, scales, out, M, K, N, half, vec, stream);
-  else if (M == 2) launch<2, OutT>(x, values, scales, out, M, K, N, half, vec, stream);
-  else launch<1, OutT>(x, values, scales, out, M, K, N, half, vec, stream);
+  if (M >= 9) launch<V, 16, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
+  else if (M >= 5) launch<V, 8, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
+  else if (M >= 3) launch<V, 4, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
+  else if (M == 2) launch<V, 2, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
+  else launch<V, 1, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
 }
 
 }  // namespace
@@ -221,9 +257,28 @@ int int4_matmul_launch(const void* x, const void* values, const void* scales,
                        int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    dispatch<float>(x, values, scales, out, M, K, N, half, vec, s);
+    dispatch<kV0, float>(x, values, scales, nullptr, out, M, K, N, half, vec, s);
   else
-    dispatch<__nv_bfloat16>(x, values, scales, out, M, K, N, half, vec, s);
+    dispatch<kV0, __nv_bfloat16>(x, values, scales, nullptr, out, M, K, N, half, vec, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The A/B variant V1: arguments as int4_matmul_launch, out bf16.
+int int4_matmul_v1_launch(const void* x, const void* values, const void* scales,
+                          void* out, int M, int K, int N, int half, int vec,
+                          void* stream) {
+  dispatch<kV1, __nv_bfloat16>(x, values, scales, nullptr, out, M, K, N, half, vec,
+                               static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The A/B variant V2: values in the offset-low packing, corr (M, N) fp32
+// contiguous (the -8 correction, added to each sum), out bf16.
+int int4_matmul_v2_launch(const void* x, const void* values, const void* scales,
+                          const void* corr, void* out, int M, int K, int N,
+                          int half, int vec, void* stream) {
+  dispatch<kV2, __nv_bfloat16>(x, values, scales, corr, out, M, K, N, half, vec,
+                               static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

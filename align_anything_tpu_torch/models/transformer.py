@@ -36,7 +36,9 @@ from torch.utils import checkpoint as ckpt
 from align_anything_tpu_torch.models.config import ModelConfig
 from align_anything_tpu_torch.models.quantization import Int4Weight
 from align_anything_tpu_torch.ops.attention import causal_attention
-from align_anything_tpu_torch.ops.int4_matmul import int4_matmul
+# the module, not its function: ops/int4_matmul.py imports models/, so
+# either may be imported first
+from align_anything_tpu_torch.ops import int4_matmul as k2
 from align_anything_tpu_torch.ops.norms import layer_norm, rms_norm
 from align_anything_tpu_torch.ops.rope import apply_rope, rope_table
 from align_anything_tpu_torch.utils.tools import default_device
@@ -202,7 +204,7 @@ def _wmm(eq: str, x: torch.Tensor, w_leaf, dtype: torch.dtype,
         if w_leaf.compute:
             xf = x if n_contract == 1 else x.reshape(
                 tuple(x.shape[:batch_nd]) + (-1,))
-            out = int4_matmul(xf, w_leaf, dtype=dtype)
+            out = k2.int4_matmul(xf, w_leaf, dtype=dtype)
             if out is not None:
                 return out
         w = w_leaf.dequantize(dtype)

@@ -40,10 +40,15 @@ _TILE_N = 128          # columns per block in the kernel
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.int4_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """K2's entry point and those of the A/B variants V1 and V2
+    (``scripts/bench/bench_int4_kernel_ab.py``), all in one library."""
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+            (lib.int4_matmul_launch, [ptr] * 4 + [num] * 6 + [ptr]),
+            (lib.int4_matmul_v1_launch, [ptr] * 4 + [num] * 5 + [ptr]),
+            (lib.int4_matmul_v2_launch, [ptr] * 5 + [num] * 5 + [ptr])):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
 # csrc/int4_matmul.cu, built by nvcc at first use (LIBRARY.build_log holds
@@ -61,6 +66,47 @@ def int4_matmul_reference(x: torch.Tensor, values: torch.Tensor,
             @ w.to(torch.float32)).to(dtype)
 
 
+def check_operands(caller: str, x: torch.Tensor, values: torch.Tensor,
+                   scales: torch.Tensor) -> tuple[int, int, int, int, int]:
+    """Raise unless x (M, K) bf16, values (G, gs/2, N) int8 and scales
+    (G, N) fp32 are contiguous on one CUDA device and fit the kernel's
+    grid; returns (M, K, N, gs/2, vec), ``vec`` set where a thread may load
+    4 columns at once (N % 4 == 0, values / scales 4- / 16-byte aligned)."""
+    g, half, n = values.shape
+    m, k = x.shape
+    dev = x.device
+    if dev.type != 'cuda' or values.device != dev or scales.device != dev:
+        raise ValueError(f'{caller} needs x, values and scales on one CUDA '
+                         f'device (got {x.device}, {values.device}, '
+                         f'{scales.device})')
+    if (x.dtype != torch.bfloat16 or values.dtype != torch.int8
+            or scales.dtype != torch.float32):
+        raise ValueError(f'{caller} takes bf16 x, int8 values and fp32 '
+                         f'scales (got {x.dtype}, {values.dtype}, '
+                         f'{scales.dtype})')
+    if k != g * 2 * half or tuple(scales.shape) != (g, n):
+        raise ValueError(f'shape mismatch: x {tuple(x.shape)}, values '
+                         f'{tuple(values.shape)}, scales {tuple(scales.shape)}')
+    if not (x.is_contiguous() and values.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError(f'{caller} needs contiguous tensors')
+    if -(-n // _TILE_N) > _MAX_GRID_Y:
+        raise ValueError(f'N={n} exceeds the kernel grid')
+    vec = int(n % 4 == 0 and values.data_ptr() % 4 == 0
+              and scales.data_ptr() % 16 == 0)
+    return m, k, n, half, vec
+
+
+def launch(entry: str, dev: torch.device, *args) -> None:
+    """Call ``entry`` of the built library with ``args`` and the current
+    stream of ``dev``; raises if the launch failed."""
+    fn = getattr(LIBRARY.load(), entry)
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{entry} failed: CUDA error {err}')
+
+
 def int4_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                      scales: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
@@ -68,41 +114,15 @@ def int4_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
     scales (G, N) fp32, all contiguous on one CUDA device -> (M, N) in
     ``dtype`` (bf16 or fp32).  Counts each launch in
     ``int4_matmul_cuda.launches``."""
-    g, half, n = values.shape
-    m, k = x.shape
-    dev = x.device
-    if dev.type != 'cuda' or values.device != dev or scales.device != dev:
-        raise ValueError('int4_matmul_cuda needs x, values and scales on one '
-                         f'CUDA device (got {x.device}, {values.device}, '
-                         f'{scales.device})')
-    if (x.dtype != torch.bfloat16 or values.dtype != torch.int8
-            or scales.dtype != torch.float32):
-        raise ValueError('int4_matmul_cuda takes bf16 x, int8 values and fp32 '
-                         f'scales (got {x.dtype}, {values.dtype}, '
-                         f'{scales.dtype})')
+    m, k, n, half, vec = check_operands('int4_matmul_cuda', x, values, scales)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f'output dtype must be bf16 or fp32 (got {dtype})')
-    if k != g * 2 * half or tuple(scales.shape) != (g, n):
-        raise ValueError(f'shape mismatch: x {tuple(x.shape)}, values '
-                         f'{tuple(values.shape)}, scales {tuple(scales.shape)}')
-    if not (x.is_contiguous() and values.is_contiguous()
-            and scales.is_contiguous()):
-        raise ValueError('int4_matmul_cuda needs contiguous tensors')
-    if -(-n // _TILE_N) > _MAX_GRID_Y:
-        raise ValueError(f'N={n} exceeds the kernel grid')
-    out = torch.empty((m, n), dtype=dtype, device=dev)
+    out = torch.empty((m, n), dtype=dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    vec = int(n % 4 == 0 and values.data_ptr() % 4 == 0
-              and scales.data_ptr() % 16 == 0)
-    lib = LIBRARY.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.int4_matmul_launch(
-            x.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            m, k, n, half, int(dtype == torch.float32), vec, stream)
-    if err != 0:
-        raise RuntimeError(f'int4_matmul kernel launch failed: CUDA error {err}')
+    launch('int4_matmul_launch', x.device, x.data_ptr(), values.data_ptr(),
+           scales.data_ptr(), out.data_ptr(), m, k, n, half,
+           int(dtype == torch.float32), vec)
     int4_matmul_cuda.launches += 1
     return out
 

@@ -10,6 +10,12 @@ Phases (any failure raises and the run exits non-zero):
   2. hold the int4 matmul kernel against its plain PyTorch version at the
      serving path's shapes (Llama-3-8B widths) and time both, beside the
      bound and PyTorch's own int4 GEMM;
+  2ab. the A/B variants of that kernel (``scripts/bench/
+     bench_int4_kernel_ab.py``, v1 and v2): each held against its plain
+     version at the A/B's three shapes and M 1, 32 and 128, two launches
+     bit-equal, two negative controls refused by the same check (K2's
+     output against v1's plain version; v2 without its correction); then
+     the timed A/B at M 32 through the bench's own ``run``;
   3. build Llama-3-8B-geometry int4-COMPUTE weights on the card from a seed,
      layer by layer, without holding the fp model;
   4. serve ~48 requests through the continuous-batching engine's serving
@@ -87,6 +93,10 @@ from align_anything_tpu_torch.models import llama_config, transformer
 from align_anything_tpu_torch.models import quantization as q
 from align_anything_tpu_torch.ops import flash_attention as fa
 from align_anything_tpu_torch.ops import int4_matmul as k2
+from align_anything_tpu_torch.scripts.bench import bench_int4_kernel_ab as ab
+from align_anything_tpu_torch.scripts.bench.timing_utils import (
+    PEAK_FLOPS, bound, gpu_name_and_power, int4_library_ms, l2_flush_buffer,
+    time_ms)
 from align_anything_tpu_torch.trainers.optimizer import (global_norm,
                                                           make_optimizer)
 from align_anything_tpu_torch.trainers.text_to_text.dpo import DPOTrainer
@@ -104,10 +114,10 @@ GROUP = 64
 SHAPES = [('qkv', 4096, 6144), ('o', 4096, 4096), ('gate_up', 4096, 28672),
           ('down', 14336, 4096), ('head', 4096, 128256)]
 TOL = {'bfloat16': 1e-2, 'float32': 1e-4}   # x max|plain|
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
-# cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+# the A/B's relerr (max|o - o0| / max|fp32 reference|): v1 and v2 round
+# the scale to bf16 where v0 does not, so they sit a few bf16 ulps from
+# v0 at the max; v2 without its correction reads about 1
+AB_RELERR_TOL = 2e-2
 # flash attention at the training path's shapes, then at the edges of the
 # tensor-core kernels' 64-row tiles: (name, B, L, H, KH, D, causal,
 # window, padded rows, padded keys per such row (None: 100-200 from the
@@ -161,72 +171,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, flush) -> float:
-    """Median device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush (decode finds its weights cold: they are 100x the L2)."""
-    fn()
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
-def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    """Least time (ms) the card could take: the larger of the operations at
-    the peak rate of ``dtype`` and the bytes at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
-                                       else 'bytes')
-
-
-def int4pack(qw, k: int, n: int):
-    """PyTorch's own int4-weight GEMM operands for ``qw`` (tinygemm layout:
-    unsigned nibbles q + 8 with zero point 0, bf16 scales), packed once,
-    outside any timed region."""
-    low, high = q.unpack_int4(qw.values)
-    w = (torch.cat([low, high], 1).reshape(k, n) + 8).t().contiguous()
-    packed = torch._convert_weight_to_int4pack(
-        (w[:, ::2] << 4 | w[:, 1::2]).to(torch.uint8), 8)
-    sc = qw.scales.reshape(k // GROUP, n)
-    return packed, torch.stack([sc, torch.zeros_like(sc)], -1).to(
-        torch.bfloat16).contiguous()
-
-
-def library_int4_ms(qw, x, k: int, n: int, flush) -> tuple[float | None, str]:
-    """Time of ``torch._weight_int4pack_mm`` on the same weight and x, or
-    None and the reason where it does not take the shape."""
-    try:
-        packed, sz = int4pack(qw, k, n)
-        out = torch._weight_int4pack_mm(x, packed, GROUP, sz)
-        ref = k2.int4_matmul_reference(x, qw.values,
-                                       qw.scales.reshape(k // GROUP, n),
-                                       torch.float32)
-        err = float((out.float() - ref).abs().max() / ref.abs().max())
-        ms = time_ms(lambda: torch._weight_int4pack_mm(x, packed, GROUP, sz),
-                     10, flush)
-        return ms, f'rel_err_vs_plain={err:.2e}'
-    except (RuntimeError, TypeError, AttributeError) as exc:
-        return None, f'{type(exc).__name__}: {str(exc).splitlines()[0]}'
-
-
 def check_kernel(dev) -> dict:
     """Phase 2: kernel against plain at every serving shape."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = l2_flush_buffer(dev)
     worst = 0.0
     step_ms = {'kernel': 0.0, 'plain': 0.0, 'bound': 0.0, 'library': 0.0}
     bound_kind: dict = {}           # 'bytes' / 'operations' -> ms
@@ -272,7 +220,7 @@ def check_kernel(dev) -> dict:
                 if m == DECODE_SLOTS and (
                         (name == 'head') == (dtype == torch.float32)):
                     reps = 1 if name == 'head' else n_layers
-                    lms, note = library_int4_ms(qw, x, k, n, flush)
+                    lms, note = int4_library_ms(x, vals, sc, flush)
                     log(f'phase2 library {name:8s} M={m} '
                         f'torch._weight_int4pack_mm ms='
                         f'{"none" if lms is None else f"{lms:.4f}"} ({note})')
@@ -327,6 +275,80 @@ def check_kernel(dev) -> dict:
             'plain_ms': step_ms['plain'], 'bound_ms': step_ms['bound'],
             'bound_by': max(bound_kind, key=bound_kind.get),
             'library_ms': lib}
+
+
+def check_ab(dev, smi) -> dict:
+    """Phase 2ab: the A/B variants v1 and v2 of K2 against their plain
+    versions, the negative controls, then the timed A/B (the bench's
+    ``run``, the path whose launches are counted)."""
+    worst = {'v1': 0.0, 'v2': 0.0}
+    for i, (name, k, n) in enumerate(ab.SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 50 + i)
+        wts = ab.make_weights(k, n, gen)
+        vals, sc = wts['values'], wts['scales']
+        v2v, v2s = wts['v2_values'], wts['v2_scales']
+        for m in (1, 32, 128):
+            x = torch.randn((m, k), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            corr = ab.v2_correction(x, v2s, ab.GS)
+            cases = {   # tag -> (kernel, plain version, negative control)
+                'v1': (lambda: ab.int4_matmul_v1_cuda(x, vals, sc),
+                       ab.int4_matmul_v1_reference(x, vals, sc),
+                       k2.int4_matmul_cuda(x, vals, sc, torch.bfloat16)),
+                'v2': (lambda: ab.int4_matmul_v2_cuda(x, v2v, v2s, corr),
+                       ab.int4_matmul_v2_reference(x, v2v, v2s, corr),
+                       ab.int4_matmul_v2_cuda(x, v2v, v2s,
+                                              torch.zeros_like(corr)))}
+            for tag, (kernel, ref, control) in cases.items():
+                got, again = kernel(), kernel()
+                torch.cuda.synchronize()
+                share, diff, scale = ab.agreement(got, ref)
+                same = torch.equal(got, again)
+                cshare, cdiff, _ = ab.agreement(control, ref)
+                caught = not ab.agrees(control, ref)
+                log(f'phase2ab {tag} {name:8s} M={m:<4d} K={k:<6d} N={n:<6d} '
+                    f'bit-equal {share:.6f} (min {ab.MIN_BIT_EQUAL:g}) '
+                    f'max_abs_err={diff:.3e} max|plain|={scale:.3e} (tol '
+                    f'{ab.MAX_DIFF:g} x) repeats bit for bit: {same}; '
+                    f'negative control '
+                    f'({"v0" if tag == "v1" else "no correction"}): '
+                    f'bit-equal {cshare:.6f} max_abs_err={cdiff:.3e} '
+                    f'refused: {caught}')
+                if not (ab.agrees(got, ref) and same):
+                    raise AssertionError(f'{tag} kernel disagrees at {name} '
+                                         f'M={m}')
+                if not caught:
+                    raise AssertionError(f'the {tag} check passed its '
+                                         f'negative control at {name} M={m}')
+                worst[tag] = max(worst[tag], diff)
+        del wts, vals, sc, v2v, v2s
+    ab.int4_matmul_v1_cuda.launches = 0
+    ab.int4_matmul_v2_cuda.launches = 0
+    results = ab.run(dev)
+    launches = {'v1': ab.int4_matmul_v1_cuda.launches,
+                'v2': ab.int4_matmul_v2_cuda.launches}
+    total = ab.sum_of_shapes(results)
+    bound_kind: dict = {}           # 'bytes' / 'operations' -> ms
+    for name, r in results.items():
+        bound_kind[r['bound_by']] = bound_kind.get(r['bound_by'], 0.0) \
+            + r['bound']
+        log(f'phase2ab A/B {name:8s} M={r["M"]} K={r["K"]} N={r["N"]} '
+            + ' '.join(f'{tag}_ms={r[tag]}' for tag in ab.TIMED)
+            + f' ({r["bound_by"]}) relerr v1={r["relerr"]["v1"]:.3e} '
+            f'v2={r["relerr"]["v2"]:.3e} (tol {AB_RELERR_TOL:g}); library: '
+            f'{r["library_note"]}; card {smi}')
+        if max(r['relerr'].values()) > AB_RELERR_TOL:
+            raise AssertionError(f'A/B relerr too large at {name}')
+    log(f'phase2ab A/B sum of the three shapes at M 32: '
+        + ' '.join(f'{tag}_ms={total[tag]}' for tag in ab.TIMED)
+        + f'; launches in the timed A/B: v1 {launches["v1"]} v2 '
+        f'{launches["v2"]}')
+    for tag, n in launches.items():
+        if n == 0:
+            raise AssertionError(f'the {tag} kernel was not launched in the '
+                                 'timed A/B')
+    return {'worst': worst, 'launches': launches, 'total': total,
+            'bound_by': max(bound_kind, key=bound_kind.get)}
 
 
 def build_params(cfg, dev) -> dict:
@@ -598,7 +620,7 @@ def sdpa_ms(q, k, v, dout, causal, flush) -> tuple[float, float]:
 
 def check_flash(dev) -> dict:
     """Phase 6: the flash kernels against their plain versions."""
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = l2_flush_buffer(dev)
     worst = {'fwd': 0.0, 'bwd': 0.0}
     timed = {}
     for seed, (name, b, l, h, kh, d, causal, window, pad_rows, pad_len,
@@ -972,7 +994,7 @@ def tile_sweep(dev, smi, specs: list) -> None:
     libs = {'as written': fa.LIBRARY,
             **build_variants({sp: tiles_source(src, sp) for sp in specs},
                              'sweep')}
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = l2_flush_buffer(dev)
     for name in [*libs, 'as written']:
         with mock.patch.object(fa, 'LIBRARY', libs[name]):
             for si, shape in enumerate(FLASH_SHAPES[:2]):
@@ -1114,6 +1136,8 @@ def main() -> int:
         log(f'phase1 int4_matmul ptxas: {line}')
 
     kstats = check_kernel(dev)
+    abstats = check_ab(dev, smi)
+    torch.cuda.empty_cache()
 
     cfg = llama_config().replace(compute_dtype='bfloat16')
     torch.cuda.reset_peak_memory_stats()
@@ -1213,7 +1237,22 @@ def main() -> int:
         'bound_ms': kstats['bound_ms'], 'bound_by': kstats['bound_by'],
         'library_ms': kstats['library_ms'],
         'ms_is': 'one decode step at 32 slots: 4x32 layer matmuls + head; '
-                 'library_ms: torch._weight_int4pack_mm'}, {
+                 'library_ms: torch._weight_int4pack_mm'}, *({
+        'name': f'int4_matmul_{tag}', 'route': 'cuda',
+        'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
+        'replaces': f'scripts/bench/bench_int4_kernel_ab.py:{line}',
+        'also_replaces': f'scripts/bench/bench_int4_kernel_ab.py:{body}',
+        'launches': abstats['launches'][tag],
+        'max_abs_err': abstats['worst'][tag],
+        'ms': abstats['total'][tag], 'plain_ms': abstats['total'][
+            f'{tag}_plain'],
+        'bound_ms': abstats['total']['bound'],
+        'bound_by': abstats['bound_by'],
+        'library_ms': abstats['total']['library'],
+        'ms_is': 'sum of qkv + down + gate_up at M 32 (Llama-3-8B widths), '
+                 "v2's with its -8 correction (torch); library_ms: "
+                 'torch._weight_int4pack_mm on the v0 weights'}
+        for tag, line, body in (('v1', 177, 65), ('v2', 152, 107))), {
         'name': 'flash_attention_fwd', **flash,
         'replaces': 'align_anything_tpu/ops/attention.py:87',
         'also_replaces': 'align_anything_tpu/ops/attention.py:73, '

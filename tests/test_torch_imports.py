@@ -17,6 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                'align_anything_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
+# the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py
+assert 'align_anything_tpu_torch.scripts.bench.bench_int4_kernel_ab' in names
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'align_anything_tpu.')))
 print(len(names), bad)
@@ -31,4 +33,20 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slice was imported
-    assert int(n) >= 26
+    assert int(n) >= 30
+
+
+@pytest.mark.parametrize('module', [
+    'align_anything_tpu_torch.ops.int4_matmul',
+    'align_anything_tpu_torch.ops.flash_attention',
+    'align_anything_tpu_torch.scripts.bench.bench_int4_kernel_ab',
+])
+def test_kernel_module_imports_first(module):
+    """A module that holds a kernel imports on its own in a fresh
+    interpreter (``ops/int4_matmul.py`` and ``models/`` import each
+    other)."""
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', f'import {module}'],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
