@@ -23,12 +23,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '--ptxas-options=-v')
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
 
     if CUDA_HOME is None:
         raise RuntimeError('CUDA toolkit not found: set CUDA_HOME')
-    return os.path.join(CUDA_HOME, 'bin', 'nvcc')
+    return os.path.join(CUDA_HOME, 'bin', name)
 
 
 class CudaLibrary:
@@ -57,7 +57,7 @@ class CudaLibrary:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(self.source)],
+                [_cuda_tool('nvcc'), *NVCC_FLAGS, '-o', str(tmp), str(self.source)],
                 capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
@@ -65,6 +65,22 @@ class CudaLibrary:
                     f'nvcc failed for {self.source}:\n{self.build_log}')
             os.replace(tmp, so)
         return so
+
+    def tensor_core_counts(self) -> dict[str, int]:
+        """Tensor-core instructions (HMMA, HGMMA) per kernel in the SASS of
+        the built library (``cuobjdump -sass``), by mangled kernel name."""
+        sass = subprocess.run(
+            [_cuda_tool('cuobjdump'), '-sass', str(self.compile())],
+            capture_output=True, text=True, check=True).stdout
+        counts: dict[str, int] = {}
+        name = None
+        for line in sass.splitlines():
+            if 'Function :' in line:
+                name = line.split('Function :', 1)[1].strip()
+                counts[name] = 0
+            elif name is not None and ('HMMA' in line or 'HGMMA' in line):
+                counts[name] += 1
+        return counts
 
     def load(self) -> ctypes.CDLL:
         with self._lock:

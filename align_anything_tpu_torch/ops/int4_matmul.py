@@ -5,7 +5,9 @@
 x's full last dim, and returns (..., *out_dims) in ``dtype``:
 
 - on a CUDA tensor it launches the hand-written kernel in
-  ``csrc/int4_matmul.cu`` (built by nvcc for sm_90a at first use);
+  ``csrc/int4_matmul.cu`` (built by nvcc for sm_90a at first use), which
+  cuts K into the ``split_plan`` ranges of whole groups, multiplies on the
+  tensor cores and sums the ranges' fp32 partials in a fixed order;
 - on a CPU tensor it runs ``int4_matmul_reference``, the kernel's plain
   PyTorch version, with the same rounding.
 
@@ -17,13 +19,14 @@ It returns None, and the caller dequantizes and runs a plain matmul, where
 the JAX wrapper also declines: when the grouping does not run over x's last
 dim (the 'o' projection of ``quantize_decoder_int4``, grouped over heads
 only), and for prefill-sized inputs of more than ``KERNEL_MAX_ROWS`` rows,
-where the weight read is amortized over many rows and the dense matmul's
-tensor cores win (crossover measured on the H100, see PERF.md).
+where the weight read is amortized over many rows (chip_smoke.py's
+phase 2 prints the crossover against the dense path on the H100).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -36,7 +39,10 @@ from align_anything_tpu_torch.ops._cuda_build import CudaLibrary
 KERNEL_MAX_ROWS = 128
 
 _MAX_GRID_Y = 65535
-_TILE_N = 128          # columns per block in the kernel
+_TILE_N = 128          # columns per block in K2 (kTileN, csrc/int4_matmul.cu)
+_TILE_M = 32           # rows per block in K2 (kTileM)
+# split K until the grid holds about this many blocks per SM
+BLOCKS_PER_SM = 2
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -44,7 +50,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     (``scripts/bench/bench_int4_kernel_ab.py``), all in one library."""
     ptr, num = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
-            (lib.int4_matmul_launch, [ptr] * 4 + [num] * 6 + [ptr]),
+            (lib.int4_matmul_launch, [ptr] * 5 + [num] * 7 + [ptr]),
             (lib.int4_matmul_v1_launch, [ptr] * 4 + [num] * 5 + [ptr]),
             (lib.int4_matmul_v2_launch, [ptr] * 5 + [num] * 5 + [ptr])):
         fn.argtypes = argtypes
@@ -97,6 +103,29 @@ def check_operands(caller: str, x: torch.Tensor, values: torch.Tensor,
     return m, k, n, half, vec
 
 
+def split_plan(m: int, k: int, n: int, half: int, sm_count: int) -> int:
+    """Number of ranges of whole groups that K2 cuts K into for x (m, k)
+    and an (n)-column weight with groups of 2 * half: enough that the grid
+    holds about ``BLOCKS_PER_SM`` blocks per SM, at least 1 and at most
+    the number of groups."""
+    groups = k // (2 * half)
+    blocks = -(-m // _TILE_M) * -(-n // _TILE_N)
+    want = math.floor(BLOCKS_PER_SM * sm_count / blocks + 0.5)
+    return max(1, min(groups, want))
+
+
+def split_ranges(groups: int, splits: int) -> list[tuple[int, int]]:
+    """The group ranges [lo, hi) of a plan, as the kernel cuts them: split
+    s takes groups [s * G // S, (s + 1) * G // S)."""
+    return [(s * groups // splits, (s + 1) * groups // splits)
+            for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch(entry: str, dev: torch.device, *args) -> None:
     """Call ``entry`` of the built library with ``args`` and the current
     stream of ``dev``; raises if the launch failed."""
@@ -112,16 +141,24 @@ def int4_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
     """Launch the CUDA kernel.  x (M, K) bf16; values (G, gs/2, N) int8;
     scales (G, N) fp32, all contiguous on one CUDA device -> (M, N) in
-    ``dtype`` (bf16 or fp32).  Counts each launch in
-    ``int4_matmul_cuda.launches``."""
+    ``dtype`` (bf16 or fp32).  With more than one split the call also
+    launches the fixed-order sum of the splits, over a workspace allocated
+    here; it counts as one launch in ``int4_matmul_cuda.launches``."""
     m, k, n, half, vec = check_operands('int4_matmul_cuda', x, values, scales)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f'output dtype must be bf16 or fp32 (got {dtype})')
     out = torch.empty((m, n), dtype=dtype, device=x.device)
     if m == 0 or n == 0:
         return out
+    if x.data_ptr() % 16:
+        x = x.clone()                     # the kernel stages x 16 bytes at a time
+    splits = split_plan(m, k, n, half, _sm_count(x.device.index or 0))
+    # fp32 partial sums of the splits, summed in a fixed order by the kernel
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
     launch('int4_matmul_launch', x.device, x.data_ptr(), values.data_ptr(),
-           scales.data_ptr(), out.data_ptr(), m, k, n, half,
+           scales.data_ptr(), out.data_ptr(),
+           None if ws is None else ws.data_ptr(), splits, m, k, n, half,
            int(dtype == torch.float32), vec)
     int4_matmul_cuda.launches += 1
     return out

@@ -24,6 +24,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 # larger than the 50 MB L2, so zeroing it evicts every cached line
 L2_FLUSH_BYTES = 256 * 2**20
+# clock cycles the card spins before each timed launch (about 1 ms)
+SPIN_CYCLES = 2_000_000
 
 
 def gpu_name_and_power() -> str:
@@ -40,11 +42,15 @@ def l2_flush_buffer(dev: torch.device) -> torch.Tensor:
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush (decode finds its weights cold: they are 100x the L2)."""
+    L2 flush (decode finds its weights cold: they are 100x the L2).  The
+    card spins for about a millisecond after the flush, so that ``fn``'s
+    host work (Python, argument checks, the ctypes call) is enqueued before
+    the start event runs and only device time is measured."""
     fn()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

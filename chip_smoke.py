@@ -6,10 +6,15 @@
 Phases (any failure raises and the run exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
   1. build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
-     per source, started together;
+     per source, started together; print the int4 kernels' registers and
+     count the tensor-core instructions (HMMA) in each instance of K2's
+     kernel (``cuobjdump -sass``), which must have some;
   2. hold the int4 matmul kernel against its plain PyTorch version at the
-     serving path's shapes (Llama-3-8B widths) and time both, beside the
-     bound and PyTorch's own int4 GEMM;
+     serving path's shapes (Llama-3-8B widths) and M 1-128, with each
+     launch repeated bit for bit and the split of K printed, and time
+     both, beside the bound and PyTorch's own int4 GEMM; time the 'o'
+     projection in ``quantize_decoder_int4``'s layout (grouped over heads,
+     dequantized per call) against the flattened layout K2 takes;
   2ab. the A/B variants of that kernel (``scripts/bench/
      bench_int4_kernel_ab.py``, v1 and v2): each held against its plain
      version at the A/B's three shapes and M 1, 32 and 128, two launches
@@ -74,7 +79,6 @@ import math
 import os
 import re
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -114,6 +118,10 @@ GROUP = 64
 SHAPES = [('qkv', 4096, 6144), ('o', 4096, 4096), ('gate_up', 4096, 28672),
           ('down', 14336, 4096), ('head', 4096, 128256)]
 TOL = {'bfloat16': 1e-2, 'float32': 1e-4}   # x max|plain|
+# phase 2's row counts: each checked against the plain version with a
+# bit-for-bit repeat; the decode step is timed at TIMED_ROWS
+CHECK_ROWS = (1, 16, 17, 32, 33, 128)
+TIMED_ROWS = (1, 32, 128)
 # the A/B's relerr (max|o - o0| / max|fp32 reference|): v1 and v2 round
 # the scale to bf16 where v0 does not, so they sit a few bf16 ulps from
 # v0 at the max; v2 without its correction reads about 1
@@ -175,6 +183,7 @@ def check_kernel(dev) -> dict:
     """Phase 2: kernel against plain at every serving shape."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = l2_flush_buffer(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     step_ms = {'kernel': 0.0, 'plain': 0.0, 'bound': 0.0, 'library': 0.0}
     bound_kind: dict = {}           # 'bytes' / 'operations' -> ms
@@ -186,31 +195,39 @@ def check_kernel(dev) -> dict:
         del w
         g = k // GROUP
         vals, sc = qw.values, qw.scales.reshape(g, n)
-        for m in (1, 32, 128):
+        for m in CHECK_ROWS:
             x = torch.randn((m, k), generator=gen, device=dev,
                             dtype=torch.bfloat16)
+            splits = k2.split_plan(m, k, n, GROUP // 2, sms)
             for dtype in (torch.bfloat16, torch.float32):
-                got = k2.int4_matmul_cuda(x, vals, sc, dtype).float()
+                got = k2.int4_matmul_cuda(x, vals, sc, dtype)
+                again = k2.int4_matmul_cuda(x, vals, sc, dtype)
                 ref = k2.int4_matmul_reference(x, vals, sc, dtype).float()
                 torch.cuda.synchronize()
+                same = torch.equal(got, again)
+                got = got.float()
                 err = float((got - ref).abs().max())
                 scale = float(ref.abs().max())
                 tol = TOL[str(dtype).split('.')[-1]]
-                ok = bool(torch.isfinite(got).all()) and err <= tol * scale
-                kms = time_ms(lambda: k2.int4_matmul_cuda(
-                    x, vals, sc, dtype), 10, flush)
-                pms = time_ms(lambda: k2.int4_matmul_reference(
-                    x, vals, sc, dtype), 3, flush)
-                bms, by = bound(2 * m * k * n, vals.numel() + sc.numel() * 4
-                                + x.numel() * 2
-                                + m * n * (4 if dtype == torch.float32 else 2),
-                                torch.bfloat16)
-                log(f'phase2 {name:8s} M={m:<4d} K={k:<6d} N={n:<7d} '
-                    f'out={str(dtype)[6:]:9s} max_abs_err={err:.3e} '
-                    f'max|plain|={scale:.3e} tol={tol:g} '
-                    f'kernel_ms={kms:.4f} plain_ms={pms:.4f} '
-                    f'bound_ms={bms:.4f} ({by}) '
-                    f'{"ok" if ok else "FAIL"}')
+                ok = (bool(torch.isfinite(got).all()) and err <= tol * scale
+                      and same)
+                line = (f'phase2 {name:8s} M={m:<4d} K={k:<6d} N={n:<7d} '
+                        f'out={str(dtype)[6:]:9s} splits={splits:<3d} '
+                        f'max_abs_err={err:.3e} max|plain|={scale:.3e} '
+                        f'tol={tol:g} repeats bit for bit: {same}')
+                if m in TIMED_ROWS:
+                    kms = time_ms(lambda: k2.int4_matmul_cuda(
+                        x, vals, sc, dtype), 10, flush)
+                    pms = time_ms(lambda: k2.int4_matmul_reference(
+                        x, vals, sc, dtype), 3, flush)
+                    bms, by = bound(
+                        2 * m * k * n, vals.numel() + sc.numel() * 4
+                        + x.numel() * 2
+                        + m * n * (4 if dtype == torch.float32 else 2),
+                        torch.bfloat16)
+                    line += (f' kernel_ms={kms:.4f} plain_ms={pms:.4f} '
+                             f'bound_ms={bms:.4f} ({by})')
+                log(f'{line} {"ok" if ok else "FAIL"}')
                 if not ok:
                     raise AssertionError(
                         f'int4 kernel disagrees at {name} M={m} {dtype}')
@@ -275,6 +292,42 @@ def check_kernel(dev) -> dict:
             'plain_ms': step_ms['plain'], 'bound_ms': step_ms['bound'],
             'bound_by': max(bound_kind, key=bound_kind.get),
             'library_ms': lib}
+
+
+def o_projection(dev) -> None:
+    """Phase 2: the 'o' projection at 32 slots in ``quantize_decoder_int4``'s
+    layout, (H, D, E) grouped over heads only, where K2 declines and
+    ``_wmm`` dequantizes the layer's whole weight on every call, against the
+    flattened (H*D, E) layout that phase 4 serves, which K2 takes."""
+    cfg = llama_config()
+    h, d, e = cfg.num_heads, cfg.head_dim, cfg.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    flush = l2_flush_buffer(dev)
+    w = torch.randn((1, h, d, e), generator=gen, device=dev,
+                    dtype=torch.bfloat16) * (h * d) ** -0.5
+    leaves = {
+        'heads': q.quantize_int4(w, (1, 2), group_size=GROUP,
+                                 compute=True).layer(0),
+        'flat': q.quantize_int4(w.reshape(1, h * d, e), (1,),
+                                group_size=GROUP, compute=True).layer(0)}
+    attn = torch.randn((DECODE_SLOTS, 1, h, d), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    ms, launched = {}, {}
+    for name, leaf in leaves.items():
+        def call(leaf=leaf):
+            return transformer._wmm('blhd,hde->ble', attn, leaf,
+                                    torch.bfloat16, n_contract=2)
+        before = k2.int4_matmul_cuda.launches
+        call()
+        launched[name] = k2.int4_matmul_cuda.launches > before
+        ms[name] = time_ms(call, 10, flush)
+    n = cfg.num_layers
+    log(f'phase2 o projection at {DECODE_SLOTS} slots: grouped over heads '
+        f'(K2 declines: dequantize + einsum) {ms["heads"]:.4f} ms per layer, '
+        f'{n * ms["heads"]:.3f} ms per decode step; flattened (K2) '
+        f'{ms["flat"]:.4f} ms per layer, {n * ms["flat"]:.3f} ms per step')
+    if launched != {'heads': False, 'flat': True}:
+        raise AssertionError(f'o projection routes: K2 launched {launched}')
 
 
 def check_ab(dev, smi) -> dict:
@@ -519,30 +572,23 @@ def ptxas_lines(build_log: str) -> list[str]:
             if 'registers' in line or 'spill' in line]
 
 
-def tensor_core_counts(lib) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) per kernel in the SASS of
-    the built library (``cuobjdump -sass``), by mangled kernel name."""
-    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
-
-    sass = subprocess.run(
-        [os.path.join(CUDA_HOME, 'bin', 'cuobjdump'), '-sass',
-         str(lib.compile())], capture_output=True, text=True,
-        check=True).stdout
-    counts: dict = {}
-    name = None
-    for line in sass.splitlines():
-        if 'Function :' in line:
-            name = line.split('Function :', 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and ('HMMA' in line or 'HGMMA' in line):
-            counts[name] += 1
-    return counts
+def check_k2_tensor_cores(lib) -> None:
+    """Phase 1: every instance of K2's kernel multiplies on the tensor
+    cores (HMMA in its SASS)."""
+    counts = {name: n for name, n in lib.tensor_core_counts().items()
+              if 'k2_mma_kernel' in name}
+    for name, n in sorted(counts.items()):
+        log(f'phase1 int4_matmul SASS tensor-core instructions {n:5d} in '
+            f'{name}')
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError(f'no tensor-core instruction in an instance of '
+                             f"K2's kernel ({counts})")
 
 
 def check_tensor_cores(lib) -> None:
     """Phase 5: the bf16 forward, dK/dV and dQ kernels at D 64 and 128
     run their products on the tensor cores."""
-    counts = tensor_core_counts(lib)
+    counts = lib.tensor_core_counts()
     for name, n in sorted(counts.items()):
         log(f'phase5 flash_attention SASS tensor-core instructions {n:5d} '
             f'in {name}')
@@ -1134,8 +1180,10 @@ def main() -> int:
         return 0
     for line in ptxas_lines(libs['int4_matmul'].build_log):
         log(f'phase1 int4_matmul ptxas: {line}')
+    check_k2_tensor_cores(libs['int4_matmul'])
 
     kstats = check_kernel(dev)
+    o_projection(dev)
     abstats = check_ab(dev, smi)
     torch.cuda.empty_cache()
 

@@ -6,7 +6,11 @@ Both sides get the same numpy arrays; the JAX Int4Weight goes through
 wrapper runs the kernel's plain version, the JAX wrapper its Pallas kernel
 in interpret mode; they differ only in summation order, hence the 1e-3
 relative tolerance.  The CUDA kernel itself is held against the plain
-version by the ``cuda``-marked case, which runs only where there is a card.
+version by the ``cuda``-marked cases, which run only where there is a card
+(each decides that inside the test).  K2 cuts K into ranges of whole groups
+(``split_plan``) and sums the ranges' fp32 partials in a fixed order; the
+CPU cases check the plan, and the plain version summed over its ranges in
+that order against the JAX kernel.
 """
 
 import types
@@ -177,14 +181,13 @@ def test_cuda_wrapper_rejects_cpu_tensors(jx):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m', [1, 3, 17, 128])
+@pytest.mark.parametrize('m', [1, 3, 16, 17, 32, 33, 128])
 @pytest.mark.parametrize('k,n', [(512, 256), (1024, 200), (768, 130)])
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_cuda_kernel_matches_reference(m, k, n, dtype):
     """The hand-written kernel against its plain version on the card,
     ragged N (no 4-column vector loads) included."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs an NVIDIA GPU')
+    _need_card()
     gen = torch.Generator(device='cuda').manual_seed(0)
     w = torch.randn((k, n), generator=gen, device='cuda') * 0.05
     qw = tq.quantize_int4(w, (0,), group_size=64, compute=True)
@@ -198,3 +201,147 @@ def test_cuda_kernel_matches_reference(m, k, n, dtype):
     assert tk.int4_matmul_cuda.launches == before + 1
     tol = 1e-2 if dtype == 'bfloat16' else 1e-4
     assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+# (m, k, n, gs): the serving shapes at M 32 (Llama-3-8B widths), M 1 and
+# 128, and small ones with odd group counts and ragged N
+PLAN_SHAPES = [(32, 4096, 6144, 64), (32, 14336, 4096, 64),
+               (32, 4096, 4096, 64), (32, 4096, 28672, 64),
+               (32, 4096, 128256, 64), (1, 4096, 6144, 64),
+               (128, 14336, 4096, 64), (8, 1280, 256, 64),
+               (33, 800, 264, 40), (3, 480, 130, 24)]
+
+
+@pytest.mark.parametrize('m,k,n,gs', PLAN_SHAPES)
+@pytest.mark.parametrize('sm_count', [132, 3])
+def test_split_plan_covers_k_once_in_whole_groups(m, k, n, gs, sm_count):
+    groups = k // gs
+    splits = tk.split_plan(m, k, n, gs // 2, sm_count)
+    assert 1 <= splits <= groups
+    ranges = tk.split_ranges(groups, splits)
+    assert len(ranges) == splits
+    assert all(lo < hi for lo, hi in ranges)       # no empty split
+    # consecutive ranges of whole groups: K offsets lo * gs, hi * gs
+    covered = [g for lo, hi in ranges for g in range(lo, hi)]
+    assert covered == list(range(groups))
+
+
+@pytest.mark.parametrize('m', [1, 32, 128])
+def test_split_plan_keeps_the_head_whole(m):
+    """The LM head (N 128256) fills the card without a split."""
+    assert tk.split_plan(m, 4096, 128256, 32, 132) == 1
+
+
+@pytest.mark.parametrize('k,n,splits', [
+    (4096, 6144, 6),       # fused q/k/v: 48 column tiles
+    (4096, 4096, 8),       # o
+    (14336, 4096, 8),      # down
+    (4096, 28672, 1),      # fused gate/up: 224 tiles
+    (4096, 128256, 1),     # the head
+])
+def test_split_plan_at_the_decode_step(k, n, splits):
+    """Llama-3-8B's decode step at 32 slots on 132 SMs: about two blocks
+    per SM."""
+    assert tk.split_plan(32, k, n, 32, 132) == splits
+
+
+def _split_sum(x, values, scales, dtype, splits):
+    """The plain version summed over the plan's group ranges in the
+    kernel's order, s = 0 .. S-1, in fp32."""
+    gs = 2 * values.shape[1]
+    acc = torch.zeros((x.shape[0], values.shape[-1]))
+    for lo, hi in tk.split_ranges(values.shape[0], splits):
+        acc += tk.int4_matmul_reference(x[:, lo * gs:hi * gs], values[lo:hi],
+                                        scales[lo:hi], torch.float32)
+    return acc.to(dtype)
+
+
+@pytest.mark.parametrize('m,k,n,gs,sm_count,splits', [
+    (8, 1280, 256, 64, 3, 3),        # 20 groups in 6 + 7 + 7
+    (32, 2048, 384, 128, 132, 16),   # one group per split
+])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_split_sum_matches_jax(jx, m, k, n, gs, sm_count, splits, dtype):
+    assert tk.split_plan(m, k, n, gs // 2, sm_count) == splits
+    x, jw, tw = _pair(jx, m, k, n, gs, seed=7)
+    ref = jx.k.int4_matmul(jx.jnp.asarray(x), jw, dtype=jx.jnp.dtype(dtype))
+    assert ref is not None, 'JAX must take its kernel path at this shape'
+    got = _split_sum(torch.from_numpy(x).bfloat16(), tw.values,
+                     tw.scales.reshape(k // gs, n), getattr(torch, dtype),
+                     splits)
+    _close(got.float(), np.asarray(ref.astype(jx.jnp.float32)))
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+
+
+def _card_operands(m, k, n, gs, seed=0):
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device='cuda') * 0.05
+    qw = tq.quantize_int4(w, (0,), group_size=gs, compute=True)
+    x = torch.randn((m, k), generator=gen, device='cuda').bfloat16()
+    return x, qw.values, qw.scales.reshape(k // gs, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n,gs', [
+    (1, 14336, 4096, 64),       # down's K
+    (32, 14336, 4096, 64),
+    (17, 1024, 512, 128),       # group 128
+    (33, 800, 264, 40),         # half 20: not a multiple of 16
+    (3, 480, 130, 24),          # half 12, ragged N
+])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_kernel_group_sizes_and_long_k(m, k, n, gs, dtype):
+    _need_card()
+    x, vals, sc = _card_operands(m, k, n, gs)
+    out_dtype = getattr(torch, dtype)
+    got = tk.int4_matmul_cuda(x, vals, sc, out_dtype).float()
+    ref = tk.int4_matmul_reference(x, vals, sc, out_dtype).float()
+    torch.cuda.synchronize()
+    tol = 1e-2 if dtype == 'bfloat16' else 1e-4
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', [(32, 4096, 6144), (32, 14336, 4096),
+                                   (17, 512, 256), (128, 4096, 4096)])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_kernel_repeats_bit_for_bit(m, k, n, dtype):
+    """Split K is summed in a fixed order: two launches, the same bits."""
+    _need_card()
+    x, vals, sc = _card_operands(m, k, n, 64, seed=1)
+    out_dtype = getattr(torch, dtype)
+    first = tk.int4_matmul_cuda(x, vals, sc, out_dtype)
+    second = tk.int4_matmul_cuda(x, vals, sc, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_k2_runs_on_tensor_cores():
+    """Every instance of K2's kernel has HMMA in its SASS."""
+    _need_card()
+    counts = {name: n for name, n in tk.LIBRARY.tensor_core_counts().items()
+              if 'k2_mma_kernel' in name}
+    assert counts, 'no instance of k2_mma_kernel in the library'
+    assert min(counts.values()) > 0, counts
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_x_off_16_byte_alignment():
+    """x staged 16 bytes at a time: a view 2 bytes off alignment still
+    gives the plain version's result."""
+    _need_card()
+    x, vals, sc = _card_operands(17, 512, 256, 64, seed=2)
+    buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device='cuda')
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    got = tk.int4_matmul_cuda(shifted, vals, sc, torch.float32)
+    ref = tk.int4_matmul_reference(x, vals, sc, torch.float32)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
