@@ -1,5 +1,6 @@
 // K2, the W4A16 matmul for Hopper (sm_90a): out (M, N) = x (M, K) @
-// dequant(values, scales), and the A/B variants V1 and V2 of it.
+// dequant(values, scales), and the A/B variants V1 and V2 of it: one kernel
+// body, k2_mma_kernel, templated on the variant.
 //
 // K2 replaces the Pallas TPU kernels _int4_matmul_2d and
 // _int4_matmul_2d_indexed of align_anything_tpu/ops/int4_matmul.py (the
@@ -13,6 +14,25 @@
 //     rounded to bf16;
 //   * bf16 x bf16 products accumulate in fp32; the result is stored in the
 //     caller's dtype (bf16 or fp32).
+// V1 and V2 replace the Pallas kernels of scripts/bench/bench_int4_kernel_ab.py
+// (_kernel_v1 behind run_variant, _kernel_v2 behind run_v2) and differ from
+// K2 only in how B's fragments are built from a loaded word and scale
+// (dequant_b); their output is bf16:
+//   * V1: w = bf16(q * bf16(s)), the scale rounded to bf16 first;
+//   * V2: the offset-low packing, whose low nibble holds q + 8 (unsigned)
+//     and whose high nibble is signed; w = bf16(u * bf16(s)) for the stored
+//     nibble u, and the -8 correction (M, N) fp32, computed outside the
+//     kernel as run_v2 computes it, is added once to each fp32 total before
+//     the cast: at the store with one split, in split_sum_kernel with more.
+// V1 and V2 are held to their plain versions bit for bit on at least 99 %
+// of the bf16 outputs.  The tensor cores' fp32 sum along a chain of MMAs
+// drifts from a sum rounded to nearest at every addition, and over the 896
+// MMAs of a split of down's K 14336 at M 128 (2 splits) the drift moved
+// 1.1 % of the outputs across a bf16 rounding boundary (H100).  So V1 and
+// V2 start a fresh MMA sum for every chunk of kSteps k16-steps and add it
+// to a second fp32 accumulator with round-to-nearest adds (16 * MT FADDs
+// per chunk, 16 * MT more registers).  K2, held to 1e-2 of max|plain|,
+// keeps its single accumulator.
 //
 // What bounds it on the H100: at decode sizes (M <= 32) the bytes it must
 // read, about 4.5 bits per weight with the fp32 scales (K*N/2 packed bytes
@@ -34,7 +54,7 @@
 //     thread loads one 32-bit word (4 neighbouring columns) from each of
 //     the four packed rows its fragment needs (2t, 2t+1, 2t+8, 2t+9 of a
 //     16-row step), and each nibble is sign-extended, scaled in fp32 and
-//     rounded to bf16 exactly as dequant<kV0> does.  The low nibbles of
+//     rounded to bf16 (V1 and V2: in bf16x2, see dequant_b).  The low nibbles of
 //     packed rows r..r+15 of group g meet x[:, g*gs + r ..], the high
 //     nibbles x[:, g*gs + gs/2 + r ..], so each byte is unpacked once and
 //     feeds two MMAs.  The n index i of a warp's n8 tile j stands for
@@ -55,12 +75,8 @@
 // x is being staged.  What bounds it now (scripts/bench/k2_sweep.py on an
 // H100): those loads, which alone take 2.5x the bytes' time at the fused
 // gate/up shape (few bytes in flight per warp, 4-byte loads), then the
-// dequantization (4 ALU operations per weight); the MMAs cost nothing
-// measurable.
-//
-// V1 and V2, the A/B variants of scripts/bench/bench_int4_kernel_ab.py, run
-// K2's earlier CUDA-core kernel (int4_matmul_kernel below, K2 before its
-// tensor-core redesign), kept unchanged for the A/B.
+// dequantization (K2: about 4.5 ALU operations per weight; V1 and V2: 2);
+// the MMAs cost nothing measurable.
 //
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes (align_anything_tpu_torch/ops/int4_matmul.py).
@@ -72,214 +88,12 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The CUDA-core kernel, the A/B variants' skeleton.  N is the contiguous
-// dim, so a warp covers 128 neighbouring columns and each thread loads one
-// 32-bit word (4 columns) per packed row; the 8 warps of a block split the
-// packed rows and are summed in shared memory at the end; x is staged as
-// fp32 pairs (x[k], x[k + gs/2]) matching a byte's two nibbles; M is tiled
-// by up to 16 rows per block.  The kernel is templated on the per-element
-// dequantization:
-//   * V0: sign-extended nibbles, w = bf16(q * s), s fp32 (K2's arithmetic,
-//     which the tensor-core kernel repeats; no longer instantiated);
-//   * V1: w = bf16(q * bf16(s)), the scale rounded to bf16 first;
-//   * V2: offset-low packing, the low nibble holds q + 8 and is read with one
-//     AND, the high nibble is signed; w_low = bf16((q + 8) * bf16(s)),
-//     w_high = bf16(q * bf16(s)), and the -8 correction, computed outside the
-//     kernel as in run_v2, is added to the sum before the store.
-// The TPU kernel of V2 takes x split into its low and high group halves
-// (split_x), because Mosaic cannot shape-cast the lane dim; here the staged
-// (x[k], x[k + gs/2]) pairs already line up with a byte's two nibbles, so V2
-// takes x as it is.
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;                   // columns per thread (one 32-bit word)
-constexpr int kTileN = 32 * kCols;         // columns per block
-constexpr int kChunk = 256;                // packed rows staged per pass
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-enum Variant { kV0 = 0, kV1 = 1, kV2 = 2 };
-
-// The two dequantized weights of one packed byte (sign-extended to an int)
-// with its group's fp32 scale s.  V0 and V1 sign-extend the low nibble; V2
-// stores q + 8 there and reads it with one AND.  The high nibble is signed
-// in all three.  V1 and V2 round s to bf16 here, once per byte and column,
-// where the TPU kernels round a block of groups' scales once: rounding once
-// per group instead, with the rounded scales carried across a warp's rows,
-// took 196 registers for 127 at the 16-row M tile and ran up to 1.6x
-// slower (PERF.md), so the conversion per byte is the cheaper one here.
-template <int V>
-__device__ __forceinline__ void dequant(int byte, float s, float& wl, float& wh) {
-  const int lo = V == kV2 ? (byte & 15)
-                          : static_cast<int>(static_cast<unsigned>(byte) << 28) >> 28;
-  const float sv = V == kV0 ? s : bf16_round(s);
-  wl = bf16_round((float)lo * sv);
-  wh = bf16_round((float)(byte >> 4) * sv);
-}
-
-template <int V, int MT, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
-                   const int8_t* __restrict__ values,     // (K/2, N)
-                   const float* __restrict__ scales,      // (G, N)
-                   const float* __restrict__ corr,        // (M, N), V2 only
-                   OutT* __restrict__ out,                // (M, N)
-                   int M, int K, int N, int half, int vec) {
-  // one buffer, used first for the staged x pairs, then for the cross-warp sum
-  constexpr int kSmem = cmax(kChunk * MT * 2, (kWarps / 2) * MT * kTileN);
-  __shared__ __align__(16) float smem[kSmem];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * MT;
-  const int n0 = blockIdx.y * kTileN + lane * kCols;
-  const int rows = K / 2;
-  const int gs = 2 * half;
-  const bool col_ok = n0 < N;
-
-  float acc[MT][kCols];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[m][j] = 0.f;
-
-  for (int p0 = 0; p0 < rows; p0 += kChunk) {
-    // stage x[m0 + m][k_lo(p)], x[m0 + m][k_lo(p) + half] for the chunk's rows
-    for (int i = threadIdx.x; i < kChunk * MT; i += kThreads) {
-      const int m = i % MT;
-      const int p = p0 + i / MT;
-      float lo = 0.f, hi = 0.f;
-      if (p < rows && m0 + m < M) {
-        const int k = (p / half) * gs + (p % half);
-        const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
-        lo = __bfloat162float(xr[k]);
-        hi = __bfloat162float(xr[k + half]);
-      }
-      smem[2 * i] = lo;
-      smem[2 * i + 1] = hi;
-    }
-    __syncthreads();
-
-    const int pend = min(kChunk, rows - p0);
-    if (col_ok) {
-      const float2* xs = reinterpret_cast<const float2*>(smem);
-#pragma unroll 2
-      for (int pl = warp; pl < pend; pl += kWarps) {
-        const int p = p0 + pl;
-        const int g = p / half;
-        int bytes[kCols];
-        float s[kCols];
-        if (vec) {
-          const int word = *reinterpret_cast<const int*>(values + (size_t)p * N + n0);
-          const float4 sv = *reinterpret_cast<const float4*>(scales + (size_t)g * N + n0);
-#pragma unroll
-          for (int j = 0; j < kCols; ++j)  // byte j, sign-extended
-            bytes[j] = static_cast<int>(static_cast<unsigned>(word) << (24 - 8 * j)) >> 24;
-          s[0] = sv.x; s[1] = sv.y; s[2] = sv.z; s[3] = sv.w;
-        } else {
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const bool ok = n0 + j < N;
-            bytes[j] = ok ? (int)values[(size_t)p * N + n0 + j] : 0;
-            s[j] = ok ? scales[(size_t)g * N + n0 + j] : 0.f;
-          }
-        }
-        float wl[kCols], wh[kCols];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) dequant<V>(bytes[j], s[j], wl[j], wh[j]);
-        const float2* xp = xs + pl * MT;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float2 xv = xp[m];
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            acc[m][j] = fmaf(xv.x, wl[j], acc[m][j]);
-            acc[m][j] = fmaf(xv.y, wh[j], acc[m][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // sum the warps' partial tiles: a fixed tree, so results are deterministic
-  for (int active = kWarps / 2; active > 0; active >>= 1) {
-    if (warp >= active && warp < 2 * active) {
-      float* dst = smem + (size_t)(warp - active) * MT * kTileN + lane * kCols;
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        *reinterpret_cast<float4*>(dst + m * kTileN) =
-            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    }
-    __syncthreads();
-    if (warp < active) {
-      const float* src = smem + (size_t)warp * MT * kTileN + lane * kCols;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float4 v = *reinterpret_cast<const float4*>(src + m * kTileN);
-        acc[m][0] += v.x;
-        acc[m][1] += v.y;
-        acc[m][2] += v.z;
-        acc[m][3] += v.w;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (warp == 0 && col_ok) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m0 + m >= M) break;
-      OutT* o = out + (size_t)(m0 + m) * N + n0;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        if (n0 + j < N) {
-          if constexpr (V == kV2)
-            store_out(o + j, acc[m][j] + corr[(size_t)(m0 + m) * N + n0 + j]);
-          else
-            store_out(o + j, acc[m][j]);
-        }
-      }
-    }
-  }
-}
-
-template <int V, int MT, typename OutT>
-void launch(const void* x, const void* values, const void* scales, const void* corr,
-            void* out, int M, int K, int N, int half, int vec, cudaStream_t stream) {
-  const dim3 grid((M + MT - 1) / MT, (N + kTileN - 1) / kTileN);
-  int4_matmul_kernel<V, MT, OutT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(values),
-      static_cast<const float*>(scales), static_cast<const float*>(corr),
-      static_cast<OutT*>(out), M, K, N, half, vec);
-}
-
-template <int V, typename OutT>
-void dispatch(const void* x, const void* values, const void* scales, const void* corr,
-              void* out, int M, int K, int N, int half, int vec, cudaStream_t stream) {
-  // the smallest power-of-two M tile that covers M, at most 16 rows
-  if (M >= 9) launch<V, 16, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
-  else if (M >= 5) launch<V, 8, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
-  else if (M >= 3) launch<V, 4, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
-  else if (M == 2) launch<V, 2, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
-  else launch<V, 1, OutT>(x, values, scales, corr, out, M, K, N, half, vec, stream);
-}
-
-// ---------------------------------------------------------------------------
 // K2: split-K over whole groups, bf16 mma.sync on B fragments dequantized in
 // registers (see the note at the top).
 
 namespace tc {
+
+enum Variant { kV0 = 0, kV1 = 1, kV2 = 2 };
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -302,6 +116,25 @@ __device__ __forceinline__ float nibble(uint32_t v) {
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a - b and a * b on bf16 pairs, each rounded to nearest even; the explicit
+// .rn keeps the compiler from contracting the two into one fma
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const __nv_bfloat16* p) {
@@ -409,9 +242,53 @@ __device__ __forceinline__ void load_step(uint32_t (&w)[4], float (&s)[kNT],
   }
 }
 
+// B's fragments of n8 tile jn for one k16 step, from the words w of
+// load_step and the scale s of tile jn's column: blo[h] from the low
+// nibbles, bhi[h] from the high ones of byte jn of packed rows (2t, 2t+1)
+// (h 0), then (2t+8, 2t+9) (h 1), the lower row in the low half.
+//   * V0: each nibble to fp32 (nibble), times s, rounded to bf16 in pairs.
+//   * V1, V2: in bf16x2, two weights per instruction.  One prmt gathers
+//     byte jn of the two rows into the low bytes of the two halves; with
+//     n a signed nibble, (d & 0x000F000F) ^ 0x43084308 is the bf16 pair
+//     128 + (n ^ 8) = 136 + q (one lop3), and subtracting 136 gives q
+//     exactly, since every integer up to 256 fits bf16's 8-bit
+//     significand; V2's low nibble, q + 8 unsigned, takes | 0x43004300
+//     and 128 instead.  One multiply by {bf16(s), bf16(s)} then rounds
+//     q * bf16(s), exact before rounding (a 4-bit integer times an 8-bit
+//     significand), to nearest: the plain versions' bf16(fp32(q) *
+//     fp32(bf16(s))) bit for bit.  bf16(s) is converted once per tile and
+//     step: 4 conversions per 32 weights of a thread.
+template <int V>
+__device__ __forceinline__ void dequant_b(uint32_t (&blo)[2], uint32_t (&bhi)[2],
+                                          const uint32_t (&w)[4], float s, int jn) {
+  if constexpr (V == kV0) {
+    const int sh = 8 * jn;  // byte jn of each word: tile jn's column
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t ra = w[2 * h] >> sh, rb = w[2 * h + 1] >> sh;
+      blo[h] = pack_bf16(nibble(ra) * s, nibble(rb) * s);
+      bhi[h] = pack_bf16(nibble(ra >> 4) * s, nibble(rb >> 4) * s);
+    }
+  } else {
+    constexpr uint32_t kMask = 0x000F000Fu;
+    constexpr uint32_t k136 = 0x43084308u;  // {136, 136} in bf16
+    constexpr uint32_t k128 = 0x43004300u;  // {128, 128}
+    const uint32_t sb = pack_bf16(s, s);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t d = __byte_perm(w[2 * h], w[2 * h + 1], jn | (jn + 4) << 8);
+      const uint32_t lo = V == kV1 ? sub_bf16x2((d & kMask) ^ k136, k136)
+                                   : sub_bf16x2((d & kMask) | k128, k128);
+      const uint32_t hi = sub_bf16x2(((d >> 4) & kMask) ^ k136, k136);
+      blo[h] = mul_bf16x2(lo, sb);
+      bhi[h] = mul_bf16x2(hi, sb);
+    }
+  }
+}
+
 // One k16 step: A from the staged x (step j of the chunk), B from the
 // loaded bytes, both slices into every accumulator tile.
-template <int MT>
+template <int V, int MT>
 __device__ __forceinline__ void mma_step(float (&acc)[MT][kNT][4],
                                          const uint32_t (&w)[4],
                                          const float (&s)[kNT], const __nv_bfloat16* xs,
@@ -427,14 +304,8 @@ __device__ __forceinline__ void mma_step(float (&acc)[MT][kNT][4],
   }
 #pragma unroll
   for (int jn = 0; jn < kNT; ++jn) {
-    const int sh = 8 * jn;  // byte jn of each word: tile jn's column
     uint32_t blo[2], bhi[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // rows (2t, 2t+1), then (2t+8, 2t+9)
-      const uint32_t ra = w[2 * h] >> sh, rb = w[2 * h + 1] >> sh;
-      blo[h] = pack_bf16(nibble(ra) * s[jn], nibble(rb) * s[jn]);
-      bhi[h] = pack_bf16(nibble(ra >> 4) * s[jn], nibble(rb >> 4) * s[jn]);
-    }
+    dequant_b<V>(blo, bhi, w, s[jn], jn);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       mma_bf16(acc[mt][jn], alo[mt], blo);
@@ -464,11 +335,27 @@ __device__ __forceinline__ void store4(T* row, int c, int N, const float (&v)[4]
   }
 }
 
-template <int MT, bool kTail, bool kVec, typename OutT>
+// v[b] += row[c + b] for the 4 columns c .. c + 3 (masked to N)
+template <bool kVec>
+__device__ __forceinline__ void add4(float (&v)[4], const float* __restrict__ row, int c,
+                                     int N) {
+  if constexpr (kVec) {
+    if (c >= N) return;
+    const float4 f = *reinterpret_cast<const float4*>(row + c);
+    v[0] += f.x; v[1] += f.y; v[2] += f.z; v[3] += f.w;
+  } else {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (c + b < N) v[b] += row[c + b];
+  }
+}
+
+template <int V, int MT, bool kTail, bool kVec, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 k2_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
               const int8_t* __restrict__ values,     // (K/2, N)
               const float* __restrict__ scales,      // (G, N)
+              const float* __restrict__ corr,        // (M, N), V2 only
               OutT* __restrict__ out,                // (M, N), when ws is null
               float* __restrict__ ws,                // (S, M, N) or null
               int M, int K, int N, int half) {
@@ -490,13 +377,16 @@ k2_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
   const int n0 = blockIdx.y * kTileN;
   const int col = n0 + 4 * (gid * kWarps + warp);  // the columns of this thread's bytes
 
-  float acc[MT][kNT][4];
+  // V1 and V2 add acc, the MMAs' sum of one chunk, into tot after every
+  // chunk, each addition rounded to nearest (see the note at the top); K2
+  // keeps one accumulator
+  float acc[MT][kNT][4], tot[MT][kNT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int jn = 0; jn < kNT; ++jn)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][jn][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[mt][jn][e] = tot[mt][jn][e] = 0.f;
 
   // the bytes of kAhead steps are loaded one batch ahead of the MMAs that
   // use them; the first batch of a chunk while its x is being staged
@@ -528,10 +418,22 @@ k2_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
           }
 #pragma unroll
         for (int u = 0; u < kAhead; ++u)
-          if (jb + u < nst) mma_step<MT>(acc, w[b][u], s[b][u], xs, jb + u, lane);
+          if (jb + u < nst) mma_step<V, MT>(acc, w[b][u], s[b][u], xs, jb + u, lane);
       }
     }
+    if constexpr (V != kV0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int jn = 0; jn < kNT; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tot[mt][jn][e] = __fadd_rn(tot[mt][jn][e], acc[mt][jn][e]);
+            acc[mt][jn][e] = 0.f;
+          }
+    }
   }
+  const float (&sum)[MT][kNT][4] = V == kV0 ? acc : tot;
 
   // thread (gid, tig) holds rows gid, gid + 8 of each m16 tile: c0/c2 of
   // tile jn at n index 2*tig, c1/c3 at 2*tig + 1
@@ -546,14 +448,18 @@ k2_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
       float even[kNT], odd[kNT];
 #pragma unroll
       for (int jn = 0; jn < kNT; ++jn) {
-        even[jn] = acc[mt][jn][2 * h];
-        odd[jn] = acc[mt][jn][2 * h + 1];
+        even[jn] = sum[mt][jn][2 * h];
+        odd[jn] = sum[mt][jn][2 * h + 1];
       }
       if (ws != nullptr) {
         float* row = ws + ((size_t)blockIdx.z * M + m) * N;
         store4<kVec>(row, c_even, N, even);
         store4<kVec>(row, c_odd, N, odd);
       } else {
+        if constexpr (V == kV2) {  // the -8 correction, once, to the fp32 total
+          add4<kVec>(even, corr + (size_t)m * N, c_even, N);
+          add4<kVec>(odd, corr + (size_t)m * N, c_odd, N);
+        }
         store4<kVec>(out + (size_t)m * N, c_even, N, even);
         store4<kVec>(out + (size_t)m * N, c_odd, N, odd);
       }
@@ -561,57 +467,68 @@ k2_mma_kernel(const __nv_bfloat16* __restrict__ x,   // (M, K)
   }
 }
 
-template <int MT, bool kTail, bool kVec, typename OutT>
-void launch(const void* x, const void* values, const void* scales, void* out, float* ws,
-            int splits, int M, int K, int N, int half, cudaStream_t stream) {
+template <int V, int MT, bool kTail, bool kVec, typename OutT>
+void launch(const void* x, const void* values, const void* scales, const void* corr,
+            void* out, float* ws, int splits, int M, int K, int N, int half,
+            cudaStream_t stream) {
   const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN, splits);
-  k2_mma_kernel<MT, kTail, kVec, OutT><<<grid, kThreads, 0, stream>>>(
+  k2_mma_kernel<V, MT, kTail, kVec, OutT><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(values),
-      static_cast<const float*>(scales), static_cast<OutT*>(out), ws, M, K, N, half);
+      static_cast<const float*>(scales), static_cast<const float*>(corr),
+      static_cast<OutT*>(out), ws, M, K, N, half);
 }
 
-template <int MT, typename OutT>
-void dispatch_tail(const void* x, const void* values, const void* scales, void* out,
-                   float* ws, int splits, int M, int K, int N, int half, int vec,
+template <int V, int MT, typename OutT>
+void dispatch_tail(const void* x, const void* values, const void* scales, const void* corr,
+                   void* out, float* ws, int splits, int M, int K, int N, int half, int vec,
                    cudaStream_t stream) {
   const bool tail = half % 16 != 0;
   if (tail && vec)
-    launch<MT, true, true, OutT>(x, values, scales, out, ws, splits, M, K, N, half, stream);
+    launch<V, MT, true, true, OutT>(x, values, scales, corr, out, ws, splits, M, K, N, half,
+                                    stream);
   else if (tail)
-    launch<MT, true, false, OutT>(x, values, scales, out, ws, splits, M, K, N, half, stream);
+    launch<V, MT, true, false, OutT>(x, values, scales, corr, out, ws, splits, M, K, N, half,
+                                     stream);
   else if (vec)
-    launch<MT, false, true, OutT>(x, values, scales, out, ws, splits, M, K, N, half, stream);
+    launch<V, MT, false, true, OutT>(x, values, scales, corr, out, ws, splits, M, K, N, half,
+                                     stream);
   else
-    launch<MT, false, false, OutT>(x, values, scales, out, ws, splits, M, K, N, half, stream);
+    launch<V, MT, false, false, OutT>(x, values, scales, corr, out, ws, splits, M, K, N, half,
+                                      stream);
 }
 
 // out = the sum of the S partial sums ws (S, M*N), taken in the order
-// s = 0 .. S-1 for every element, so that two launches give the same bits
+// s = 0 .. S-1 for every element, so that two launches give the same bits,
+// plus corr (M*N) once where it is given (V2's correction)
 template <typename OutT>
-__global__ void split_sum_kernel(const float* __restrict__ ws, OutT* __restrict__ out,
-                                 int splits, long long mn) {
+__global__ void split_sum_kernel(const float* __restrict__ ws, const float* __restrict__ corr,
+                                 OutT* __restrict__ out, int splits, long long mn) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
        i += (long long)gridDim.x * blockDim.x) {
     float acc = ws[i];
     for (int s = 1; s < splits; ++s) acc += ws[s * mn + i];
+    if (corr != nullptr) acc += corr[i];
     store_out(out + i, acc);
   }
 }
 
-template <typename OutT>
-void k2(const void* x, const void* values, const void* scales, void* out, void* ws,
-        int splits, int M, int K, int N, int half, int vec, cudaStream_t stream) {
+template <int V, typename OutT>
+void k2(const void* x, const void* values, const void* scales, const void* corr, void* out,
+        void* ws, int splits, int M, int K, int N, int half, int vec, cudaStream_t stream) {
   float* w = splits > 1 ? static_cast<float*>(ws) : nullptr;
   if (M <= 16)
-    dispatch_tail<1, OutT>(x, values, scales, out, w, splits, M, K, N, half, vec, stream);
+    dispatch_tail<V, 1, OutT>(x, values, scales, corr, out, w, splits, M, K, N, half, vec,
+                              stream);
   else
-    dispatch_tail<2, OutT>(x, values, scales, out, w, splits, M, K, N, half, vec, stream);
+    dispatch_tail<V, 2, OutT>(x, values, scales, corr, out, w, splits, M, K, N, half, vec,
+                              stream);
   if (splits > 1) {
     constexpr int kSumThreads = 256;
     const long long mn = (long long)M * N;
     const long long blocks = (mn + kSumThreads - 1) / kSumThreads;
     split_sum_kernel<OutT><<<(int)(blocks < 4096 ? blocks : 4096), kSumThreads, 0, stream>>>(
-        w, static_cast<OutT*>(out), splits, mn);
+        w, V == kV2 ? static_cast<const float*>(corr) : nullptr, static_cast<OutT*>(out),
+        splits, mn);
   }
 }
 
@@ -634,29 +551,31 @@ int int4_matmul_launch(const void* x, const void* values, const void* scales,
                        int half, int out_f32, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    tc::k2<float>(x, values, scales, out, ws, splits, M, K, N, half, vec, s);
+    tc::k2<tc::kV0, float>(x, values, scales, nullptr, out, ws, splits, M, K, N, half, vec, s);
   else
-    tc::k2<__nv_bfloat16>(x, values, scales, out, ws, splits, M, K, N, half, vec, s);
+    tc::k2<tc::kV0, __nv_bfloat16>(x, values, scales, nullptr, out, ws, splits, M, K, N, half,
+                                   vec, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The A/B variant V1 (the CUDA-core kernel, no split): x, values, scales
-// and vec as int4_matmul_launch takes them, out bf16.
+// The A/B variant V1: x, values, scales, ws, splits and vec as
+// int4_matmul_launch takes them, out bf16.
 int int4_matmul_v1_launch(const void* x, const void* values, const void* scales,
-                          void* out, int M, int K, int N, int half, int vec,
-                          void* stream) {
-  dispatch<kV1, __nv_bfloat16>(x, values, scales, nullptr, out, M, K, N, half, vec,
-                               static_cast<cudaStream_t>(stream));
+                          void* out, void* ws, int splits, int M, int K, int N,
+                          int half, int vec, void* stream) {
+  tc::k2<tc::kV1, __nv_bfloat16>(x, values, scales, nullptr, out, ws, splits, M, K, N, half,
+                                 vec, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The A/B variant V2: values in the offset-low packing, corr (M, N) fp32
-// contiguous (the -8 correction, added to each sum), out bf16.
+// The A/B variant V2: values in the offset-low packing; corr (M, N) fp32,
+// contiguous and, with vec, 16-byte aligned: the -8 correction, added once
+// to each fp32 total.  The rest as V1.
 int int4_matmul_v2_launch(const void* x, const void* values, const void* scales,
-                          const void* corr, void* out, int M, int K, int N,
-                          int half, int vec, void* stream) {
-  dispatch<kV2, __nv_bfloat16>(x, values, scales, corr, out, M, K, N, half, vec,
-                               static_cast<cudaStream_t>(stream));
+                          const void* corr, void* out, void* ws, int splits, int M,
+                          int K, int N, int half, int vec, void* stream) {
+  tc::k2<tc::kV2, __nv_bfloat16>(x, values, scales, corr, out, ws, splits, M, K, N, half,
+                                 vec, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -81,6 +82,31 @@ class CudaLibrary:
             elif name is not None and ('HMMA' in line or 'HGMMA' in line):
                 counts[name] += 1
         return counts
+
+    def ptxas_resources(self) -> dict[str, dict[str, int]]:
+        """Registers and spill bytes per kernel (mangled name) as ptxas
+        reported them in ``build_log``; empty when this process did not
+        build the library."""
+        out: dict[str, dict[str, int]] = {}
+        name = None
+        for line in self.build_log.splitlines():
+            found = (re.search(r"Compiling entry function '([^']+)'", line)
+                     or re.search(r'Function properties for (\S+)', line))
+            if found:
+                name = found.group(1)
+                out.setdefault(name, {})
+                continue
+            if name is None:
+                continue
+            spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                              r'loads', line)
+            if spill:
+                out[name]['spill_stores'] = int(spill.group(1))
+                out[name]['spill_loads'] = int(spill.group(2))
+            regs = re.search(r'Used (\d+) registers', line)
+            if regs:
+                out[name]['registers'] = int(regs.group(1))
+        return out
 
     def load(self) -> ctypes.CDLL:
         with self._lock:

@@ -47,12 +47,13 @@ BLOCKS_PER_SM = 2
 
 def _bind(lib: ctypes.CDLL) -> None:
     """K2's entry point and those of the A/B variants V1 and V2
-    (``scripts/bench/bench_int4_kernel_ab.py``), all in one library."""
+    (``scripts/bench/bench_int4_kernel_ab.py``), all in one library and
+    one kernel body."""
     ptr, num = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
             (lib.int4_matmul_launch, [ptr] * 5 + [num] * 7 + [ptr]),
-            (lib.int4_matmul_v1_launch, [ptr] * 4 + [num] * 5 + [ptr]),
-            (lib.int4_matmul_v2_launch, [ptr] * 5 + [num] * 5 + [ptr])):
+            (lib.int4_matmul_v1_launch, [ptr] * 5 + [num] * 6 + [ptr]),
+            (lib.int4_matmul_v2_launch, [ptr] * 6 + [num] * 6 + [ptr])):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
 
@@ -60,6 +61,16 @@ def _bind(lib: ctypes.CDLL) -> None:
 # csrc/int4_matmul.cu, built by nvcc at first use (LIBRARY.build_log holds
 # nvcc's and ptxas's output)
 LIBRARY = CudaLibrary('int4_matmul', _bind)
+
+
+def variant_of(kernel: str) -> str | None:
+    """'v0' (K2), 'v1' or 'v2' for a (mangled) name of an instance of
+    ``k2_mma_kernel``, whose first template argument is the variant; None
+    for any other kernel."""
+    for v in range(3):
+        if f'k2_mma_kernelILi{v}E' in kernel:
+            return f'v{v}'
+    return None
 
 
 def int4_matmul_reference(x: torch.Tensor, values: torch.Tensor,
@@ -136,6 +147,20 @@ def launch(entry: str, dev: torch.device, *args) -> None:
         raise RuntimeError(f'{entry} failed: CUDA error {err}')
 
 
+def split_operands(x: torch.Tensor, m: int, k: int, n: int, half: int
+                   ) -> tuple[torch.Tensor, int, torch.Tensor | None]:
+    """x as the kernel stages it, 16 bytes at a time (a copy when x is not
+    16-byte aligned), the number of splits of ``split_plan`` and the fp32
+    workspace of the splits' partial sums, (S, M, N), or None for one
+    split."""
+    if x.data_ptr() % 16:
+        x = x.clone()
+    splits = split_plan(m, k, n, half, _sm_count(x.device.index or 0))
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    return x, splits, ws
+
+
 def int4_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                      scales: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
@@ -150,12 +175,7 @@ def int4_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
     out = torch.empty((m, n), dtype=dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    if x.data_ptr() % 16:
-        x = x.clone()                     # the kernel stages x 16 bytes at a time
-    splits = split_plan(m, k, n, half, _sm_count(x.device.index or 0))
-    # fp32 partial sums of the splits, summed in a fixed order by the kernel
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    x, splits, ws = split_operands(x, m, k, n, half)
     launch('int4_matmul_launch', x.device, x.data_ptr(), values.data_ptr(),
            scales.data_ptr(), out.data_ptr(),
            None if ws is None else ws.data_ptr(), splits, m, k, n, half,

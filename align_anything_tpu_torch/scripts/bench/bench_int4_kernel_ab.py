@@ -2,19 +2,21 @@
 of ``scripts/bench/bench_int4_kernel_ab.py``.
 
 Three variants of the W4A16 matmul x (M, K) @ dequant(values, scales),
-each a hand-written kernel on K2's skeleton (``csrc/int4_matmul.cu``) that
-differs from the others only in the per-element dequantization:
+each an instance of K2's tensor-core kernel (``k2_mma_kernel`` in
+``csrc/int4_matmul.cu``: split-K, bf16 ``mma.sync``) that differs from
+the others only in how B's fragments are dequantized in registers:
 
   v0  K2 (``ops/int4_matmul.py``): sign-extended nibbles, w = bf16(q * s)
-      with the fp32 scale s
-  v1  w = bf16(q * bf16(s)): the scale rounded to bf16 first
-  v2  offset-low packing (``pack_v2``): the low nibble stores q + 8 and is
-      read with one AND, the high nibble is signed and read with one
-      arithmetic shift; w_low = bf16((q + 8) * bf16(s)), w_high =
-      bf16(q * bf16(s)); the correction -8 * sum_g xs[m, g] * s[g, n] (xs:
-      the fp32 sum of x over the low half of group g; s fp32, unrounded)
-      is computed in plain torch (``v2_correction``), as the JAX script's
-      ``run_v2`` computes it in XLA, and added to each sum.
+      with the fp32 scale s, in fp32
+  v1  w = bf16(q * bf16(s)): the scale rounded to bf16 first; packed
+      bf16x2 arithmetic, two weights per instruction, exact
+  v2  offset-low packing (``pack_v2``): the low nibble stores q + 8, the
+      high nibble is signed; w_low = bf16((q + 8) * bf16(s)), w_high =
+      bf16(q * bf16(s)), in bf16x2 as v1; the correction -8 * sum_g
+      xs[m, g] * s[g, n] (xs: the fp32 sum of x over the low half of
+      group g; s fp32, unrounded) is computed in plain torch
+      (``v2_correction``), as the JAX script's ``run_v2`` computes it in
+      XLA, and added once to each fp32 total.
 
 Each product sums bf16-rounded x against the dequantized weight in fp32 and
 returns bf16.  The wrappers ``int4_matmul_v1`` / ``int4_matmul_v2`` launch
@@ -116,26 +118,43 @@ def _matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
 
 
+def _scaled(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """bf16(fp32(q) * fp32(bf16(s))) for q (G, gs, N) and s (G, N), as
+    (G*gs, N) bf16."""
+    sb = scales.to(torch.bfloat16).to(torch.float32)[:, None, :]
+    w = (q.to(torch.float32) * sb).to(torch.bfloat16)
+    return w.reshape(-1, w.shape[-1])
+
+
+def dequant_v1(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """v1's weight: values (G, gs/2, N) int8 (K2's packing), scales (G, N)
+    fp32 -> (K, N) bf16, w = bf16(q * bf16(s))."""
+    low, high = unpack_int4(values)
+    return _scaled(torch.cat([low, high], 1), scales)
+
+
+def dequant_v2(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """v2's weight before the correction: values (G, gs/2, N) int8 in the
+    offset-low packing -> (K, N) bf16, the low nibble unsigned (q + 8),
+    the high nibble signed."""
+    v = values.to(torch.int32)
+    return _scaled(torch.cat([v & 15, v >> 4], 1), scales)
+
+
 def int4_matmul_v1_reference(x: torch.Tensor, values: torch.Tensor,
                              scales: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the v1 kernel.  x (M, K); values
     (G, gs/2, N) int8 (K2's packing); scales (G, N) fp32 -> (M, N) bf16."""
-    low, high = unpack_int4(values)
-    sb = scales.to(torch.bfloat16).to(torch.float32)[:, None, :]
-    w = (torch.cat([low, high], 1).to(torch.float32) * sb).to(torch.bfloat16)
-    return _matmul_bf16(x, w.reshape(-1, w.shape[-1])).to(torch.bfloat16)
+    return _matmul_bf16(x, dequant_v1(values, scales)).to(torch.bfloat16)
 
 
 def int4_matmul_v2_reference(x: torch.Tensor, values: torch.Tensor,
                              scales: torch.Tensor,
                              corr: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the v2 kernel.  values (G, gs/2, N) int8 in
-    the offset-low packing; corr (M, N) fp32, ``v2_correction``'s."""
-    v = values.to(torch.int32)
-    sb = scales.to(torch.bfloat16).to(torch.float32)[:, None, :]
-    w = (torch.cat([v & 15, v >> 4], 1).to(torch.float32) * sb
-         ).to(torch.bfloat16)
-    return (_matmul_bf16(x, w.reshape(-1, w.shape[-1])) + corr
+    the offset-low packing; corr (M, N) fp32, ``v2_correction``'s, added
+    once to the fp32 total."""
+    return (_matmul_bf16(x, dequant_v2(values, scales)) + corr
             ).to(torch.bfloat16)
 
 
@@ -146,15 +165,19 @@ def int4_matmul_v1_cuda(x: torch.Tensor, values: torch.Tensor,
                         scales: torch.Tensor) -> torch.Tensor:
     """Launch the v1 kernel.  x (M, K) bf16; values (G, gs/2, N) int8;
     scales (G, N) fp32, all contiguous on one CUDA device -> (M, N) bf16.
-    Counts each launch in ``int4_matmul_v1_cuda.launches``."""
+    K is split as K2 splits it (``split_plan``), over a workspace allocated
+    here; each call counts as one launch in
+    ``int4_matmul_v1_cuda.launches``."""
     m, k, n, half, vec = k2.check_operands('int4_matmul_v1_cuda', x, values,
                                            scales)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0 or n == 0:
         return out
+    x, splits, ws = k2.split_operands(x, m, k, n, half)
     k2.launch('int4_matmul_v1_launch', x.device, x.data_ptr(),
-              values.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n,
-              half, vec)
+              values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+              None if ws is None else ws.data_ptr(), splits, m, k, n, half,
+              vec)
     int4_matmul_v1_cuda.launches += 1
     return out
 
@@ -166,8 +189,8 @@ def int4_matmul_v2_cuda(x: torch.Tensor, values: torch.Tensor,
                         scales: torch.Tensor,
                         corr: torch.Tensor) -> torch.Tensor:
     """Launch the v2 kernel: as ``int4_matmul_v1_cuda``, values in the
-    offset-low packing and corr (M, N) fp32 contiguous, added to each sum.
-    Counts each launch in ``int4_matmul_v2_cuda.launches``."""
+    offset-low packing and corr (M, N) fp32 contiguous, added once to each
+    fp32 total.  Counts each call in ``int4_matmul_v2_cuda.launches``."""
     m, k, n, half, vec = k2.check_operands('int4_matmul_v2_cuda', x, values,
                                            scales)
     if (corr.device != x.device or corr.dtype != torch.float32
@@ -178,9 +201,13 @@ def int4_matmul_v2_cuda(x: torch.Tensor, values: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0 or n == 0:
         return out
+    if corr.data_ptr() % 16:
+        corr = corr.clone()               # read 4 columns at a time
+    x, splits, ws = k2.split_operands(x, m, k, n, half)
     k2.launch('int4_matmul_v2_launch', x.device, x.data_ptr(),
               values.data_ptr(), scales.data_ptr(), corr.data_ptr(),
-              out.data_ptr(), m, k, n, half, vec)
+              out.data_ptr(), None if ws is None else ws.data_ptr(), splits,
+              m, k, n, half, vec)
     int4_matmul_v2_cuda.launches += 1
     return out
 
@@ -247,14 +274,16 @@ def agrees(got: torch.Tensor, ref: torch.Tensor) -> bool:
     return share >= MIN_BIT_EQUAL and diff <= MAX_DIFF * scale
 
 
-def make_weights(k: int, n: int, gen: torch.Generator) -> dict:
+def make_weights(k: int, n: int, gen: torch.Generator, gs: int = GS
+                 ) -> dict:
     """A (K, N) bf16 weight from ``gen`` (on its device), in K2's packing
-    (``values``, ``scales``) and in v2's (``v2_values``, ``v2_scales``)."""
+    (``values``, ``scales``) and in v2's (``v2_values``, ``v2_scales``),
+    groups of ``gs``."""
     w = torch.randn((k, n), generator=gen, device=gen.device,
                     dtype=torch.bfloat16) * 0.02
-    qw = quantize_int4(w, (0,), group_size=GS, compute=True)
-    v2_values, v2_scales = pack_v2(w, GS)
-    return {'values': qw.values, 'scales': qw.scales.reshape(k // GS, n),
+    qw = quantize_int4(w, (0,), group_size=gs, compute=True)
+    v2_values, v2_scales = pack_v2(w, gs)
+    return {'values': qw.values, 'scales': qw.scales.reshape(k // gs, n),
             'v2_values': v2_values, 'v2_scales': v2_scales}
 
 

@@ -15,13 +15,25 @@ with the L2 flushed (``timing_utils.time_ms``):
 - ablations of the port's build, each a copy of the source with one part
   taken out (wrong results, timing only): the dequantization (bytes go to
   the MMAs as they are), the MMAs (a cheap sum keeps the operands live),
-  the staging of x, and all three (loads only).
+  the staging of x, and all three (loads only).  The dequantization cut
+  edits K2's own (v0's) arithmetic; the MMA and staging cuts edit the
+  kernel body that v0 shares with the A/B variants v1 and v2, which the
+  sweep does not time.
+
+    python -m align_anything_tpu_torch.scripts.bench.k2_sweep \\
+        --baseline OTHER/align_anything_tpu_torch/csrc/int4_matmul.cu
+
+also builds ``int4_matmul.cu`` from another tree (a checkout of an earlier
+commit, say), times it as the port's build is timed, before and after
+the other builds, and says whether each of its outputs equals the port
+build's bit for bit.
 
 Then the card's name and power limit.  It raises without a card.
 """
 
 from __future__ import annotations
 
+import argparse
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -46,14 +58,14 @@ BLOCKS = {'w4_ahead4': ((), 4),
           'w8_ahead2': (((_WARPS, 'constexpr int kWarps = 8;'),
                          (_AHEAD, 'constexpr int kAhead = 2;')), 8)}
 TARGETS = (2, 4)                  # blocks per SM that split_plan aims at
-_DEQUANT = ('      blo[h] = pack_bf16(nibble(ra) * s[jn], nibble(rb) * s[jn]);\n'
-            '      bhi[h] = pack_bf16(nibble(ra >> 4) * s[jn], '
-            'nibble(rb >> 4) * s[jn]);\n')
+_DEQUANT = ('      blo[h] = pack_bf16(nibble(ra) * s, nibble(rb) * s);\n'
+            '      bhi[h] = pack_bf16(nibble(ra >> 4) * s, '
+            'nibble(rb >> 4) * s);\n')
 _MMA = ('      mma_bf16(acc[mt][jn], alo[mt], blo);\n'
         '      mma_bf16(acc[mt][jn], ahi[mt], bhi);\n')
 _STAGE = '    stage_x<MT, kTail>(xs, x, M, K, half, spg, m0, c0, nst);\n'
 CUTS = {   # text in the source -> what takes its place in an ablation
-    'dequant': (_DEQUANT, '      blo[h] = ra ^ __float_as_uint(s[jn]);\n'
+    'dequant': (_DEQUANT, '      blo[h] = ra ^ __float_as_uint(s);\n'
                           '      bhi[h] = rb ^ (ra >> 4);\n'),
     'mma': (_MMA, '      acc[mt][jn][0] += __uint_as_float((blo[0] ^ alo[mt][0]'
                   ' ^ ahi[mt][1]) & 0x3fffffffu);\n'
@@ -73,12 +85,16 @@ def edited(src: str, edits) -> str:
     return src
 
 
-def build_all() -> dict:
-    """Every build -> tag -> its ``CudaLibrary``, loaded."""
+def build_all(baseline: str | None) -> dict:
+    """Every build -> tag -> its ``CudaLibrary``, loaded; the tag
+    'baseline' for the source ``baseline``, where one is given."""
     src = k2.LIBRARY.source.read_text()
     sources = {tag: edited(src, edits) for tag, (edits, _) in BLOCKS.items()}
     sources.update({tag: edited(src, [CUTS[part] for part in parts])
                     for tag, parts in ABLATIONS.items()})
+    if baseline is not None:
+        with open(baseline) as f:
+            sources['baseline'] = f.read()
     libs = {}
     for tag, text in sources.items():
         path = BUILD_DIR / 'k2_sweep' / f'{tag}.cu'
@@ -89,18 +105,23 @@ def build_all() -> dict:
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.load(), libs.values()))
     for tag, lib in libs.items():
-        regs = [line.split('Used')[1].split(',')[0].strip()
-                for line in lib.build_log.splitlines() if 'Used' in line]
+        regs = [str(r.get('registers'))
+                for r in lib.ptxas_resources().values()]
         print(f'build {tag}: registers of its instances {" ".join(regs)}',
               flush=True)
     return libs
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--baseline', help='int4_matmul.cu of another tree, '
+                        'timed beside the port\'s build and compared with it '
+                        'bit for bit')
+    args = parser.parse_args(argv)
     dev = default_device()
     smi = gpu_name_and_power()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    libs = build_all()
+    libs = build_all(args.baseline)
     flush = l2_flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = []
@@ -115,8 +136,8 @@ def main() -> None:
                       k2.int4_matmul_reference(x, vals, sc, dtype).float()))
         del w, qw
 
-    def run(lib, tile_n: int, target: int) -> tuple[float, str]:
-        step, row = 0.0, []
+    def run(lib, tile_n: int, target: int) -> tuple[float, str, list]:
+        step, row, outs = 0.0, [], []
         for name, x, vals, sc, dtype, ref in cases:
             k, n = x.shape[1], vals.shape[-1]
             with mock.patch.object(k2, '_TILE_N', tile_n), \
@@ -139,16 +160,32 @@ def main() -> None:
             rel = float((out.float() - ref).abs().max() / ref.abs().max())
             step += us * (1 if name == 'head' else LAYERS)
             row.append(f'{name}={us:.2f}us(S{splits},err{rel:.1e})')
-        return step / 1e3, ' '.join(row)
+            outs.append(out)
+        return step / 1e3, ' '.join(row), outs
 
+    def baseline(when: str) -> list:
+        step, row, outs = run(libs['baseline'].load(), 128, k2.BLOCKS_PER_SM)
+        print(f'baseline ({when}): {row} decode_step_ms={step:.3f}',
+              flush=True)
+        return outs
+
+    base_outs = [baseline('first')] if args.baseline is not None else []
+    port_outs = None      # the port's build as shipped: the first block run
     for tag, (_, warps) in BLOCKS.items():
         for target in TARGETS:
-            step, row = run(libs[tag].load(), warps * 32, target)
+            step, row, outs = run(libs[tag].load(), warps * 32, target)
+            port_outs = outs if port_outs is None else port_outs
             print(f'block {tag} blocks_per_sm={target}: {row} '
                   f'decode_step_ms={step:.3f}', flush=True)
     for tag in ABLATIONS:
-        step, row = run(libs[tag].load(), 128, k2.BLOCKS_PER_SM)
+        step, row, _ = run(libs[tag].load(), 128, k2.BLOCKS_PER_SM)
         print(f'ablation {tag}: {row} decode_step_ms={step:.3f}', flush=True)
+    if args.baseline is not None:
+        base_outs.append(baseline('last'))
+        same = all(torch.equal(a, b) for outs in base_outs
+                   for a, b in zip(outs, port_outs))
+        print(f'baseline outputs bit-equal to the port build\'s at every '
+              f'shape, both runs: {same}', flush=True)
     print(smi, flush=True)
 
 

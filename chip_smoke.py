@@ -6,9 +6,10 @@
 Phases (any failure raises and the run exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
   1. build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
-     per source, started together; print the int4 kernels' registers and
-     count the tensor-core instructions (HMMA) in each instance of K2's
-     kernel (``cuobjdump -sass``), which must have some;
+     per source, started together; count the tensor-core instructions
+     (HMMA) in each instance of K2's kernel and of its A/B variants v1 and
+     v2, the same kernel body (``cuobjdump -sass``), which must have some,
+     and print each instance's registers and spills;
   2. hold the int4 matmul kernel against its plain PyTorch version at the
      serving path's shapes (Llama-3-8B widths) and M 1-128, with each
      launch repeated bit for bit and the split of K printed, and time
@@ -17,10 +18,11 @@ Phases (any failure raises and the run exits non-zero):
      dequantized per call) against the flattened layout K2 takes;
   2ab. the A/B variants of that kernel (``scripts/bench/
      bench_int4_kernel_ab.py``, v1 and v2): each held against its plain
-     version at the A/B's three shapes and M 1, 32 and 128, two launches
-     bit-equal, two negative controls refused by the same check (K2's
-     output against v1's plain version; v2 without its correction); then
-     the timed A/B at M 32 through the bench's own ``run``;
+     version at the A/B's three shapes and M 1, 32 and 128 (the split of
+     K printed), two launches bit-equal, two negative controls refused by
+     the same check (K2's output against v1's plain version; v2 without
+     its correction); then the timed A/B at M 32 through the bench's own
+     ``run``;
   3. build Llama-3-8B-geometry int4-COMPUTE weights on the card from a seed,
      layer by layer, without holding the fp model;
   4. serve ~48 requests through the continuous-batching engine's serving
@@ -335,6 +337,7 @@ def check_ab(dev, smi) -> dict:
     versions, the negative controls, then the timed A/B (the bench's
     ``run``, the path whose launches are counted)."""
     worst = {'v1': 0.0, 'v2': 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for i, (name, k, n) in enumerate(ab.SHAPES):
         gen = torch.Generator(device=dev).manual_seed(SEED + 50 + i)
         wts = ab.make_weights(k, n, gen)
@@ -344,6 +347,7 @@ def check_ab(dev, smi) -> dict:
             x = torch.randn((m, k), generator=gen, device=dev,
                             dtype=torch.bfloat16)
             corr = ab.v2_correction(x, v2s, ab.GS)
+            splits = k2.split_plan(m, k, n, ab.GS // 2, sms)
             cases = {   # tag -> (kernel, plain version, negative control)
                 'v1': (lambda: ab.int4_matmul_v1_cuda(x, vals, sc),
                        ab.int4_matmul_v1_reference(x, vals, sc),
@@ -360,7 +364,8 @@ def check_ab(dev, smi) -> dict:
                 cshare, cdiff, _ = ab.agreement(control, ref)
                 caught = not ab.agrees(control, ref)
                 log(f'phase2ab {tag} {name:8s} M={m:<4d} K={k:<6d} N={n:<6d} '
-                    f'bit-equal {share:.6f} (min {ab.MIN_BIT_EQUAL:g}) '
+                    f'splits={splits:<3d} bit-equal {share:.6f} '
+                    f'(min {ab.MIN_BIT_EQUAL:g}) '
                     f'max_abs_err={diff:.3e} max|plain|={scale:.3e} (tol '
                     f'{ab.MAX_DIFF:g} x) repeats bit for bit: {same}; '
                     f'negative control '
@@ -573,16 +578,25 @@ def ptxas_lines(build_log: str) -> list[str]:
 
 
 def check_k2_tensor_cores(lib) -> None:
-    """Phase 1: every instance of K2's kernel multiplies on the tensor
-    cores (HMMA in its SASS)."""
-    counts = {name: n for name, n in lib.tensor_core_counts().items()
-              if 'k2_mma_kernel' in name}
-    for name, n in sorted(counts.items()):
-        log(f'phase1 int4_matmul SASS tensor-core instructions {n:5d} in '
-            f'{name}')
-    if not counts or min(counts.values()) == 0:
-        raise AssertionError(f'no tensor-core instruction in an instance of '
-                             f"K2's kernel ({counts})")
+    """Phase 1: every instance of K2's kernel, and of its A/B variants v1
+    and v2 (the same kernel body), multiplies on the tensor cores (HMMA in
+    its SASS); print each instance's registers and spills beside it."""
+    res = lib.ptxas_resources()
+    counts: dict = {}
+    for name, n in sorted(lib.tensor_core_counts().items()):
+        tag = k2.variant_of(name)
+        if tag is None:
+            continue
+        counts.setdefault(tag, []).append(n)
+        info = res.get(name, {})
+        log(f'phase1 int4_matmul {tag} HMMA={n:<4d} '
+            f'registers={info.get("registers", "not reported")} '
+            f'spill_stores={info.get("spill_stores", "not reported")} '
+            f'spill_loads={info.get("spill_loads", "not reported")} {name}')
+    if sorted(counts) != ['v0', 'v1', 'v2'] or min(
+            min(n) for n in counts.values()) == 0:
+        raise AssertionError('an instance of K2 or of its A/B variants has '
+                             f'no tensor-core instruction ({counts})')
 
 
 def check_tensor_cores(lib) -> None:
@@ -1178,8 +1192,6 @@ def main() -> int:
     if sys.argv[1:2] == ['--tile-sweep']:
         tile_sweep(dev, smi, sys.argv[2:])
         return 0
-    for line in ptxas_lines(libs['int4_matmul'].build_log):
-        log(f'phase1 int4_matmul ptxas: {line}')
     check_k2_tensor_cores(libs['int4_matmul'])
 
     kstats = check_kernel(dev)

@@ -19,7 +19,12 @@ Tolerances:
 - the bench's v0 equals ``ops/int4_matmul``'s plain version exactly;
 - ``compare``'s relerr of v1 and v2 against v0: at most 2e-2, since
   they differ from v0 by the bf16 rounding of the scale (2^-9 relative)
-  and of the output.
+  and of the output;
+- the CUDA kernels' packed bf16x2 dequantization, emulated bit for bit in
+  torch: equal, bit for bit, to the plain versions' dequantization;
+- the plain versions summed over ``split_ranges`` in the kernel's order,
+  v2's correction added once, against the JAX kernels: the ``agrees``
+  check, as above.
 """
 
 import functools
@@ -40,6 +45,8 @@ from align_anything_tpu_torch.scripts.bench import (  # noqa: E402
     bench_int4_kernel_ab as ab)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BF16_136 = 0x43084308     # the bf16 pair {136, 136}
+BF16_128 = 0x43004300     # {128, 128}
 SHAPES = [(4, 256, 512, 64), (32, 1024, 256, 64), (8, 512, 384, 128)]
 
 
@@ -241,19 +248,24 @@ def test_cuda_wrappers_reject_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m', [1, 3, 16, 17, 128])
-@pytest.mark.parametrize('k,n', [(1024, 512), (768, 130)])
-def test_cuda_kernels_match_plain(m, k, n):
-    """v1 and v2 on the card against their plain versions, ragged N (no
-    4-column vector loads) included; two launches bit-equal; each launch
-    counted."""
+@pytest.mark.parametrize('m', [1, 3, 16, 17, 32, 33, 128])
+@pytest.mark.parametrize('k,n,gs', [(1024, 512, 64), (768, 130, 64),
+                                    (14336, 4096, 64), (800, 264, 40)])
+def test_cuda_kernels_match_plain(m, k, n, gs):
+    """v1 and v2 on the card against their plain versions: ragged N (no
+    4-column vector loads), K cut into several splits (down's K 14336),
+    and groups whose half is not a multiple of 16 (gs 40) included; two
+    launches bit-equal; each launch counted."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if k == 14336:
+        assert tk.split_plan(m, k, n, gs // 2, sms) > 1
     gen = torch.Generator(device='cuda').manual_seed(m)
-    wts = ab.make_weights(k, n, gen)
+    wts = ab.make_weights(k, n, gen, gs)
     x = torch.randn((m, k), generator=gen, device='cuda',
                     dtype=torch.bfloat16)
-    corr = ab.v2_correction(x, wts['v2_scales'], ab.GS)
+    corr = ab.v2_correction(x, wts['v2_scales'], gs)
     cases = (
         (ab.int4_matmul_v1_cuda, (x, wts['values'], wts['scales']),
          ab.int4_matmul_v1_reference),
@@ -271,6 +283,21 @@ def test_cuda_kernels_match_plain(m, k, n):
 
 
 @pytest.mark.cuda
+def test_cuda_ab_variants_run_on_tensor_cores():
+    """Every instance of v1's and v2's kernel, as of K2's, has HMMA in its
+    SASS."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    counts = {}
+    for name, n in tk.LIBRARY.tensor_core_counts().items():
+        tag = tk.variant_of(name)
+        if tag is not None:
+            counts.setdefault(tag, []).append(n)
+    assert sorted(counts) == ['v0', 'v1', 'v2'], counts
+    assert min(min(n) for n in counts.values()) > 0, counts
+
+
+@pytest.mark.cuda
 def test_cuda_v2_nibbles_by_hand():
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
@@ -280,3 +307,132 @@ def test_cuda_v2_nibbles_by_hand():
     out = ab.int4_matmul_v2(x, values, scales)
     torch.cuda.synchronize()
     assert out.float()[:, 0].tolist() == [5.0, -3.0, 2.0]
+
+
+# ------------------------------------------- the kernels' arithmetic, emulated
+
+
+def _bf16_halves(words: torch.Tensor) -> torch.Tensor:
+    """32-bit words (held in int64) -> their two 16-bit halves as bf16,
+    the low half first, along a new last dim."""
+    halves = torch.stack([words & 0xFFFF, (words >> 16) & 0xFFFF], -1)
+    return ((halves ^ 0x8000) - 0x8000).to(torch.int16).view(torch.bfloat16)
+
+
+def _packed_dequant(values: torch.Tensor, scales: torch.Tensor,
+                    variant: str) -> torch.Tensor:
+    """The CUDA kernels' bf16x2 dequantization (``dequant_b`` in
+    ``csrc/int4_matmul.cu``), emulated on bit patterns: values (G, gs/2, N)
+    int8, gs/2 even; scales (G, N) fp32 -> (G*gs, N) bf16 in the plain
+    versions' row order.
+
+    A B register pairs packed rows (2t, 2t+1); one prmt puts byte jn of
+    each in the low byte of a 16-bit half, the other bytes of the word
+    being other columns' (here their complement, the worst case for the
+    masks).  The low nibbles: (d & 0x000F000F) ^ 0x43084308 (v1; v2's
+    unsigned nibble: | 0x43004300), the high ones the same of d >> 4 (both
+    variants signed), then bf16 minus 136 (v2 low: 128), exact, then bf16
+    times bf16(s).  Torch's bf16 operations on the CPU compute in fp32 and
+    round once to nearest even; here that is sub.rn / mul.rn.bf16x2 bit for
+    bit, since the difference and the product (a 4-bit integer times an
+    8-bit significand) are exact in fp32."""
+    v = values.to(torch.int64) & 0xFF
+    a, b = v[:, 0::2], v[:, 1::2]
+    d = a | ((~a & 0xFF) << 8) | (b << 16) | ((~b & 0xFF) << 24)
+    mask = 0x000F000F
+    low = ((d & mask) ^ BF16_136) if variant == 'v1' else \
+        ((d & mask) | BF16_128)
+    high = ((d >> 4) & mask) ^ BF16_136
+    off = {'v1': 136.0, 'v2': 128.0}[variant]
+    sb = scales.to(torch.bfloat16)[:, None, :]
+
+    def rows(words, offset):
+        q = _bf16_halves(words) - torch.tensor(offset, dtype=torch.bfloat16)
+        w = q * sb[..., None]                        # (G, gs/4, N, 2)
+        return w.permute(0, 1, 3, 2).reshape(w.shape[0], -1, w.shape[2])
+
+    w = torch.cat([rows(low, off), rows(high, 136.0)], 1)
+    return w.reshape(-1, w.shape[-1])
+
+
+def _tie(base: torch.Tensor) -> torch.Tensor:
+    """fp32 values exactly halfway between two neighbouring bf16 values."""
+    bits = base.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    return ((bits << 16) | 0x8000).view(torch.float32)
+
+
+def _scale_sweep() -> torch.Tensor:
+    rng = np.random.default_rng(11)
+    floor = torch.tensor([1e-8], dtype=torch.float32) / 7.0
+    realistic = torch.from_numpy(
+        np.abs(rng.normal(size=24) * 0.02).astype(np.float32)) / 7.0
+    wide = torch.from_numpy(
+        (10.0 ** rng.uniform(-9, 37, size=24)).astype(np.float32))
+    ties = _tie(torch.from_numpy(
+        (10.0 ** rng.uniform(-8, 2, size=16)).astype(np.float32)))
+    fixed = torch.tensor([1.0, 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, 0.0625,
+                          3e37, 1e38, 3.3e38, -0.3], dtype=torch.float32)
+    return torch.cat([floor, realistic, wide, ties, fixed])
+
+
+@pytest.mark.parametrize('variant', ['v1', 'v2'])
+def test_packed_dequant_is_the_plain_one_bit_for_bit(variant):
+    """Tentpole arithmetic of the v1 / v2 kernels: all 256 byte values
+    (in two row orders, so that each byte meets several neighbours in a
+    register) against a sweep of scales: the floor 1e-8/7, realistic ones,
+    ties of the bf16 rounding, values up to the overflow of q * bf16(s)."""
+    scales = _scale_sweep()
+    n = scales.numel()
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(256))
+    order = torch.stack([torch.arange(256), perm])               # (2, 256)
+    values = order.to(torch.uint8).view(torch.int8)[:, :, None].expand(
+        2, 256, n).contiguous()
+    sc = scales[None, :].expand(2, n).contiguous()
+    plain = {'v1': ab.dequant_v1, 'v2': ab.dequant_v2}[variant]
+    ref = plain(values, sc)
+    got = _packed_dequant(values, sc, variant)
+    assert got.shape == ref.shape == (1024, n)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    # the sweep reaches the ties and the overflow
+    assert bool(torch.isinf(ref.float()).any())
+    sb = scales.to(torch.bfloat16).to(torch.float32)
+    assert bool((sb != scales).any())
+
+
+def _split_sum(x, values, scales, variant, splits, corr=None,
+               per_split=False):
+    """The plain version summed over the plan's group ranges in the
+    kernel's order, s = 0 .. S-1, in fp32; v2's correction added to the
+    total (or, wrongly, to each split) before the bf16 cast."""
+    gs = 2 * values.shape[1]
+    dequant = {'v1': ab.dequant_v1, 'v2': ab.dequant_v2}[variant]
+    acc = torch.zeros((x.shape[0], values.shape[-1]))
+    for lo, hi in tk.split_ranges(values.shape[0], splits):
+        acc += ab._matmul_bf16(x[:, lo * gs:hi * gs],
+                               dequant(values[lo:hi], scales[lo:hi]))
+        if per_split:
+            acc += corr
+    if corr is not None and not per_split:
+        acc += corr
+    return acc.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize('m,k,n,gs,sm_count,splits', [
+    (8, 1280, 256, 64, 3, 3),        # 20 groups in 6 + 7 + 7
+    (32, 2048, 384, 128, 132, 16),   # one group per split
+])
+@pytest.mark.parametrize('variant', ['v1', 'v2'])
+def test_split_sum_matches_jax(jab, variant, m, k, n, gs, sm_count, splits):
+    assert tk.split_plan(m, k, n, gs // 2, sm_count) == splits
+    o = _operands(jab, m, k, n, gs, seed=7)
+    if variant == 'v1':
+        ref = jab.run_variant(jab._kernel_v1, o.xj, o.v0, o.s0, o.gpc, gs)
+        got = _split_sum(o.x, o.tv0, o.ts0, 'v1', splits)
+        _assert_agrees(got, _to_torch(ref))
+        return
+    ref = _to_torch(jab.run_v2(o.xj, o.v2, o.s2, o.gpc, gs))
+    corr = ab.v2_correction(o.x, o.ts2, gs)
+    _assert_agrees(_split_sum(o.x, o.tv2, o.ts2, 'v2', splits, corr), ref)
+    # the correction added per split, not once, is refused
+    assert not ab.agrees(_split_sum(o.x, o.tv2, o.ts2, 'v2', splits, corr,
+                                    per_split=True), ref)
