@@ -9,9 +9,11 @@ written by hand for Hopper under ``csrc/``, built by nvcc at first use.
 
 Ported so far: the int4 serving path (``generation/continuous.py`` over
 ``models/transformer.py`` with the int4 matmul kernel) and the text-to-text
-DPO train step (``trainers/text_to_text/dpo.py`` over the decoder's
-training path with the flash-attention kernel).  Entry points run on the
-first CUDA device unless given ``device='cpu'``.
+trainers (``trainers/text_to_text/{sft,dpo,orpo,simpo}.py`` on the trainer
+base, ``trainers/base.py``, over the decoder's training path with the
+flash-attention kernel), with their configs, data layer, HF checkpoint
+loader and checkpoints.  Entry points run on the first CUDA device unless
+given ``device='cpu'``.
 """
 
 __version__ = '0.1.0'

@@ -1,0 +1,43 @@
+"""The text data layer: the port of ``align_anything_tpu/data`` (templates,
+chat formatting, tokenizers, datasets, collators, the iterator).  The
+multimodal formatters and datasets, and the prompt-only set of the PPO
+family, are not ported yet (ROADMAP)."""
+
+from align_anything_tpu_torch.data import formatters  # noqa: F401  (registers templates)
+from align_anything_tpu_torch.data.chat_template import ChatTemplate, ModelFormatter
+from align_anything_tpu_torch.data.datasets import (
+    DEFAULT_BUCKETS,
+    IGNORE_INDEX,
+    DataIterator,
+    PreferenceCollator,
+    PreferenceDataset,
+    SupervisedCollator,
+    SupervisedDataset,
+    UnmatchedSupervisedDataset,
+    load_raw_dataset,
+)
+from align_anything_tpu_torch.data.template_registry import (
+    TEMPLATE_REGISTRY,
+    get_template_class,
+    register_template,
+)
+from align_anything_tpu_torch.data.tokenizer import HashTokenizer, load_tokenizer
+
+__all__ = [
+    'ChatTemplate',
+    'ModelFormatter',
+    'DEFAULT_BUCKETS',
+    'IGNORE_INDEX',
+    'DataIterator',
+    'PreferenceCollator',
+    'PreferenceDataset',
+    'SupervisedCollator',
+    'SupervisedDataset',
+    'UnmatchedSupervisedDataset',
+    'load_raw_dataset',
+    'TEMPLATE_REGISTRY',
+    'get_template_class',
+    'register_template',
+    'HashTokenizer',
+    'load_tokenizer',
+]

@@ -1,6 +1,6 @@
 """Alignment losses as plain functions over batch tensors: the port of
-``align_anything_tpu/losses`` (the preference losses so far; SFT and the
-PPO family come with their slices)."""
+``align_anything_tpu/losses`` (the preference losses and SFT's cross
+entropy so far; the PPO family comes with its slice)."""
 
 from align_anything_tpu_torch.losses.preference import (
     bradley_terry_loss,
@@ -11,9 +11,11 @@ from align_anything_tpu_torch.losses.preference import (
     simpo_loss,
     unmatched_kl_estimate,
 )
+from align_anything_tpu_torch.losses.sft import cross_entropy_loss
 
 __all__ = [
     'bradley_terry_loss',
+    'cross_entropy_loss',
     'dpo_loss',
     'kto_loss',
     'orpo_loss',

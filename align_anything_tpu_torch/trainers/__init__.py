@@ -1,2 +1,3 @@
-"""Trainers: the train-step core, the optimizer, and the text-to-text DPO
-step (the harness around them is not ported yet, ROADMAP)."""
+"""Trainers: the trainer base (configs, data, checkpoints, the loop), the
+CLI, the optimizer, and the text-to-text SFT, DPO, ORPO and SimPO
+trainers."""

@@ -7,6 +7,14 @@ clip and a schedule, with optax's semantics: the learning rate of update t
 (counted from 0) is ``schedule(t)``; weight decay is decoupled; eps is added
 outside the square root; the clip scales by max_norm / norm only when the
 norm reaches max_norm, and ``max_grad_norm=0`` turns it off.
+
+``gradient_accumulation_steps=k > 1`` wraps the whole chain as
+``optax.MultiSteps(chain, k)`` does (``MultiSteps`` below): each call
+folds this step's gradients into a running mean; every k-th call the clip
+and AdamW run once, on that mean, and AdamW's count (its bias correction
+and the ``schedule(count)`` it applies) advances once per update, not per
+call.  Frozen labels (``optax.multi_transform``) are not ported: no
+text-to-text config freezes a module.
 """
 
 from __future__ import annotations
@@ -99,6 +107,77 @@ class ClippedAdamW:
         return norm
 
 
+class AccumulatingOptimizer:
+    """The optimizer state of ``MultiSteps``: the inner
+    ``torch.optim.AdamW``, the running mean of the gradients since the last
+    update, the calls folded into it (``mini_step``) and the updates taken
+    (``updates``, AdamW's count).  ``zero_grad``, ``param_groups``,
+    ``state_dict`` and ``load_state_dict`` as a torch optimizer's."""
+
+    def __init__(self, inner: torch.optim.Optimizer):
+        self.inner = inner
+        self.acc = [torch.zeros_like(p) for group in inner.param_groups
+                    for p in group['params']]
+        self.mini_step = 0
+        self.updates = 0
+
+    @property
+    def param_groups(self) -> list:
+        return self.inner.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> dict:
+        return {'inner': self.inner.state_dict(), 'acc': self.acc,
+                'mini_step': self.mini_step, 'updates': self.updates}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state['inner'])
+        for a, saved in zip(self.acc, state['acc']):
+            a.copy_(saved)
+        self.mini_step = int(state['mini_step'])
+        self.updates = int(state['updates'])
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, k)``: ``init`` and ``apply_`` as
+    ``ClippedAdamW``'s.  ``apply_`` folds the leaves' ``.grad`` into the
+    running mean ``acc + (g - acc) / (mini_step + 1)``, as optax does; on
+    every k-th call it hands the mean to the inner chain (clip, AdamW at
+    ``schedule(updates)``) and resets the mean.  Between updates the params
+    do not move.  It returns the global norm of this call's gradients."""
+
+    def __init__(self, inner: ClippedAdamW, every_k: int):
+        self.inner = inner
+        self.every_k = every_k
+
+    def init(self, params: dict) -> AccumulatingOptimizer:
+        return AccumulatingOptimizer(self.inner.init(params))
+
+    def apply_(self, optimizer: AccumulatingOptimizer,
+               step: int) -> torch.Tensor:
+        params = [p for group in optimizer.param_groups
+                  for p in group['params']]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        norm = global_norm(grads)
+        n = optimizer.mini_step
+        for a, g in zip(optimizer.acc, grads):
+            a.copy_(a + (g - a) / (n + 1))
+        if n < self.every_k - 1:
+            optimizer.mini_step = n + 1
+            return norm
+        for p, a in zip(params, optimizer.acc):
+            p.grad = a.clone()
+        self.inner.apply_(optimizer.inner, optimizer.updates)
+        for a in optimizer.acc:
+            a.zero_()
+        optimizer.mini_step = 0
+        optimizer.updates += 1
+        return norm
+
+
 def make_optimizer(learning_rate: float, *,
                    lr_scheduler_type: str = 'constant', total_steps: int = 1, lr_warmup_ratio: float = 0.0,
                    weight_decay: float = 0.0,
@@ -107,14 +186,15 @@ def make_optimizer(learning_rate: float, *,
                    max_grad_norm: float = 1.0,
                    gradient_accumulation_steps: int = 1,
                    frozen_labels: dict | None = None,
-                   ) -> tuple[ClippedAdamW, Schedule]:
+                   ) -> tuple[ClippedAdamW | MultiSteps, Schedule]:
     """(optimizer, schedule), the JAX ``make_optimizer``'s signature."""
     if frozen_labels is not None:
         raise NotImplementedError('frozen modules (frozen_labels) are not '
                                   'ported yet')
-    if gradient_accumulation_steps > 1:
-        raise NotImplementedError('gradient accumulation is not ported yet')
     schedule = make_schedule(learning_rate, lr_scheduler_type, total_steps,
                              lr_warmup_ratio)
-    return ClippedAdamW(schedule, adam_betas[0], adam_betas[1], adam_epsilon,
-                        weight_decay, max_grad_norm), schedule
+    tx = ClippedAdamW(schedule, adam_betas[0], adam_betas[1], adam_epsilon,
+                      weight_decay, max_grad_norm)
+    if gradient_accumulation_steps > 1:
+        return MultiSteps(tx, gradient_accumulation_steps), schedule
+    return tx, schedule

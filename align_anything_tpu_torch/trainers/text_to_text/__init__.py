@@ -1,1 +1,2 @@
-"""Text-to-text trainers (DPO's step so far)."""
+"""Text-to-text trainers: SFT, DPO, ORPO and SimPO (``python -m
+align_anything_tpu_torch.trainers.text_to_text.<algo>``)."""

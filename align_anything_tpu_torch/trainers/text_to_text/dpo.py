@@ -1,39 +1,62 @@
-"""The DPO train step (policy + frozen reference): the step of
-``align_anything_tpu/trainers/text_to_text/dpo.py`` ``DPOTrainer``.
+"""DPO trainer: policy + frozen reference on one GPU, the port of
+``align_anything_tpu/trainers/text_to_text/dpo.py``.
 
-A batch is a dict of tensors: ``input_ids`` and ``attention_mask`` (2B, L),
-better rows stacked above worse, and ``response_mask`` (2B, L-1).  The
-reference model is a second param tree passed to ``step``; its log-probs
-are computed under ``torch.no_grad()``.
+Launch:
+    python -m align_anything_tpu_torch.trainers.text_to_text.dpo \\
+        --model_name_or_path <dir|preset> --train_datasets <path> \\
+        --train_template PKUSafeRLHF --output_dir ./output/dpo
 
-The trainer's harness (datasets and collators, the tokenizer, loading an HF
-checkpoint through ``hf_loader``, checkpoints, the CLI entry point) waits
-for the port of ``trainers/base.py`` ``TrainerBase`` (ROADMAP, module
-item 3); this module runs the step on params and batches its caller
-makes.
+``DPOStep`` is the update step: a batch is a dict of tensors,
+``input_ids`` and ``attention_mask`` (2B, L), better rows stacked above
+worse, and ``response_mask`` (2B, L-1).  The reference model is a second
+param tree passed to ``step``; its log-probs are computed under
+``torch.no_grad()``.  ``DPOTrainer`` is the trainer around it
+(``trainers/base.py`` ``TrainerBase``): the HF checkpoint or preset, the
+tokenizer, the preference dataset and collator, the optimizer, the loop and
+the saves.  The reference tree is a frozen copy of the loaded policy.
+ORPO and SimPO (``orpo.py``, ``simpo.py``) subclass it without a reference.
 """
 
 from __future__ import annotations
 
+import sys
+from typing import Any, Callable
+
+import numpy as np
 import torch
 
+from align_anything_tpu_torch.data import PreferenceDataset
 from align_anything_tpu_torch.losses import dpo_loss
 from align_anything_tpu_torch.models.config import ModelConfig
 from align_anything_tpu_torch.ops.logprobs import token_logprobs
 from align_anything_tpu_torch.trainers.base import (
+    TrainerBase,
     TrainState,
     init_train_state,
     make_train_step,
 )
-from align_anything_tpu_torch.trainers.optimizer import ClippedAdamW, Schedule
+from align_anything_tpu_torch.trainers.cli import trainer_main
+from align_anything_tpu_torch.trainers.optimizer import (
+    ClippedAdamW,
+    MultiSteps,
+    Schedule,
+)
+from align_anything_tpu_torch.utils.tools import tree_map
 
 
-class DPOTrainer:
-    def __init__(self, model_cfg: ModelConfig, tx: ClippedAdamW,
-                 schedule: Schedule, scale_coeff: float = 0.1):
+class DPOStep:
+    """The DPO update step.  ``preference_loss`` (default: ``dpo_loss``)
+    may be replaced by a reference-free loss, which gets ``ref_logp=None``
+    when ``step`` is given no reference tree."""
+
+    def __init__(self, model_cfg: ModelConfig, tx: ClippedAdamW | MultiSteps,
+                 schedule: Schedule, scale_coeff: float = 0.1,
+                 preference_loss: Callable[..., dict] | None = None):
         self.model_cfg = model_cfg
         self.tx = tx
         self.scale_coeff = scale_coeff
+        if preference_loss is not None:
+            self.preference_loss = preference_loss
         self._step = make_train_step(self.loss_fn, tx, schedule)
 
     def init_state(self, params: dict) -> TrainState:
@@ -52,11 +75,13 @@ class DPOTrainer:
         return dpo_loss(logp, ref_logp, batch['input_ids'],
                         batch['response_mask'], scale_coeff=self.scale_coeff)
 
-    def loss_fn(self, params: dict, ref_params: dict,
+    def loss_fn(self, params: dict, ref_params: dict | None,
                 batch: dict) -> tuple[torch.Tensor, dict]:
         logp = self.compute_token_logprobs(params, batch)
-        with torch.no_grad():
-            ref_logp = self.compute_token_logprobs(ref_params, batch)
+        ref_logp = None
+        if ref_params is not None:
+            with torch.no_grad():
+                ref_logp = self.compute_token_logprobs(ref_params, batch)
         out = self.preference_loss(logp, ref_logp, batch)
         metrics = {
             'train/loss': out['loss'].detach(),
@@ -68,8 +93,97 @@ class DPOTrainer:
         }
         return out['loss'], metrics
 
-    def step(self, state: TrainState, ref_params: dict,
+    def step(self, state: TrainState, ref_params: dict | None,
              batch: dict) -> tuple[TrainState, dict]:
         """One update: the policy's forward and backward, the reference's
         forward, clip and AdamW.  Params are updated in place."""
         return self._step(state, ref_params, batch)
+
+
+class DPOTrainer(TrainerBase):
+    DATASET_CLS = PreferenceDataset
+    NEEDS_REF = True  # ORPO/SimPO are reference-free and set this False
+
+    def init_models(self) -> None:
+        params, self.model_cfg = self.load_model(
+            self.cfgs.model_cfgs.model_name_or_path, self.next_rng)
+        self.tokenizer = self.load_tokenizer_for(
+            self.cfgs.model_cfgs.model_name_or_path, self.model_cfg)
+        self.params = self.trainable(
+            self.shard_model_params(params, self.model_cfg))
+        # frozen reference = the starting policy (reference dpo.py:114-120)
+        self.ref_params = (tree_map(lambda t: t.detach().clone(), self.params)
+                           if self.NEEDS_REF else None)
+
+    def init_datasets(self) -> None:
+        dc = self.cfgs.data_cfgs
+        template = self.make_chat_template(dc.train_template, self.tokenizer)
+        max_len = int(self.cfgs.model_cfgs.model_max_length or 2048)
+        dataset = self.DATASET_CLS(
+            dc.train_datasets, template, self.tokenizer, max_length=max_len,
+            split=dc.train_split, size=dc.train_size,
+            data_files=dc.train_data_files)
+        buckets = self.padding_buckets()
+        # one device: the global batch is the per-device batch
+        batch_size = int(self.cfgs.train_cfgs.per_device_train_batch_size or 1)
+        self.train_iterator = self.make_iterator(
+            dataset, batch_size, dataset.get_collator(buckets=buckets))
+        self.eval_iterator = None
+        if dc.eval_datasets:
+            eval_ds = self.DATASET_CLS(
+                dc.eval_datasets, template, self.tokenizer, max_length=max_len,
+                split=dc.eval_split, size=dc.eval_size)
+            eval_bs = int(self.cfgs.train_cfgs.per_device_eval_batch_size or 1)
+            self.eval_iterator = self.make_iterator(
+                eval_ds, eval_bs, eval_ds.get_collator(buckets=buckets),
+                shuffle=False)
+
+    def preference_loss(self, logp, ref_logp, batch) -> dict:
+        return dpo_loss(
+            logp, ref_logp, batch['input_ids'], batch['response_mask'],
+            scale_coeff=float(self.cfgs.train_cfgs.scale_coeff or 0.1))
+
+    def init_engines(self) -> None:
+        total = self.total_training_steps(self.train_iterator)
+        tx, schedule = self.build_optimizer(total)
+        self.init_peft()
+        self.engine = DPOStep(self.model_cfg, tx, schedule,
+                              preference_loss=self.preference_loss)
+        self.state = self.build_train_state(self.params, tx)
+        del self.params
+        self.state = self.maybe_resume(self.state)
+
+    def train_step(self, batch: dict) -> dict[str, Any]:
+        self.state, metrics = self.engine.step(self.state, self.ref_params,
+                                               self.put_batch(batch))
+        return {k: float(v) for k, v in metrics.items()}
+
+    def eval(self) -> dict[str, Any]:
+        if self.eval_iterator is None:
+            return {}
+        accs, margins = [], []
+        for batch in self.eval_iterator.epoch_batches(0):
+            with torch.no_grad():
+                _, m = self.engine.loss_fn(self.state.params, self.ref_params,
+                                           self.put_batch(batch))
+            accs.append(float(m['train/reward_accuracy']))
+            margins.append(float(m['train/reward_margin']))
+        info = ({'eval/reward_accuracy': float(np.mean(accs)),
+                 'eval/reward_margin': float(np.mean(margins))}
+                if accs else {})
+        if info:
+            self.logger.log(info, step=self.global_step)
+            self.logger.print(f'eval at step {self.global_step}: {info}')
+        return info
+
+    def save(self, tag: int | None = None) -> None:
+        self.save_state_and_slice(self.state, self.model_cfg, self.tokenizer,
+                                  tag)
+
+
+def main():
+    trainer_main(DPOTrainer, task='text_to_text/dpo')
+
+
+if __name__ == '__main__':
+    sys.exit(main())

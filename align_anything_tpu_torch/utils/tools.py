@@ -1,9 +1,11 @@
-"""Helpers shared across the port: the device default, param-tree walks,
-host-side padding, and the log-probability gather of
+"""Helpers shared across the port: the device default, the seeds,
+param-tree walks, host-side padding, and the log-probability gather of
 ``align_anything_tpu/utils/tools.py``."""
 
 from __future__ import annotations
 
+import os
+import random
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -19,6 +21,18 @@ def default_device(device: torch.device | str | None = None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
                            'CPU')
     return torch.device('cuda', 0)
+
+
+def seed_everything(seed: int) -> torch.Generator:
+    """Seed ``random``, numpy and torch; return the root CPU generator that
+    takes the place of the JAX root key (the trainers draw their keys from
+    it)."""
+    seed = int(seed)
+    os.environ['PYTHONHASHSEED'] = str(seed)
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:

@@ -40,12 +40,24 @@ Phases (any failure raises and the run exits non-zero):
      yardstick only) at the two main shapes;
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
-     4 steps of ``DPOTrainer.step`` with remat 'dots_saveable'; step 1's
+     4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
      loss is ln 2, the attention kernels run on every layer of every step,
      and step 1 recomputed with the kernels patched to their plain versions
      agrees;
   8. ``bench.py``'s DPO config at its shape (0.4 B params, 6 pairs, seq
-     1024), timed: tokens/s per GPU and MFU.
+     1024), timed: tokens/s per GPU and MFU;
+  9. the trainer harness at phase 7's shape: a Llama-3-8B-width checkpoint
+     cut to 4 layers written from a seed with the port's ``save_params``
+     (bf16 safetensors in HF layout) and PKU-SafeRLHF-schema rows in a
+     ``.jsonl``, then DPO through ``trainer_main`` with a user's command
+     line (remat 'dots_saveable' from the port's one-GPU parallel config,
+     ``MESH_FILE``); step 1's loss is ln 2, every loss and grad norm
+     finite, the attention kernels run on every layer of every step; the
+     step time, tokens/s and peak memory beside phase 7's;
+ 10. the harness at bench.py's widths cut to 2 layers: the HF slice export
+     read back bit-equal, a run resumed from its step-2 train state
+     against the uninterrupted run (bit-equal, or within phase 7's 2e-4),
+     SFT's step 1 against a plain recompute, ORPO and SimPO.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
@@ -80,8 +92,10 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import sys
+import tempfile
 import threading
 import time
 from collections import deque
@@ -105,7 +119,7 @@ from align_anything_tpu_torch.scripts.bench.timing_utils import (
     time_ms)
 from align_anything_tpu_torch.trainers.optimizer import (global_norm,
                                                           make_optimizer)
-from align_anything_tpu_torch.trainers.text_to_text.dpo import DPOTrainer
+from align_anything_tpu_torch.trainers.text_to_text.dpo import DPOStep
 from align_anything_tpu_torch.utils.tools import param_leaves, tree_map
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -789,7 +803,7 @@ def dpo_setup(cfg, dev, seed: int, **opt):
     params = tree_map(lambda t: t.requires_grad_(True), params)
     ref = tree_map(lambda t: t.detach().to(torch.bfloat16), params)
     tx, schedule = make_optimizer(1e-6, max_grad_norm=1.0, **opt)
-    trainer = DPOTrainer(cfg, tx, schedule)
+    trainer = DPOStep(cfg, tx, schedule)
     return trainer, trainer.init_state(params), ref
 
 
@@ -923,6 +937,285 @@ def bench_dpo(dev, smi) -> dict:
     if not (math.isfinite(last) and abs(first - math.log(2)) <= 1e-6):
         raise AssertionError('bench DPO loss is off')
     return {'tokens_per_s': tps, 'mfu': mfu}
+
+
+# phases 9-10: the trainer harness through its entry point
+# (``trainer_main``).  Phase 9 runs phase 7's shape: 2 pairs a step,
+# padded to the 1024 bucket, 4 steps, remat 'dots_saveable' from the port's
+# one-GPU parallel config.  Phase 10 runs bench.py's widths cut to 2 layers.
+HARNESS_MESH = 'single_gpu_dots_saveable.json'
+SMALL = dict(vocab_size=32768, hidden=1024, layers=2, heads=16, kv_heads=8,
+             mlp=4096, max_pos=2048)
+
+
+def words(rng, n: int) -> str:
+    return ' '.join(f'w{int(i)}' for i in rng.integers(0, 10 ** 6, size=n))
+
+
+def write_jsonl(path: str, rows: list) -> str:
+    with open(path, 'w') as f:
+        for row in rows:
+            f.write(json.dumps(row) + '\n')
+    return path
+
+
+def preference_rows(seed: int, n: int, prompt_len: int,
+                    response_lens: tuple) -> list:
+    """PKU-SafeRLHF-schema rows of random words.  Under the default chat
+    format and ``HashTokenizer`` a row is prompt + response + 5 tokens."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        better = int(rng.integers(0, 2))
+        rows.append({
+            'prompt': words(rng, prompt_len),
+            'response_0': words(rng, int(rng.integers(*response_lens))),
+            'response_1': words(rng, int(rng.integers(*response_lens))),
+            'is_response_0_safe': True, 'is_response_1_safe': False,
+            'better_response_id': better, 'safer_response_id': 0})
+    return rows
+
+
+def run_trainer(trainer_cls, task: str, argv: list,
+                mesh_file: str | None = None) -> tuple:
+    """``trainer_main(trainer_cls, task, argv)`` on the default device,
+    recording each step's logged metrics and the checkpoint load time."""
+    from align_anything_tpu_torch.trainers import base  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.cli import trainer_main  # noqa: PLC0415
+    from align_anything_tpu_torch.utils.logger import Logger  # noqa: PLC0415
+
+    steps, timing = [], {}
+    load = base.load_params
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        timing['load_s'] = time.perf_counter() - t0
+        return out
+
+    env = {'MESH_FILE': mesh_file} if mesh_file else {}
+    with mock.patch.dict(os.environ, env), \
+            mock.patch.object(base, 'load_params', timed_load), \
+            mock.patch.object(Logger, 'log',
+                              lambda self, metrics, step: steps.append(
+                                  dict(metrics))):
+        trainer = trainer_main(trainer_cls, task, argv)
+    return trainer, steps, timing
+
+
+def harness_full(dev, smi, bare: dict, tmp: str) -> dict:
+    """Phase 9: DPO from an 8B-width checkpoint on disk through
+    ``trainer_main``, beside phase 7's bare step."""
+    from align_anything_tpu_torch.models.hf_loader import save_params  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+
+    cfg = llama_config(layers=DPO_LAYERS)
+    ckpt = os.path.join(tmp, 'llama8b_4layers')
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 50), device=dev)
+    t0 = time.perf_counter()
+    save_params(ckpt, params, cfg, dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(ckpt, 'model.safetensors'))
+    del params
+    torch.cuda.empty_cache()
+    # prompt 400 words, responses 150-600: 555-1005 tokens, the 1024 bucket
+    data = write_jsonl(os.path.join(tmp, 'pref_8b.jsonl'), preference_rows(
+        SEED + 51, DPO_STEPS * DPO_PAIRS, 400, (150, 601)))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'PKUSafeRLHF',
+            '--output_dir', os.path.join(tmp, 'out_8b'),
+            '--save_checkpoint', 'False', '--epochs', '1',
+            '--per_device_train_batch_size', str(DPO_PAIRS)]
+    log(f'phase9 wrote the checkpoint ({cfg.num_layers} layers at Llama-3-8B '
+        f'widths, bf16 safetensors in HF layout): {nbytes / 1e9:.3f} GB in '
+        f'{write_s:.2f} s; {DPO_STEPS * DPO_PAIRS} preference rows; argv '
+        f'{" ".join(argv[2:])}; MESH_FILE={HARNESS_MESH}')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    trainer, steps, timing = run_trainer(DPOTrainer, 'text_to_text/dpo',
+                                         argv, HARNESS_MESH)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {'fwd': fa.flash_attention_fwd_cuda.launches,
+                'bwd': fa.flash_attention_bwd_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    shape = next(trainer.train_iterator.epoch_batches(0))['input_ids'].shape
+    mcfg = trainer.model_cfg
+    del trainer
+    torch.cuda.empty_cache()
+    losses = [m['train/loss'] for m in steps]
+    norms = [m['train/grad_norm'] for m in steps]
+    seconds = [m['perf/step_time_s'] for m in steps]
+    for i, m in enumerate(steps):
+        log(f'phase9 step {i + 1}: loss={losses[i]:.9f} grad_norm='
+            f'{norms[i]:.6e} reward_accuracy={m["train/reward_accuracy"]:.3f}'
+            f' lr={m["train/lr"]:.3e} seconds={seconds[i]:.4f}')
+    step_s = statistics.median(seconds[1:])
+    tps = shape[0] * shape[1] / step_s
+    need = {'fwd': DPO_STEPS * 3 * cfg.num_layers,
+            'bwd': DPO_STEPS * cfg.num_layers}
+    log(f'phase9 harness: checkpoint load {timing["load_s"]:.2f} s '
+        f'({nbytes / timing["load_s"] / 1e9:.3f} GB/s of bf16 file, fp32 on '
+        f'the card); batch {tuple(shape)}; remat {mcfg.remat}, compute '
+        f'{mcfg.compute_dtype}; trainer_main {total_s:.2f} s in all (load, '
+        f'{len(steps)} steps, fp32 HF slice save)')
+    log(f'phase9 harness step time {step_s:.4f} s (median of steps 2-'
+        f'{len(steps)}, the loop\'s own clock: collation, pinned copy, '
+        f'step, metrics) vs phase 7 bare step {bare["step_s"]:.4f} s '
+        f'(ratio {step_s / bare["step_s"]:.4f}); {tps:.1f} tokens/s vs '
+        f'{bare["tokens_per_s"]:.1f}; peak memory {peak / 1e9:.3f} GB vs '
+        f'{bare["peak_gb"]:.3f} GB; flash launches fwd {launches["fwd"]} '
+        f'(need >= {need["fwd"]}) bwd {launches["bwd"]} (need >= '
+        f'{need["bwd"]}); card {smi}')
+    if tuple(shape) != (2 * DPO_PAIRS, DPO_SEQ):
+        raise AssertionError(f'harness batch {tuple(shape)} is not phase 7\'s')
+    if (mcfg.remat, mcfg.compute_dtype) != ('dots_saveable', 'bfloat16'):
+        raise AssertionError(f'harness config {mcfg.remat} / '
+                             f'{mcfg.compute_dtype} is not phase 7\'s')
+    if len(steps) != DPO_STEPS:
+        raise AssertionError(f'{len(steps)} harness steps, not {DPO_STEPS}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'harness step 1 loss {losses[0]} != ln 2')
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError('harness: non-finite loss or grad norm')
+    for kind in need:
+        if launches[kind] < need[kind]:
+            raise AssertionError(f'harness: flash {kind} launched '
+                                 f'{launches[kind]} times, expected >= '
+                                 f'{need[kind]}')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'peak_gb': peak / 1e9}
+
+
+def leaves_by_path(tree, prefix: str = '') -> dict:
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items()
+                for p, t in leaves_by_path(v, f'{prefix}/{k}').items()}
+    return {prefix: tree.detach()}
+
+
+def harness_small(dev, smi, tmp: str) -> None:
+    """Phase 10 at bench.py's widths, 2 layers: the HF slice export read
+    back, resume against an uninterrupted run, SFT step 1 against a plain
+    recompute, ORPO and SimPO."""
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_params, save_params)
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.orpo import (  # noqa: PLC0415
+        ORPOTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.sft import (  # noqa: PLC0415
+        SupervisedTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.simpo import (  # noqa: PLC0415
+        SimPOTrainer)
+
+    cfg = llama_config(**SMALL)
+    ckpt = os.path.join(tmp, 'small')
+    save_params(ckpt, transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 60), device=dev),
+        cfg)
+    # 85-185 tokens: the 256 bucket
+    pref = write_jsonl(os.path.join(tmp, 'pref_small.jsonl'),
+                       preference_rows(SEED + 61, 8, 60, (20, 121)))
+    rng = np.random.default_rng(SEED + 62)
+    sft = write_jsonl(os.path.join(tmp, 'sft_small.jsonl'), [
+        {'instruction': words(rng, 40), 'input': words(rng, 10),
+         'output': words(rng, int(rng.integers(20, 120)))}
+        for _ in range(4)])
+
+    def argv(data, template, out, *extra):
+        return ['--model_name_or_path', ckpt, '--train_datasets', data,
+                '--train_template', template,
+                '--output_dir', os.path.join(tmp, out), '--epochs', '1',
+                '--per_device_train_batch_size', '2', *extra]
+
+    # 4 uninterrupted steps, the train state saved at step 2 and 4
+    full, full_steps, _ = run_trainer(
+        DPOTrainer, 'text_to_text/dpo',
+        argv(pref, 'PKUSafeRLHF', 'full', '--save_checkpoint', 'True',
+             '--save_interval', '2', '--save_total_limit', '3'))
+    got = leaves_by_path(full.state.params)
+    back, _ = load_params(os.path.join(tmp, 'full', 'slice_4'), device=dev)
+    back = leaves_by_path(back)
+    exported = set(got) == set(back) and all(
+        torch.equal(got[p], back[p]) for p in got)
+    log(f'phase10 export: slice_4 read back with load_params, {len(back)} '
+        f'leaves, bit-equal to the trainer\'s params: {exported}')
+    if not exported:
+        raise AssertionError('the HF slice does not read back bit-equal')
+
+    # resume: a new trainer from the step-2 train state, 2 more steps
+    os.makedirs(os.path.join(tmp, 'resumed', 'checkpoints'))
+    shutil.copytree(os.path.join(tmp, 'full', 'checkpoints', 'step_2'),
+                    os.path.join(tmp, 'resumed', 'checkpoints', 'step_2'))
+    resumed, resumed_steps, _ = run_trainer(
+        DPOTrainer, 'text_to_text/dpo',
+        argv(pref, 'PKUSafeRLHF', 'resumed', '--save_checkpoint', 'False',
+             '--load_checkpoint', 'True'))
+    want = [(m['train/loss'], m['train/grad_norm']) for m in full_steps[2:]]
+    have = [(m['train/loss'], m['train/grad_norm']) for m in resumed_steps]
+    mine = leaves_by_path(resumed.state.params)
+    bit_equal = have == want and all(torch.equal(got[p], mine[p])
+                                     for p in got)
+    param_diff = max(float((got[p].float() - mine[p].float()).abs().max())
+                     for p in got)
+    rel = max((abs(h - w) / abs(w) for hw, ww in zip(have, want)
+               for h, w in zip(hw, ww)), default=math.inf)
+    log(f'phase10 resume: steps 3-4 after resuming at step '
+        f'{resumed.global_step - len(resumed_steps)}: (loss, grad norm) '
+        f'{have} vs uninterrupted {want}; bit-equal (metrics and params): '
+        f'{bit_equal}; max rel diff {rel:.3e} (limit {DPO_SUM_TOL:g}); '
+        f'params max abs diff {param_diff:.3e}')
+    if len(have) != 2 or not (bit_equal or rel <= DPO_SUM_TOL):
+        raise AssertionError('resume disagrees with the uninterrupted run')
+    del full, resumed, got, back, mine
+    torch.cuda.empty_cache()
+
+    # SFT: step 1 against a plain recompute (plain attention, torch CE)
+    trainer, steps, _ = run_trainer(
+        SupervisedTrainer, 'text_to_text/sft',
+        argv(sft, 'Alpaca', 'sft', '--save_checkpoint', 'False'))
+    batch = trainer.put_batch(next(trainer.train_iterator.epoch_batches(0)))
+    params, _ = load_params(ckpt, device=dev)
+    with torch.no_grad(), \
+            mock.patch.object(fa, 'flash_attention_fwd_cuda',
+                              fa.flash_attention_fwd_reference):
+        logits = transformer.forward(
+            params, trainer.model_cfg, batch['input_ids'],
+            attention_mask=batch['attention_mask']).logits
+        plain = float(F.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]),
+            batch['labels'][:, 1:].reshape(-1).long(), ignore_index=-100))
+    losses = [m['train/loss'] for m in steps]
+    rel = abs(losses[0] - plain) / abs(plain)
+    log(f'phase10 sft: {len(losses)} steps, losses {losses}; step 1 '
+        f'recomputed with the plain attention and F.cross_entropy {plain:.9f}'
+        f' (rel diff {rel:.3e}, limit {DPO_SUM_TOL:g}); batch '
+        f'{tuple(batch["input_ids"].shape)}')
+    if not (len(losses) == 2 and rel <= DPO_SUM_TOL
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError('SFT step 1 disagrees with the plain recompute')
+    del trainer, batch, params, logits
+    torch.cuda.empty_cache()
+
+    for cls, task in ((ORPOTrainer, 'orpo'), (SimPOTrainer, 'simpo')):
+        _, steps, _ = run_trainer(
+            cls, f'text_to_text/{task}',
+            argv(pref, 'PKUSafeRLHF', task, '--save_checkpoint', 'False',
+                 '--train_size', '4'))
+        losses = [m['train/loss'] for m in steps]
+        log(f'phase10 {task}: losses {losses}')
+        if not (len(losses) == 2 and all(math.isfinite(x) for x in losses)
+                and losses[0] != losses[1]):
+            raise AssertionError(f'{task}: the loss is not finite or did not '
+                                 'move')
+    log(f'phase10 done; card {smi}')
 
 
 # --planted-faults: flash_attention.cu with 64 keys (or one 64-row query
@@ -1280,13 +1573,23 @@ def main() -> int:
     dpo = train_dpo(dev, smi)
     torch.cuda.empty_cache()
     bench_dpo(dev, smi)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_harness_')
+    try:
+        harness = harness_full(dev, smi, dpo, tmp)
+        torch.cuda.empty_cache()
+        harness_small(dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     t8 = fstats['timed']['llama8b']
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
                       '(Llama-3-8B widths); library_ms: '
-                      'scaled_dot_product_attention, causal, no padding'}
+                      'scaled_dot_product_attention, causal, no padding',
+             'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
+                             'steps through trainer_main)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -1318,7 +1621,7 @@ def main() -> int:
         'also_replaces': 'align_anything_tpu/ops/attention.py:73, '
                          'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': dpo['launches']['fwd'],
+        'launches': dpo['launches']['fwd'] + harness['launches']['fwd'],
         'max_abs_err': fstats['worst']['fwd'], 'ms': t8['ms'],
         'plain_ms': t8['plain_ms'], 'bound_ms': t8['bound_ms'],
         'bound_by': t8['bound_by'], 'library_ms': t8['library_ms']}, {
@@ -1326,7 +1629,7 @@ def main() -> int:
         'replaces': 'align_anything_tpu/ops/attention.py:99',
         'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': dpo['launches']['bwd'],
+        'launches': dpo['launches']['bwd'] + harness['launches']['bwd'],
         'max_abs_err': fstats['worst']['bwd'], 'ms': t8['bwd_ms'],
         'plain_ms': t8['plain_bwd_ms'], 'bound_ms': t8['bwd_bound_ms'],
         'bound_by': t8['bwd_bound_by'],

@@ -3,11 +3,12 @@ port's remat policies against each other, at a tiny Llama config in fp32
 on the CPU.
 
 The JAX side is ``token_logprobs`` + ``dpo_loss`` + ``make_optimizer``
-under ``jax.value_and_grad``, as ``DPOTrainer``'s step; the port gets the
-same weights through ``models/bridge.py``.  Tolerances: 1e-5 for losses,
-metrics and the params after three updates (fp32 math summed in another
-order; lr 1e-4 keeps Adam's normalized steps from amplifying that), and
-1e-6 relative between remat policies (the same ops, recomputed).
+under ``jax.value_and_grad``, as the JAX ``DPOTrainer``'s step; the port's
+``DPOStep`` gets the same weights through ``models/bridge.py``.
+Tolerances: 1e-5 for losses, metrics and the params after three updates
+(fp32 math summed in another order; lr 1e-4 keeps Adam's normalized steps
+from amplifying that), and 1e-6 relative between remat policies (the same
+ops, recomputed).
 """
 
 import copy
@@ -30,7 +31,7 @@ from align_anything_tpu_torch.trainers.optimizer import (  # noqa: E402
     param_leaves,
 )
 from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: E402
-    DPOTrainer,
+    DPOStep,
 )
 from align_anything_tpu_torch.utils.tools import tree_map  # noqa: E402
 
@@ -123,7 +124,7 @@ def test_dpo_steps_match_jax(jx):
     cfg = tiny_config(**CFG).replace(compute_dtype='float32')
     params, ref = trainable_from_jax_tree(np_tree(jparams), device='cpu')
     tx, schedule = make_optimizer(LR, **OPT)
-    trainer = DPOTrainer(cfg, tx, schedule, scale_coeff=0.1)
+    trainer = DPOStep(cfg, tx, schedule, scale_coeff=0.1)
     state = trainer.init_state(params)
     tb = _torch_batch(batch)
     for step in range(3):
@@ -169,7 +170,7 @@ def test_init_state_needs_trainable_leaves():
     cfg = tiny_config(**CFG).replace(compute_dtype='float32')
     params = tt.init_params(cfg, torch.Generator().manual_seed(0),
                             device='cpu')
-    trainer = DPOTrainer(cfg, *make_optimizer(LR, **OPT))
+    trainer = DPOStep(cfg, *make_optimizer(LR, **OPT))
     with pytest.raises(ValueError, match='requires_grad'):
         trainer.init_state(params)
     assert not any(t.requires_grad for t in param_leaves(params))
@@ -194,7 +195,7 @@ def _loss_and_grads(remat, monkeypatch):
                             device='cpu')
     ref = copy.deepcopy(params)
     tx, schedule = make_optimizer(LR, **OPT)
-    trainer = DPOTrainer(cfg, tx, schedule)
+    trainer = DPOStep(cfg, tx, schedule)
     # perturb the policy so that the loss has a gradient beyond ln 2's
     with torch.no_grad():
         params['layers']['q']['w'].mul_(1.1)

@@ -1,4 +1,7 @@
-"""The PyTorch port imports no JAX, directly or through the JAX package."""
+"""The PyTorch port imports no JAX, directly or through the JAX package,
+and none of ``yaml``, ``safetensors``, ``transformers``, ``datasets`` or
+``orbax`` with its modules (it imports them only inside the functions that
+use them, and the card's path needs none of them)."""
 
 import os
 import subprocess
@@ -17,10 +20,19 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                'align_anything_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
-# the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py
-assert 'align_anything_tpu_torch.scripts.bench.bench_int4_kernel_ab' in names
-bad = sorted(m for m in sys.modules
-             if m == 'jax' or m.startswith(('jax.', 'align_anything_tpu.')))
+# the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, and
+# the trainer harness
+for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
+             'utils.logger', 'utils.profiling', 'data.tokenizer',
+             'data.template_registry', 'data.chat_template',
+             'data.formatters', 'data.datasets', 'models.hf_loader',
+             'checkpoint', 'losses.sft', 'trainers.base', 'trainers.cli',
+             'trainers.text_to_text.dpo', 'trainers.text_to_text.sft',
+             'trainers.text_to_text.orpo', 'trainers.text_to_text.simpo'):
+    assert 'align_anything_tpu_torch.' + name in names, name
+banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
+          'transformers', 'datasets', 'orbax')
+bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)
 print(len(names), bad)
 """
 
@@ -32,19 +44,21 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
-    # every module of the slice was imported
-    assert int(n) >= 30
+    # every module of the slices was imported
+    assert int(n) >= 47
 
 
 @pytest.mark.parametrize('module', [
     'align_anything_tpu_torch.ops.int4_matmul',
     'align_anything_tpu_torch.ops.flash_attention',
     'align_anything_tpu_torch.scripts.bench.bench_int4_kernel_ab',
+    'align_anything_tpu_torch.trainers.text_to_text.dpo',
+    'align_anything_tpu_torch.checkpoint',
 ])
 def test_kernel_module_imports_first(module):
-    """A module that holds a kernel imports on its own in a fresh
-    interpreter (``ops/int4_matmul.py`` and ``models/`` import each
-    other)."""
+    """A module that holds a kernel, or a trainer's entry point, imports on
+    its own in a fresh interpreter (``ops/int4_matmul.py`` and ``models/``
+    import each other)."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     proc = subprocess.run([sys.executable, '-c', f'import {module}'],
                           cwd=REPO, env=env, capture_output=True, text=True,

@@ -200,8 +200,47 @@ def test_optimizer_matches_optax(jx, max_grad_norm):
     _close(tp['b']['w'], jp['b']['w'], 1e-6)
 
 
-@pytest.mark.parametrize('option', [dict(frozen_labels={}),
-                                    dict(gradient_accumulation_steps=2)])
+@pytest.mark.parametrize('option', [dict(frozen_labels={})])
 def test_optimizer_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError):
         topt.make_optimizer(1e-3, **option)
+
+
+@pytest.mark.parametrize('max_grad_norm', [0.0, 0.5])
+def test_gradient_accumulation_matches_multisteps(jx, max_grad_norm):
+    """``gradient_accumulation_steps=2`` over four micro-steps against
+    ``optax.MultiSteps`` around the whole chain: the params can move only on
+    the second and fourth call, by clip + AdamW on the mean of two
+    gradients, at ``schedule(update count)``; to 1e-6 (fp32)."""
+    rng = np.random.default_rng(5)
+    params = {'a': rng.standard_normal((4, 5)).astype(np.float32),
+              'b': {'w': rng.standard_normal((7,)).astype(np.float32)}}
+    grads = [{'a': rng.standard_normal((4, 5)).astype(np.float32) * 0.3,
+              'b': {'w': rng.standard_normal((7,)).astype(np.float32)}}
+             for _ in range(4)]
+    kw = dict(lr_scheduler_type='linear', total_steps=4, lr_warmup_ratio=0.25,
+              weight_decay=0.1, adam_betas=(0.9, 0.95), adam_epsilon=1e-8,
+              max_grad_norm=max_grad_norm, gradient_accumulation_steps=2)
+    jtx, _ = jx.opt.make_optimizer(1e-2, **kw)
+    jp = jx.jax.tree.map(jx.jnp.asarray, params)
+    state = jtx.init(jp)
+    ttx, _ = topt.make_optimizer(1e-2, **kw)
+    assert isinstance(ttx, topt.MultiSteps)
+    tp = {'a': torch.from_numpy(params['a'].copy()).requires_grad_(True),
+          'b': {'w': torch.from_numpy(params['b']['w'].copy())
+                .requires_grad_(True)}}
+    opt = ttx.init(tp)
+    for step, g in enumerate(grads):
+        updates, state = jtx.update(g, state, jp)
+        jp = jx.optax.apply_updates(jp, updates)
+        tp['a'].grad = torch.from_numpy(g['a'].copy())
+        tp['b']['w'].grad = torch.from_numpy(g['b']['w'].copy())
+        before = tp['a'].detach().clone()
+        ttx.apply_(opt, step)
+        if step % 2 == 0:                  # between updates: no move
+            assert torch.equal(before, tp['a'].detach())
+        _close(tp['a'], jp['a'], 1e-6)
+        _close(tp['b']['w'], jp['b']['w'], 1e-6)
+    # update 0 ran at schedule(0) = 0 (warmup); update 1 moved the params
+    assert not np.allclose(tp['a'].detach().numpy(), params['a'])
+    assert (opt.updates, opt.mini_step) == (2, 0)
