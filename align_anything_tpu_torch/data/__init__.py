@@ -1,7 +1,6 @@
 """The text data layer: the port of ``align_anything_tpu/data`` (templates,
 chat formatting, tokenizers, datasets, collators, the iterator).  The
-multimodal formatters and datasets, and the prompt-only set of the PPO
-family, are not ported yet (ROADMAP)."""
+multimodal formatters and datasets are not ported yet (ROADMAP)."""
 
 from align_anything_tpu_torch.data import formatters  # noqa: F401  (registers templates)
 from align_anything_tpu_torch.data.chat_template import ChatTemplate, ModelFormatter
@@ -11,6 +10,8 @@ from align_anything_tpu_torch.data.datasets import (
     DataIterator,
     PreferenceCollator,
     PreferenceDataset,
+    PromptOnlyCollator,
+    PromptOnlyDataset,
     SupervisedCollator,
     SupervisedDataset,
     UnmatchedSupervisedDataset,
@@ -31,6 +32,8 @@ __all__ = [
     'DataIterator',
     'PreferenceCollator',
     'PreferenceDataset',
+    'PromptOnlyCollator',
+    'PromptOnlyDataset',
     'SupervisedCollator',
     'SupervisedDataset',
     'UnmatchedSupervisedDataset',

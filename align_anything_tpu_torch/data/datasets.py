@@ -15,12 +15,13 @@ Batch contract (numpy, moved to the device by the trainer's ``put_batch``):
   dpo.py:122-142), divergence_mask (2B, L-1) for KTO/ORPO/SimPO
   (kto.py:115-126 divergence slicing), seq_lengths (2B,), sample_weight (B,)
   zeroing degenerate pairs (kto.py:116 skip).
+- prompt_only: left-padded input_ids/attention_mask (B, L), and ``meta``
+  (a list, one dict per row, which ``put_batch`` drops).
 
 ``load_raw_dataset`` reads a local ``.json`` / ``.jsonl`` with the standard
 library and imports HF ``datasets`` only for hub names and ``data_files``.
-Left out: ``PromptOnlyDataset`` / ``PromptOnlyCollator`` and
-``DummyDataset`` (they come with the PPO slice) and the SPOC Chores episode
-layout (``data/chores.py``, the multimodal slice).
+Left out: ``DummyDataset`` (no ported trainer uses it) and the SPOC
+Chores episode layout (``data/chores.py``, the multimodal slice).
 """
 
 from __future__ import annotations
@@ -281,6 +282,68 @@ class PreferenceCollator:
             'seq_lengths': seq_lengths,
             'sample_weight': sample_weight,
         }
+
+
+class PromptOnlyDataset:
+    """Deduplicated prompts, left-padded for generation
+    (reference: datasets/text_to_text/prompt_only.py:64)."""
+
+    def __init__(self, path: str, template: ChatTemplate, tokenizer,
+                 max_length: int = 2048, split: str | None = None,
+                 size: int | None = None, data_files: Any = None,
+                 name: str | None = None, optional_args: Sequence[str] = (),
+                 raw_data: list[dict] | None = None):
+        self.template = template
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+        raw = (raw_data if raw_data is not None else
+               load_raw_dataset(path, split, size, data_files, name,
+                                optional_args))
+        seen: set[str] = set()
+        self.samples: list[dict] = []
+        for s in raw:
+            prompt_text, mm = self.template.format_prompt_only_sample(s)
+            if prompt_text in seen:
+                continue
+            seen.add(prompt_text)
+            self.samples.append({'prompt_text': prompt_text, 'meta': mm})
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        s = self.samples[idx]
+        ids = _encode(self.tokenizer, s['prompt_text'])[:self.max_length]
+        # generation prompts must not end with EOS
+        if ids and ids[-1] == self.tokenizer.eos_token_id:
+            ids = ids[:-1]
+        return {'input_ids': ids, 'meta': s['meta']}
+
+    def get_collator(self, buckets: Sequence[int] = DEFAULT_BUCKETS,
+                     pad_to: int | None = None) -> 'PromptOnlyCollator':
+        return PromptOnlyCollator(self.tokenizer.pad_token_id, buckets, pad_to)
+
+
+class PromptOnlyCollator:
+    def __init__(self, pad_token_id: int,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 pad_to: int | None = None):
+        self.pad_token_id = pad_token_id
+        self.buckets = buckets
+        self.pad_to = pad_to
+
+    def __call__(self, samples: list[dict]) -> dict[str, Any]:
+        max_len = max(len(s['input_ids']) for s in samples)
+        length = self.pad_to or bucket_length(max_len, self.buckets)
+        b = len(samples)
+        input_ids = np.full((b, length), self.pad_token_id, np.int32)
+        mask = np.zeros((b, length), np.int32)
+        for i, s in enumerate(samples):
+            ids = np.asarray(s['input_ids'][-length:], np.int32)
+            input_ids[i, length - len(ids):] = ids
+            mask[i, length - len(ids):] = 1
+        return {'input_ids': input_ids, 'attention_mask': mask,
+                'meta': [s.get('meta', {}) for s in samples]}
 
 
 class DataIterator:

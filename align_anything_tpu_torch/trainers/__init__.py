@@ -1,3 +1,3 @@
 """Trainers: the trainer base (configs, data, checkpoints, the loop), the
-CLI, the optimizer, and the text-to-text SFT, DPO, ORPO and SimPO
-trainers."""
+CLI, the optimizer, and the text-to-text trainers (SFT, DPO, ORPO, SimPO,
+RM, cost model, rm_score, PPO, multi-PPO)."""

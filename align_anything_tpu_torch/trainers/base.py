@@ -19,10 +19,10 @@ above 1) raises.  The step runs eagerly, no ``jit``.
 Not ported, each raising ``NotImplementedError``: LoRA / QLoRA
 (``init_peft`` with ``lora_cfgs.use_lora`` or ``bnb_cfgs.use_bnb``,
 ``lora_policy``, ``save_lora_merged``, ``compile_lora_train_step``),
-frozen modules (``FREEZE_FLAG_MODULES``: multimodal keys only), and the
-generation-based eval (``eval_generate``, ``generation_eval``,
-``make_eval_prompt_iterator``), which needs the generation engine wired to
-the trainer.
+and frozen modules (``FREEZE_FLAG_MODULES``: multimodal keys only).
+The generation-based eval of the RL trainers (``eval_generate``,
+``generation_eval``, ``make_eval_prompt_iterator``) runs the port's
+``generation/engine.py`` ``generate``.
 """
 
 from __future__ import annotations
@@ -382,16 +382,73 @@ class TrainerBase:
         return {}
 
     def eval_generate(self, params, batch: dict) -> dict:
-        raise NotImplementedError('generation-based eval is not ported yet '
-                                  '(ROADMAP §1 item 4)')
+        """Generation hook for ``generation_eval``: ``self.gen_cfg``'s
+        completions of the batch's left-padded prompts."""
+        from align_anything_tpu_torch.generation import generate  # noqa: PLC0415
+
+        batch = self.put_batch(batch)
+        return generate(params, self.model_cfg, self.gen_cfg,
+                        batch['input_ids'], batch['attention_mask'],
+                        self.next_rng())
 
     def generation_eval(self, params, score_fn=None) -> dict[str, float]:
-        raise NotImplementedError('generation-based eval is not ported yet '
-                                  '(ROADMAP §1 item 4)')
+        """Generation-based RL eval (reference rl_trainer.py:288-329):
+        sample completions for every eval prompt, print a Prompt/Generated
+        table, and log ``eval/*`` metrics (plus the mean reward when a
+        scorer is given)."""
+        it = getattr(self, 'eval_iterator', None)
+        if it is None:
+            return {}
+        prompts: list[str] = []
+        generateds: list[str] = []
+        rewards: list[float] = []
+        lengths: list[float] = []
+        pad = self.tokenizer.pad_token_id
+        for batch in it.epoch_batches(0):
+            gen = self.eval_generate(params, batch)
+            if score_fn is not None:
+                rewards.extend(score_fn(gen['sequences'],
+                                        gen['attention_mask']).float()
+                               .cpu().reshape(-1).tolist())
+            comp = gen['completions'].cpu().numpy()
+            lengths.extend((comp != pad).sum(-1).astype(float).tolist())
+            prompts.extend(self.tokenizer.batch_decode(
+                [[t for t in row if t != pad]
+                 for row in np.asarray(batch['input_ids'])],
+                skip_special_tokens=True))
+            generateds.extend(self.tokenizer.batch_decode(
+                [[t for t in row if t != pad] for row in comp],
+                skip_special_tokens=True))
+        self.logger.print_table(
+            title='Evaluating...', columns=['Prompt', 'Generated'],
+            rows=list(zip(prompts, generateds)), max_num_rows=5)
+        metrics: dict[str, float] = {
+            'eval/mean_generated_length': float(np.mean(lengths or [0.0])),
+        }
+        if rewards:
+            metrics['eval/reward'] = float(np.mean(rewards))
+        self.logger.log(metrics, step=self.global_step)
+        return metrics
 
     def make_eval_prompt_iterator(self, dataset_cls, tokenizer) -> None:
-        raise NotImplementedError('generation-based eval is not ported yet '
-                                  '(ROADMAP §1 item 4)')
+        """Build ``self.eval_iterator`` over ``data_cfgs.eval_datasets``
+        prompt-only rows (RL eval); no-op when unset."""
+        dc = self.cfgs.data_cfgs
+        self.eval_iterator = None
+        if not dc.eval_datasets:
+            return
+        template = self.make_chat_template(
+            dc.eval_template or dc.train_template, tokenizer)
+        max_len = int(self.cfgs.model_cfgs.model_max_length or 2048)
+        ds = dataset_cls(
+            dc.eval_datasets, template, tokenizer, max_length=max_len,
+            split=dc.eval_split, size=dc.eval_size,
+            data_files=dc.eval_data_files)
+        # one device: the global batch is the per-device batch
+        bs = int(self.cfgs.train_cfgs.per_device_eval_batch_size or 1)
+        self.eval_iterator = self.make_iterator(
+            ds, bs, ds.get_collator(buckets=self.padding_buckets()),
+            shuffle=False)
 
     def _install_preemption_handler(self):
         """SIGTERM (preemption) triggers a save at the NEXT step boundary,

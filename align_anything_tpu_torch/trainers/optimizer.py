@@ -74,8 +74,9 @@ class ClippedAdamW:
     ``init(params)`` makes the ``torch.optim.AdamW`` over the tree's leaves
     (its state holds the moments); ``apply_(optimizer, step)`` clips the
     leaves' ``.grad`` in place, sets the learning rate to ``schedule(step)``
-    and steps, updating the params in place.  It returns the global norm of
-    the gradients before clipping."""
+    and steps, updating the params in place.  A leaf without ``.grad``
+    gets a zero gradient first, so weight decay moves it as optax's does.
+    It returns the global norm of the gradients before clipping."""
 
     def __init__(self, schedule: Schedule, b1: float, b2: float, eps: float,
                  weight_decay: float, max_grad_norm: float):
@@ -92,8 +93,15 @@ class ClippedAdamW:
 
     def apply_(self, optimizer: torch.optim.Optimizer,
                step: int) -> torch.Tensor:
-        grads = [p.grad for group in optimizer.param_groups
-                 for p in group['params'] if p.grad is not None]
+        params = [p for group in optimizer.param_groups
+                  for p in group['params']]
+        for p in params:
+            # a leaf the loss never read (a score model's lm_head) gets a
+            # zero gradient, as JAX gives it: AdamW then still applies its
+            # decoupled weight decay, where torch would skip the leaf
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         norm = global_norm(grads)
         if self.max_grad_norm:
             scale = torch.where(norm < self.max_grad_norm,

@@ -34,10 +34,12 @@ Phases (any failure raises and the run exits non-zero):
      kernel's SASS (``cuobjdump -sass``): the bf16 forward, dK/dV and dQ
      kernels at D 64 and D 128 must have some;
   6. hold the flash-attention forward (out, lse) and backward (dq, dk, dv)
-     against their plain versions at the training shapes and at the edges
-     of the kernels' tiles, check that the backward repeats bit for bit,
-     and time kernel, plain version and ``scaled_dot_product_attention`` (a
-     yardstick only) at the two main shapes;
+     against their plain versions at the training shapes, at the edges
+     of the kernels' tiles and at PPO's mask pattern (leading and trailing
+     pads; query rows that see no key give exact zeros), check that the
+     backward repeats bit for bit, and time kernel, plain version and
+     ``scaled_dot_product_attention`` (a yardstick only) at the two main
+     shapes;
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -57,18 +59,37 @@ Phases (any failure raises and the run exits non-zero):
  10. the harness at bench.py's widths cut to 2 layers: the HF slice export
      read back bit-equal, a run resumed from its step-2 train state
      against the uninterrupted run (bit-equal, or within phase 7's 2e-4),
-     SFT's step 1 against a plain recompute, ORPO and SimPO.
+     SFT's step 1 against a plain recompute, ORPO and SimPO;
+ 11. the reward model at Llama-3-8B widths cut to 2 layers through
+     ``trainer_main(RMTrainer, ...)`` (a bf16 checkpoint written from a
+     seed, 8 pairs in the 512 bucket, 4 steps): every loss and grad norm
+     finite, the attention kernels on every layer of every step, step 1's
+     end scores against a plain recompute, the slice and ``score_head.npy``
+     written, and ``rm_score`` over the export against the trained model;
+ 12. PPO at the same widths through ``trainer_main(PPOTrainer, ...)``: the
+     actor from phase 11's checkpoint, reward and critic from its export;
+     16 prompts in the 128 bucket, 8 a round, 128 new tokens, micro-batch
+     4: two rounds on the 'batch' rollout, then one on 'continuous'; round
+     1's KL exactly 0, every metric finite, round 1's scoring pass against
+     a plain recompute, the kernels on every layer of every model pass; the
+     round's wall clock split into rollout, scoring and update, generated
+     tokens/s and peak memory;
+ 13. at bench.py's widths, 2 layers: the cost model, PPO with the
+     generation eval, PPO with PTX, and multi-sample PPO with RLOO.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
     python3 chip_smoke.py --profile   # instead: trace one DPO step of the
-                                      # phase 7 and phase 8 configs
+                                      # phase 7 and phase 8 configs and
+                                      # one PPO round of phase 12's
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
 each DPO config with ``torch.profiler`` and prints device time by kernel,
-grouped, and the device's idle share of the step.
+grouped, and the device's idle share of the step; then, after a warm-up
+round, a PPO round at phase 12's config in three windows (the rollout's
+``generate``, the scoring pass, the update).
 
     python3 chip_smoke.py --planted-faults
 
@@ -88,6 +109,7 @@ fields), and times each kernel at phase 6's two timed shapes.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -692,6 +714,31 @@ def sdpa_ms(q, k, v, dout, causal, flush) -> tuple[float, float]:
     return fwd_ms, bwd_ms
 
 
+def plain_flash():
+    """The flash kernels patched to their plain versions."""
+    return mock.patch.multiple(
+        fa, flash_attention_fwd_cuda=fa.flash_attention_fwd_reference,
+        flash_attention_bwd_cuda=fa.flash_attention_bwd_reference)
+
+
+def reset_flash_counts() -> None:
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+
+
+def flash_counts() -> dict:
+    return {'fwd': fa.flash_attention_fwd_cuda.launches,
+            'bwd': fa.flash_attention_bwd_cuda.launches}
+
+
+def check_launches(tag: str, launches: dict, need: dict) -> None:
+    for kind in need:
+        if launches[kind] < need[kind]:
+            raise AssertionError(f'{tag}: flash {kind} launched '
+                                 f'{launches[kind]} times, expected >= '
+                                 f'{need[kind]}')
+
+
 def check_flash(dev) -> dict:
     """Phase 6: the flash kernels against their plain versions."""
     flush = l2_flush_buffer(dev)
@@ -766,6 +813,76 @@ def check_flash(dev) -> dict:
         del q, k, v, mask, dout, out, lse, grads, again, rout, rlse, rgrads
     return {'worst': worst, 'timed': timed}
 
+def check_flash_ppo(dev) -> dict:
+    """Phase 6, PPO's mask pattern: left-padded prompts followed by
+    completions padded after EOS (B 8, L 256, H 32, KH 8, D 128, bf16).
+    Rows have 0-100 leading and 0-60 trailing pads; one row is all pad but
+    one token.  Against the plain versions per row; a query row that sees
+    no key must give out = 0 and dq = 0 exactly, a pad key dk = dv = 0
+    exactly; nothing NaN; the backward repeats bit for bit."""
+    b, l, h, kh, d = 8, 256, 32, 8, 128
+    dtype = torch.bfloat16
+    q, k, v, _, dout = flash_inputs(b, l, h, kh, d, 0, None, dtype, dev,
+                                    SEED + 40)
+    rng = np.random.default_rng(SEED + 40)
+    lead = rng.integers(0, 101, size=b)
+    trail = rng.integers(0, 61, size=b)
+    lead[:2], trail[:2] = (0, 100), (0, 60)   # none; the most of both
+    mask = torch.ones((b, l), dtype=torch.int32, device=dev)
+    for r in range(b):
+        mask[r, :lead[r]] = 0
+        mask[r, l - trail[r]:] = 0
+    lone = 131                                 # the row with one token
+    mask[b - 1] = 0
+    mask[b - 1, lone] = 1
+    first = torch.as_tensor([*lead[:-1], lone], device=dev)
+    blind = torch.arange(l, device=dev)[None] < first[:, None]   # (B, L)
+    pad_keys = mask == 0
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, mask, True, None)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout, True,
+                                        None)
+    again = fa.flash_attention_bwd_cuda(q, k, v, mask, out, lse, dout, True,
+                                        None)
+    rout, rlse = fa.flash_attention_fwd_reference(q, k, v, mask, True, None)
+    rgrads = fa.flash_attention_bwd_reference(q, k, v, mask, out, lse, dout,
+                                              True, None)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    parts, worst = [], {'fwd': 0.0, 'bwd': 0.0}
+    for label, got, ref in (('out', out, rout), ('dq', grads[0], rgrads[0]),
+                            ('dk', grads[1], rgrads[1]),
+                            ('dv', grads[2], rgrads[2])):
+        rel = fa.row_scaled_error(got, ref)
+        err = float((got.float() - ref.float()).abs().max())
+        worst['fwd' if label == 'out' else 'bwd'] = max(
+            worst['fwd' if label == 'out' else 'bwd'], err)
+        parts.append(f'{label} {rel:.2e} (abs {err:.2e})')
+        if not (bool(torch.isfinite(got).all()) and rel <= tol):
+            raise AssertionError(f'flash {label} disagrees at PPO\'s mask: '
+                                 f'{rel} > {tol} x the row max|plain|')
+    zeros = {'out': bool((out[blind] == 0).all()),
+             'dq': bool((grads[0][blind] == 0).all()),
+             'lse': bool((lse.transpose(1, 2)[blind] == 0).all()),
+             'dk': bool((grads[1][pad_keys] == 0).all()),
+             'dv': bool((grads[2][pad_keys] == 0).all())}
+    lse_err = float((lse - rlse).abs().max())
+    same = all(torch.equal(g1, g2) for g1, g2 in zip(grads, again))
+    log(f'phase6 ppo_mask   B={b} L={l} H={h} KH={kh} D={d} causal, leading '
+        f'pads {lead[:-1].tolist()} + one row with one token, trailing pads '
+        f'{trail[:-1].tolist()}, {int(blind.sum())} query rows see no key: '
+        f'max over rows of max|kernel-plain|/max|plain| {", ".join(parts)} '
+        f'(tol {tol:g}); lse {lse_err:.2e} (tol {LSE_TOL:g}); exact zeros '
+        f'(blind rows: out, dq, lse; pad keys: dk, dv) {zeros}; backward '
+        f'repeats bit for bit: {same}')
+    if not all(zeros.values()):
+        raise AssertionError(f'flash: nonzero where no key is seen {zeros}')
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f'flash lse disagrees at PPO\'s mask: {lse_err}')
+    if not same:
+        raise AssertionError('flash backward not deterministic at PPO\'s '
+                             'mask')
+    return worst
+
 
 def dpo_flops_per_token(n_params: int, seq: int, hidden: int,
                         layers: int) -> float:
@@ -838,8 +955,7 @@ def train_dpo(dev, smi) -> dict:
         f'{cfg.remat}; {DPO_PAIRS} pairs x seq {DPO_SEQ}, worse rows padded')
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd_cuda.launches = 0
-    fa.flash_attention_bwd_cuda.launches = 0
+    reset_flash_counts()
     losses, norms, seconds = [], [], []
     for i in range(DPO_STEPS):
         t0 = time.perf_counter()
@@ -852,8 +968,7 @@ def train_dpo(dev, smi) -> dict:
             f'grad_norm={norms[-1]:.6e} reward_accuracy='
             f'{float(metrics["train/reward_accuracy"]):.3f} '
             f'seconds={seconds[-1]:.4f}')
-    launches = {'fwd': fa.flash_attention_fwd_cuda.launches,
-                'bwd': fa.flash_attention_bwd_cuda.launches}
+    launches = flash_counts()
     peak = torch.cuda.max_memory_allocated()
     need = {'fwd': DPO_STEPS * 3 * cfg.num_layers,
             'bwd': DPO_STEPS * cfg.num_layers}
@@ -873,18 +988,12 @@ def train_dpo(dev, smi) -> dict:
         raise AssertionError('non-finite loss or grad norm')
     if len(set(losses)) == 1:
         raise AssertionError('the loss did not move over the steps')
-    for kind in need:
-        if launches[kind] < need[kind]:
-            raise AssertionError(f'flash {kind} launched {launches[kind]} '
-                                 f'times, expected >= {need[kind]}')
+    check_launches('DPO', launches, need)
 
     del state
     torch.cuda.empty_cache()
     sums, norm = step1_quantities(trainer, init, ref, batch)
-    with mock.patch.object(fa, 'flash_attention_fwd_cuda',
-                           fa.flash_attention_fwd_reference), \
-            mock.patch.object(fa, 'flash_attention_bwd_cuda',
-                              fa.flash_attention_bwd_reference):
+    with plain_flash():
         psums, pnorm = step1_quantities(trainer, init, ref, batch)
     diff = (sums - psums).abs()
     rel = float((diff / psums.abs().clamp_min(1e-30)).max())
@@ -1035,15 +1144,13 @@ def harness_full(dev, smi, bare: dict, tmp: str) -> dict:
         f'{" ".join(argv[2:])}; MESH_FILE={HARNESS_MESH}')
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd_cuda.launches = 0
-    fa.flash_attention_bwd_cuda.launches = 0
+    reset_flash_counts()
     t0 = time.perf_counter()
     trainer, steps, timing = run_trainer(DPOTrainer, 'text_to_text/dpo',
                                          argv, HARNESS_MESH)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {'fwd': fa.flash_attention_fwd_cuda.launches,
-                'bwd': fa.flash_attention_bwd_cuda.launches}
+    launches = flash_counts()
     peak = torch.cuda.max_memory_allocated()
     shape = next(trainer.train_iterator.epoch_batches(0))['input_ids'].shape
     mcfg = trainer.model_cfg
@@ -1084,11 +1191,7 @@ def harness_full(dev, smi, bare: dict, tmp: str) -> dict:
         raise AssertionError(f'harness step 1 loss {losses[0]} != ln 2')
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError('harness: non-finite loss or grad norm')
-    for kind in need:
-        if launches[kind] < need[kind]:
-            raise AssertionError(f'harness: flash {kind} launched '
-                                 f'{launches[kind]} times, expected >= '
-                                 f'{need[kind]}')
+    check_launches('harness', launches, need)
     return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
             'peak_gb': peak / 1e9}
 
@@ -1218,6 +1321,405 @@ def harness_small(dev, smi, tmp: str) -> None:
     log(f'phase10 done; card {smi}')
 
 
+# phases 11-13: the reward model and the PPO round through their entry
+# points.  Phases 11-12 run Llama-3-8B widths cut to 2 layers: PPO holds
+# four models, and actor and critic train with fp32 params, grads and two
+# moments (16 B/param) while reference and reward stay fp32 copies (4
+# B/param): at 2 layers (1.486 B params each) that is 23.8 + 23.8 + 5.9 +
+# 5.9 = 59.4 GB before activations; 4 layers (1.923 B) would need 77 GB.
+RL_LAYERS = 2
+RM_ROWS, RM_PAIRS, RM_STEPS = 16, 2, 4
+PPO_PROMPTS, PPO_ROUND, PPO_BUCKET, PPO_NEW, PPO_MICRO = 16, 8, 128, 128, 4
+# step 1 / round 1 recomputed with the plain attention: phase 7's limit,
+# for sums of log-probs.  A score (an end score, a value) is one dot
+# product of the 4096-wide bf16 hidden state with the head, so bf16's
+# rounding moves it by about 1 % of its size, and the kernels' results and
+# the plain version's, each rounded its own way, differ by as much (step 1
+# of phase 11 read 1.2e-2 of the largest score).  A score is held instead
+# to SCORE_NOISE x the plain version's own distance from the same pass in
+# fp32 compute, measured in the same run.
+RL_TOL = DPO_SUM_TOL
+SCORE_NOISE = 3.0
+
+
+def free_memory() -> None:
+    """Collect the trainers of earlier phases (a trainer holds itself
+    through its step closures, so ``del`` alone leaves it for the cyclic
+    collector) and return their blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_scores(tag: str, got: torch.Tensor, plain: torch.Tensor,
+                 fp32: torch.Tensor) -> str:
+    """``got`` (the kernels, bf16 compute) against ``plain`` (the plain
+    attention, bf16) within SCORE_NOISE x max|plain - fp32| (the plain
+    attention in fp32 compute), floored at RL_TOL x max|fp32|."""
+    got, plain, fp32 = (t.double() for t in (got, plain, fp32))
+    noise = float((plain - fp32).abs().max())
+    gap = float((got - plain).abs().max())
+    limit = max(SCORE_NOISE * noise, RL_TOL * float(fp32.abs().max()))
+    msg = (f'{tag}: max|kernel - plain| {gap:.3e}, bf16 noise max|plain - '
+           f'fp32| {noise:.3e}, max|kernel - fp32| '
+           f'{float((got - fp32).abs().max()):.3e}, max|fp32| '
+           f'{float(fp32.abs().max()):.3e}, limit {limit:.3e}')
+    if not gap <= limit:
+        raise AssertionError(f'{msg}: the kernels disagree with the plain '
+                             'attention')
+    return msg
+
+
+def all_finite(steps: list) -> bool:
+    return all(math.isfinite(v) for m in steps for v in m.values()
+               if isinstance(v, (int, float)))
+
+
+def prompt_rows(seed: int, n: int, words_range: tuple) -> list:
+    """PKU-SafeRLHF-schema rows whose prompts are ``words_range`` words
+    long (the prompt-only set reads the prompt only)."""
+    rng = np.random.default_rng(seed)
+    return [{'prompt': words(rng, int(rng.integers(*words_range))),
+             'response_0': 'a', 'response_1': 'b', 'better_response_id': 0}
+            for _ in range(n)]
+
+
+def rm_full(dev, smi, tmp: str, config=None) -> dict:
+    """Phase 11: the reward model at Llama-3-8B widths, 2 layers, through
+    ``trainer_main(RMTrainer, ...)``, then ``rm_score`` over its export."""
+    from align_anything_tpu_torch.models import score_model  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_params, save_params)
+    from align_anything_tpu_torch.trainers.text_to_text.rm import (  # noqa: PLC0415
+        RMTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.rm_score import (  # noqa: PLC0415
+        RMScoreTrainer)
+
+    cfg = config or llama_config(layers=RL_LAYERS)
+    free_memory()
+    resident = torch.cuda.memory_allocated()
+    ckpt = os.path.join(tmp, 'llama8b_2layers')
+    save_params(ckpt, transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 70), device=dev),
+        cfg, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    # prompt 200 words, responses 60-300: 265-505 tokens, the 512 bucket
+    rows = preference_rows(SEED + 71, RM_ROWS, 200, (60, 301))
+    pref = write_jsonl(os.path.join(tmp, 'pref_rm.jsonl'), rows)
+    # the same rows as prompt + better response, for rm_score
+    sft = write_jsonl(os.path.join(tmp, 'sft_rm.jsonl'), [
+        {'instruction': r['prompt'], 'input': '',
+         'output': r[f'response_{r["better_response_id"]}']} for r in rows])
+    out = os.path.join(tmp, 'out_rm')
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', pref,
+            '--train_template', 'PKUSafeRLHF', '--output_dir', out,
+            '--save_checkpoint', 'False', '--epochs', '1',
+            '--train_size', str(RM_STEPS * RM_PAIRS),
+            '--per_device_train_batch_size', str(RM_PAIRS)]
+    first: dict = {}
+    end_scores = RMTrainer.end_scores
+
+    def recording(self, params, batch):
+        better, worse = end_scores(self, params, batch)
+        if not first:
+            first.update(batch={k: v.clone() for k, v in batch.items()},
+                         head=params['score_head']['w'].detach().clone(),
+                         scores=torch.cat([better, worse]).detach().float())
+        return better, worse
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(RMTrainer, 'end_scores', recording):
+        trainer, steps, timing = run_trainer(RMTrainer, 'text_to_text/rm',
+                                             argv, HARNESS_MESH)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shape = tuple(first['batch']['input_ids'].shape)
+    n_params = sum(t.numel() for t in param_leaves(trainer.state.params))
+    for i, m in enumerate(steps):
+        log(f'phase11 step {i + 1}: loss={m["train/loss"]:.9f} accuracy='
+            f'{m["train/accuracy"]:.3f} grad_norm={m["train/grad_norm"]:.6e} '
+            f'seconds={m["perf/step_time_s"]:.4f}')
+    # every layer of every step: the forward, its recompute under
+    # 'dots_saveable', and the backward
+    need = {'fwd': 2 * RM_STEPS * cfg.num_layers,
+            'bwd': RM_STEPS * cfg.num_layers}
+    log(f'phase11 config: Llama-3-8B widths, {cfg.num_layers} layers (cut '
+        f'from 32), {n_params / 1e9:.3f} B params with the score head; batch '
+        f'{shape}; remat {trainer.model_cfg.remat}; trainer_main {total_s:.2f}'
+        f' s (load {timing["load_s"]:.2f} s, {len(steps)} steps, fp32 slice '
+        f'save); step time {statistics.median(m["perf/step_time_s"] for m in steps[1:]):.4f} s '
+        f'(median of steps 2-{len(steps)}); peak memory {peak / 1e9:.3f} GB '
+        f'({resident / 1e9:.3f} GB resident before); '
+        f'flash launches fwd {launches["fwd"]} (need >= {need["fwd"]}) bwd '
+        f'{launches["bwd"]} (need >= {need["bwd"]}); card {smi}')
+    if len(steps) != RM_STEPS or shape != (2 * RM_PAIRS, 512):
+        raise AssertionError(f'{len(steps)} RM steps at {shape}')
+    if not all(math.isfinite(m[k]) for m in steps
+               for k in ('train/loss', 'train/grad_norm')):
+        raise AssertionError('RM: non-finite loss or grad norm')
+    check_launches('RM', launches, need)
+    slice_dir = os.path.join(out, f'slice_{RM_STEPS}')
+    written = sorted(os.listdir(slice_dir))
+    log(f'phase11 export {slice_dir}: {written}')
+    if not {'config.json', 'model.safetensors',
+            'score_head.npy'} <= set(written):
+        raise AssertionError('RM export lacks the slice or score_head.npy')
+
+    # step 1 recomputed from the checkpoint and step 1's head, plain
+    # attention, in bf16 and in fp32 compute
+    params, mcfg = load_params(ckpt, device=dev)
+    params['score_head'] = {'w': first['head']}
+    plain = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            plain[dtype] = score_model.forward(
+                params, mcfg.replace(compute_dtype=dtype),
+                first['batch']['input_ids'],
+                attention_mask=first['batch']['attention_mask']
+            ).end_scores.squeeze(-1).float()
+    del params
+    log(f'phase11 step 1 end scores: kernel {first["scores"].tolist()}, '
+        f'plain {plain["bfloat16"].tolist()}, plain fp32 '
+        f'{plain["float32"].tolist()}')
+    log('phase11 ' + check_scores('step 1 end scores', first['scores'],
+                                  plain['bfloat16'], plain['float32']))
+
+    # rm_score over the export: the trained model's end scores
+    score_argv = ['--model_name_or_path', slice_dir, '--train_datasets', sft,
+                  '--train_template', 'Alpaca',
+                  '--output_dir', os.path.join(tmp, 'out_rm_score'),
+                  '--per_device_eval_batch_size', '4']
+    scorer, _, _ = run_trainer(RMScoreTrainer, 'text_to_text/rm', score_argv)
+    with open(os.path.join(tmp, 'out_rm_score', 'scores.jsonl')) as f:
+        written = [json.loads(line)['score'] for line in f]
+    want = []
+    with torch.no_grad():
+        for batch in scorer.train_iterator.epoch_batches(0):
+            batch = trainer.put_batch(batch)
+            want += score_model.forward(
+                trainer.state.params, trainer.model_cfg, batch['input_ids'],
+                attention_mask=batch['attention_mask']
+            ).end_scores.squeeze(-1).float().tolist()
+    diff = max(abs(a - b) for a, b in zip(written, want))
+    scale = max(abs(b) for b in want)
+    log(f'phase11 rm_score: {len(written)} rows in scores.jsonl; max|diff| '
+        f'against the trained model\'s end scores {diff:.3e} (max|score| '
+        f'{scale:.3e}, tol {RL_TOL:g} x that)')
+    if len(written) != RM_ROWS or not diff <= RL_TOL * scale:
+        raise AssertionError('rm_score disagrees with the trained model')
+    del trainer, scorer
+    free_memory()
+    return {'launches': launches, 'ckpt': ckpt, 'slice': slice_dir,
+            'peak_gb': peak / 1e9}
+
+
+def ppo_argv(actor: str, reward: str, data: str, out: str, *extra) -> list:
+    return ['--actor_model_name_or_path', actor,
+            '--reward_model_name_or_path', reward,
+            '--train_datasets', data, '--train_template', 'PKUSafeRLHF',
+            '--output_dir', out, '--save_checkpoint', 'False',
+            '--epochs', '1', *extra]
+
+
+def ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
+    """Phase 12: PPO at Llama-3-8B widths, 2 layers, through
+    ``trainer_main(PPOTrainer, ...)``: the actor from phase 11's base
+    checkpoint, reward and critic from its export; two rounds on the
+    'batch' backend, then one on 'continuous'."""
+    from align_anything_tpu_torch.models import score_model  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.logprobs import token_logprobs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.ppo import (  # noqa: PLC0415
+        PPOTrainer)
+
+    # prompts of 15-115 words: 20-121 tokens, the 128 bucket, so rows carry
+    # 7-108 leading pads
+    data = write_jsonl(os.path.join(tmp, 'prompts_8b.jsonl'),
+                       prompt_rows(SEED + 72, PPO_PROMPTS, (15, 116)))
+    common = ('--per_device_prompt_batch_size', str(PPO_ROUND),
+              '--per_device_train_batch_size', str(PPO_MICRO),
+              '--max_new_tokens', str(PPO_NEW), '--temperature', '1.0',
+              '--update_iters', '1', '--padding_buckets', f'[{PPO_BUCKET}]')
+    first: dict = {}
+    score_rollout = PPOTrainer.score_rollout
+
+    def recording(self, seq, mask):
+        out = score_rollout(self, seq, mask)
+        if not first:
+            first.update(seq=seq.clone(), mask=mask.clone(),
+                         **{k: v.clone() for k, v in out.items()})
+        return out
+
+    n_micro = PPO_ROUND // PPO_MICRO
+    per_round = {'fwd': (4 + 2 * n_micro) * RL_LAYERS,
+                 'bwd': 2 * n_micro * RL_LAYERS}
+    runs = {}
+    for backend, rounds, extra in (
+            ('batch', 2, ()),
+            ('continuous', 1, ('--rollout_backend', 'continuous',
+                               '--rollout_num_slots', '8',
+                               '--train_size', str(PPO_ROUND)))):
+        free_memory()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(PPOTrainer, 'score_rollout', recording):
+            trainer, steps, timing = run_trainer(
+                PPOTrainer, 'text_to_text/ppo', ppo_argv(
+                    rm['ckpt'], rm['slice'], data,
+                    os.path.join(tmp, f'out_ppo_{backend}'), *common, *extra))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = [m for m in steps if 'train/actor_loss' in m]
+        for i, m in enumerate(steps):
+            tps = m['perf/generated_tokens'] / m['perf/rollout_s']
+            log(f'phase12 {backend} round {i + 1}: kl={m["train/kl_divergence"]!r}'
+                f' actor_loss={m["train/actor_loss"]:.6e} critic_loss='
+                f'{m["train/reward_critic_loss"]:.6e} reward='
+                f'{m["train/reward"]:.6e} generated={m["perf/generated_tokens"]}'
+                f' tokens; seconds: round {m["perf/step_time_s"]:.4f} = '
+                f'rollout {m["perf/rollout_s"]:.4f} + scoring '
+                f'{m["perf/scoring_s"]:.4f} + update {m["perf/update_s"]:.4f}'
+                f' (+ loop); generated tokens/s {tps:.1f}')
+        need = {k: rounds * v for k, v in per_round.items()}
+        log(f'phase12 {backend}: trainer_main {total_s:.2f} s (4 models '
+            f'loaded, {len(steps)} rounds, fp32 actor slice saved); peak '
+            f'memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident '
+            f'before); flash launches fwd '
+            f'{launches["fwd"]} (need >= {need["fwd"]}) bwd '
+            f'{launches["bwd"]} (need >= {need["bwd"]}); card {smi}')
+        if len(steps) != rounds or not all_finite(steps):
+            raise AssertionError(f'PPO {backend}: {len(steps)} rounds, or a '
+                                 'metric is not finite')
+        check_launches(f'PPO {backend}', launches, need)
+        runs[backend] = {'steps': steps, 'launches': launches,
+                         'peak_gb': peak / 1e9}
+        if backend != 'batch':
+            del trainer
+            free_memory()
+            continue
+        if steps[0]['train/kl_divergence'] != 0.0:
+            raise AssertionError(f'round 1 KL {steps[0]["train/kl_divergence"]!r}'
+                                 ' != 0.0')
+        # round 1's scoring pass recomputed with the plain attention: the
+        # actor's params then were the reference's, the critic's the
+        # reward model's (the same export and head)
+        seq, mask = first['seq'], first['mask']
+        start = PPO_BUCKET - 1
+        m = mask[:, 1:].float()[:, start:]
+        with torch.no_grad(), plain_flash():
+            logp = token_logprobs(trainer.ref_params, trainer.model_cfg, seq,
+                                  attention_mask=mask)
+            scores = {dtype: score_model.forward(
+                trainer.reward_params,
+                trainer.reward_cfg.replace(compute_dtype=dtype), seq,
+                attention_mask=mask) for dtype in ('bfloat16', 'float32')}
+        sums = {}
+        for key in ('log_probs', 'ref_log_probs'):
+            got = (first[key][:, start:] * m).sum(-1).double()
+            want = (logp[:, start:] * m).sum(-1).double()
+            sums[key] = float(((got - want).abs() / want.abs()).max())
+        log(f'phase12 round 1 scoring pass recomputed with the plain '
+            f'attention: masked log-prob sums, max relative diff per '
+            f'sequence: ' + ', '.join(f'{k} {r:.3e}' for k, r in sums.items())
+            + f' (tol {RL_TOL:g}); sequences {tuple(seq.shape)}, completion '
+            f'lengths {m.sum(-1).int().tolist()}')
+        if not all(r <= RL_TOL for r in sums.values()):
+            raise AssertionError('PPO round 1 log-probs disagree with the '
+                                 'plain attention')
+        log('phase12 ' + check_scores(
+            'round 1 reward', first['reward'],
+            *(s.end_scores.squeeze(-1) for s in scores.values())))
+        log('phase12 ' + check_scores(
+            'round 1 values (masked)', first['reward_values'][:, start:] * m,
+            *(s.scores.squeeze(-1)[:, :-1][:, start:] * m
+              for s in scores.values())))
+        first.clear()
+        del trainer, logp, scores
+    return {'launches': {k: sum(r['launches'][k] for r in runs.values())
+                         for k in ('fwd', 'bwd')}, 'runs': runs}
+
+
+def rl_small(dev, smi, tmp: str) -> None:
+    """Phase 13 at bench.py's widths, 2 layers (phase 10's checkpoint and
+    data): the cost model; PPO with eval_datasets (the generation eval);
+    PPO with ptx_datasets; multi_ppo with 2 samples a prompt and RLOO."""
+    from align_anything_tpu_torch.trainers.text_to_text.cost_model import (  # noqa: PLC0415
+        CostModelTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.multi_ppo import (  # noqa: PLC0415
+        MultiPPOTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.ppo import (  # noqa: PLC0415
+        PPOTrainer)
+
+    ckpt = os.path.join(tmp, 'small')
+    out = os.path.join(tmp, 'cost')
+    _, steps, _ = run_trainer(CostModelTrainer, 'text_to_text/rm', [
+        '--model_name_or_path', ckpt,
+        '--train_datasets', os.path.join(tmp, 'pref_small.jsonl'),
+        '--train_template', 'PKUSafeRLHF', '--output_dir', out,
+        '--save_checkpoint', 'False', '--epochs', '1',
+        '--per_device_train_batch_size', '2'])
+    cost = os.path.join(out, f'slice_{len(steps)}')
+    log(f'phase13 cost model: losses {[m["train/loss"] for m in steps]}, '
+        f'accuracy {[m["train/accuracy"] for m in steps]}; export '
+        f'{sorted(os.listdir(cost))}')
+    if not (len(steps) == 4 and all_finite(steps)
+            and os.path.exists(os.path.join(cost, 'score_head.npy'))):
+        raise AssertionError('cost model run failed')
+    free_memory()
+
+    data = write_jsonl(os.path.join(tmp, 'prompts_small.jsonl'),
+                       prompt_rows(SEED + 73, 8, (10, 50)))
+    common = ('--per_device_prompt_batch_size', '4',
+              '--per_device_train_batch_size', '2', '--max_new_tokens', '32',
+              '--padding_buckets', '[64]')
+    cases = (
+        ('eval', PPOTrainer, {}, ('--eval_datasets', data, '--eval_size', '4',
+                                  '--per_device_eval_batch_size', '4')),
+        ('ptx', PPOTrainer, {}, ('--ptx_datasets',
+                                 os.path.join(tmp, 'sft_small.jsonl'),
+                                 '--ptx_template', 'Alpaca')),
+        # neither key is in ppo.yaml and a command-line override adds no
+        # key (ROADMAP R9): the environment overrides reach them
+        ('multi_ppo rloo', MultiPPOTrainer,
+         {'ENV_PREFIX__TRAIN_CFGS__N_SAMPLES_PER_PROMPT': '2',
+          'ENV_PREFIX__TRAIN_CFGS__ADVANTAGE_ESTIMATOR': 'rloo'}, ()))
+    for name, cls, env, extra in cases:
+        with mock.patch.dict(os.environ, env):
+            trainer, steps, _ = run_trainer(cls, 'text_to_text/ppo', ppo_argv(
+                ckpt, cost, data, os.path.join(tmp, f'ppo_{name[:3]}'),
+                *common, *extra))
+        rounds = [m for m in steps if 'train/actor_loss' in m]
+        evals = [m for m in steps if 'eval/reward' in m]
+        log(f'phase13 {name}: {len(rounds)} rounds, round 1 kl '
+            f'{rounds[0]["train/kl_divergence"]!r}, actor_loss '
+            f'{[m["train/actor_loss"] for m in rounds]}, '
+            f'{rounds[0]["perf/generated_tokens"]} tokens generated in round 1'
+            + (f', eval {evals}' if evals else '')
+            + (f', ptx_loss {[m["train/ptx_loss"] for m in rounds]}'
+               if name == 'ptx' else ''))
+        ok = (len(rounds) == 2 and all_finite(steps)
+              and rounds[0]['train/kl_divergence'] == 0.0)
+        if name == 'eval':
+            ok = ok and len(evals) == 1
+        if name == 'ptx':
+            ok = ok and all('train/ptx_loss' in m for m in rounds)
+        if name.startswith('multi'):
+            ok = ok and trainer.n_samples_per_prompt == 2
+        if not ok:
+            raise AssertionError(f'phase 13 {name} failed')
+        del trainer
+        free_memory()
+    log(f'phase13 done; card {smi}')
+
+
 # --planted-faults: flash_attention.cu with 64 keys (or one 64-row query
 # tile) skipped for the second half of the rows, in the tensor-core
 # kernels (bf16, the main path).  (name, loop text, the broken loop,
@@ -1301,10 +1803,7 @@ def planted_faults(dev, smi) -> None:
         compute_dtype='bfloat16', remat='dots_saveable')
     trainer, state, ref = dpo_setup(cfg, dev, SEED + 10)
     batch = dpo_batch(cfg, DPO_PAIRS, DPO_SEQ, dev, SEED + 11, pad=True)
-    with mock.patch.object(fa, 'flash_attention_fwd_cuda',
-                           fa.flash_attention_fwd_reference), \
-            mock.patch.object(fa, 'flash_attention_bwd_cuda',
-                              fa.flash_attention_bwd_reference):
+    with plain_flash():
         psums, pnorm = step1_quantities(trainer, state.params, ref, batch)
     for name, lib in builds.items():
         with mock.patch.object(fa, 'LIBRARY', lib):
@@ -1403,10 +1902,55 @@ KERNEL_GROUPS = (   # (group, substrings of the kernel name), first match
 )
 
 
-def profile_dpo(dev, smi) -> None:
-    """``--profile``: device time by kernel of one DPO step per config."""
+def report_trace(name: str, prof, wall: float, smi: str, top: int = 25
+                 ) -> None:
+    """Device time by kernel group and the idle share of a traced window
+    that took ``wall`` seconds (ending in a synchronize)."""
+    # device-side events only: kernels, copies and fills on the card (a
+    # CPU op's entry repeats the time of the kernels it launched, and a
+    # span such as 'Optimizer.step#AdamW.step' covers them)
+    kernels = {evt.key: (evt.self_device_time_total, evt.count)
+               for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and evt.self_device_time_total > 0
+               and not getattr(evt, 'is_user_annotation', False)
+               and not evt.key.startswith(('Optimizer.', 'ProfilerStep',
+                                           'Command Buffer'))}
+    busy = sum(us for us, _ in kernels.values()) / 1e6
+    groups: dict = {}
+    for key, (us, _) in kernels.items():
+        group = next((g for g, subs in KERNEL_GROUPS
+                      if any(x in key.lower() for x in subs)),
+                     'other (elementwise, casts, copies)')
+        groups[group] = groups.get(group, 0.0) + us / 1e6
+    log(f'profile {name}: {wall:.4f} s (traced), device busy {busy:.4f} s, '
+        f'idle share {1 - busy / wall:.4f}; card {smi}')
+    for group, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f'profile {name} group {group}: {sec:.4f} s '
+            f'({sec / wall:.4f} of the window)')
+    for key, (us, count) in sorted(kernels.items(),
+                                   key=lambda kv: -kv[1][0])[:top]:
+        log(f'profile {name} kernel {us / 1e3:10.3f} ms x{count:<6d} '
+            f'{key[:110]}')
+
+
+def traced(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA), ended by a
+    synchronize: (result, profile, wall seconds)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, prof, wall
+
+
+def profile_dpo(dev, smi) -> None:
+    """``--profile``: device time by kernel of one DPO step per config."""
     configs = {
         'llama8b_4layers': (llama_config(layers=DPO_LAYERS).replace(
             compute_dtype='bfloat16', remat='dots_saveable'), DPO_PAIRS,
@@ -1420,41 +1964,61 @@ def profile_dpo(dev, smi) -> None:
         trainer, state, ref = dpo_setup(cfg, dev, SEED + 40)
         batch = dpo_batch(cfg, pairs, seq, dev, SEED + 41, pad=pad)
         state, _ = trainer.step(state, ref, batch)              # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, _ = trainer.step(state, ref, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side events only: kernels, copies and fills on the card (a
-        # CPU op's entry repeats the time of the kernels it launched, and a
-        # span such as 'Optimizer.step#AdamW.step' covers them)
-        kernels = {evt.key: (evt.self_device_time_total, evt.count)
-                   for evt in prof.key_averages()
-                   if evt.device_type == torch.autograd.DeviceType.CUDA
-                   and evt.self_device_time_total > 0
-                   and not getattr(evt, 'is_user_annotation', False)
-                   and not evt.key.startswith(('Optimizer.', 'ProfilerStep',
-                                               'Command Buffer'))}
-        busy = sum(us for us, _ in kernels.values()) / 1e6
-        groups: dict = {}
-        for key, (us, _) in kernels.items():
-            group = next((g for g, subs in KERNEL_GROUPS
-                          if any(x in key.lower() for x in subs)),
-                         'other (elementwise, casts, copies)')
-            groups[group] = groups.get(group, 0.0) + us / 1e6
-        log(f'profile {name}: step {wall:.4f} s (traced), device busy '
-            f'{busy:.4f} s, idle share {1 - busy / wall:.4f}; card {smi}')
-        for group, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
-            log(f'profile {name} group {group}: {sec:.4f} s '
-                f'({sec / wall:.4f} of the step)')
-        for key, (us, count) in sorted(kernels.items(),
-                                       key=lambda kv: -kv[1][0])[:25]:
-            log(f'profile {name} kernel {us / 1e3:10.3f} ms x{count:<6d} '
-                f'{key[:110]}')
+        (state, _), prof, wall = traced(
+            lambda: trainer.step(state, ref, batch))
+        report_trace(f'{name} step', prof, wall, smi)
         del trainer, state, ref, batch, prof
         torch.cuda.empty_cache()
+
+
+def profile_ppo(dev, smi, tmp: str) -> None:
+    """``--profile``: one PPO round of phase 12's config (a 2-layer
+    checkpoint at Llama-3-8B widths for all four models, fresh heads)
+    after a warm-up round, traced in three windows: the rollout's
+    ``generate``, the scoring pass and the update."""
+    from align_anything_tpu_torch.generation import generate  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import save_params  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.ppo import (  # noqa: PLC0415
+        PPOTrainer)
+
+    cfg = llama_config(layers=RL_LAYERS)
+    ckpt = os.path.join(tmp, 'llama8b_2layers')
+    save_params(ckpt, transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 70), device=dev),
+        cfg, dtype=torch.bfloat16)
+    free_memory()
+    data = write_jsonl(os.path.join(tmp, 'prompts_8b.jsonl'),
+                       prompt_rows(SEED + 72, PPO_PROMPTS, (15, 116)))
+    cfgs, pc = parse_cfgs('text_to_text/ppo', ppo_argv(
+        ckpt, ckpt, data, os.path.join(tmp, 'out_ppo'),
+        '--per_device_prompt_batch_size', str(PPO_ROUND),
+        '--per_device_train_batch_size', str(PPO_MICRO),
+        '--max_new_tokens', str(PPO_NEW), '--padding_buckets',
+        f'[{PPO_BUCKET}]'))
+    trainer = PPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    prompts = trainer.put_batch(batch)
+    gen, prof, wall = traced(lambda: generate(
+        trainer.actor_state.params, trainer.model_cfg, trainer.gen_cfg,
+        prompts['input_ids'], prompts['attention_mask'], trainer.next_rng()))
+    steps = int(gen['completion_mask'].sum(0).gt(0).sum())
+    report_trace(f'ppo rollout ({steps} decode steps)', prof, wall, smi)
+    seq, mask = gen['sequences'], gen['attention_mask']
+    scores, prof, wall = traced(lambda: trainer.score_rollout(seq, mask))
+    report_trace('ppo scoring', prof, wall, smi)
+    rollout = {'input_ids': seq, 'attention_mask': mask, **scores}
+
+    def update():
+        for micro in trainer._micro_batches(rollout):
+            trainer.rl_step(micro, PPO_BUCKET - 1)
+
+    _, prof, wall = traced(update)
+    report_trace(f'ppo update ({PPO_ROUND // PPO_MICRO} micro-batches)', prof,
+                 wall, smi)
+    del trainer, gen, scores, rollout, prof
+    free_memory()
 
 
 def main() -> int:
@@ -1478,6 +2042,11 @@ def main() -> int:
     libs = build_kernels()
     if '--profile' in sys.argv[1:]:
         profile_dpo(dev, smi)
+        tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
+        try:
+            profile_ppo(dev, smi, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         return 0
     if '--planted-faults' in sys.argv[1:]:
         planted_faults(dev, smi)
@@ -1570,6 +2139,8 @@ def main() -> int:
     check_tensor_cores(libs['flash_attention'])
 
     fstats = check_flash(dev)
+    for kind, err in check_flash_ppo(dev).items():
+        fstats['worst'][kind] = max(fstats['worst'][kind], err)
     dpo = train_dpo(dev, smi)
     torch.cuda.empty_cache()
     bench_dpo(dev, smi)
@@ -1579,6 +2150,10 @@ def main() -> int:
         harness = harness_full(dev, smi, dpo, tmp)
         torch.cuda.empty_cache()
         harness_small(dev, smi, tmp)
+        free_memory()
+        rm = rm_full(dev, smi, tmp)
+        ppo = ppo_full(dev, smi, tmp, rm)
+        rl_small(dev, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1589,7 +2164,8 @@ def main() -> int:
                       '(Llama-3-8B widths); library_ms: '
                       'scaled_dot_product_attention, causal, no padding',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
-                             'steps through trainer_main)'}
+                             'steps through trainer_main) + phase 11 (4 RM '
+                             'steps) + phase 12 (3 PPO rounds)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -1621,7 +2197,8 @@ def main() -> int:
         'also_replaces': 'align_anything_tpu/ops/attention.py:73, '
                          'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': dpo['launches']['fwd'] + harness['launches']['fwd'],
+        'launches': sum(x['launches']['fwd'] for x in (dpo, harness, rm,
+                                                        ppo)),
         'max_abs_err': fstats['worst']['fwd'], 'ms': t8['ms'],
         'plain_ms': t8['plain_ms'], 'bound_ms': t8['bound_ms'],
         'bound_by': t8['bound_by'], 'library_ms': t8['library_ms']}, {
@@ -1629,7 +2206,8 @@ def main() -> int:
         'replaces': 'align_anything_tpu/ops/attention.py:99',
         'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': dpo['launches']['bwd'] + harness['launches']['bwd'],
+        'launches': sum(x['launches']['bwd'] for x in (dpo, harness, rm,
+                                                        ppo)),
         'max_abs_err': fstats['worst']['bwd'], 'ms': t8['bwd_ms'],
         'plain_ms': t8['plain_bwd_ms'], 'bound_ms': t8['bwd_bound_ms'],
         'bound_by': t8['bwd_bound_by'],

@@ -20,15 +20,19 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                'align_anything_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
-# the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, and
-# the trainer harness
+# the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, the
+# trainer harness, and the reward-model and PPO trainers
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
              'data.formatters', 'data.datasets', 'models.hf_loader',
              'checkpoint', 'losses.sft', 'trainers.base', 'trainers.cli',
              'trainers.text_to_text.dpo', 'trainers.text_to_text.sft',
-             'trainers.text_to_text.orpo', 'trainers.text_to_text.simpo'):
+             'trainers.text_to_text.orpo', 'trainers.text_to_text.simpo',
+             'models.score_model', 'losses.ppo', 'trainers.text_to_text.rm',
+             'trainers.text_to_text.cost_model',
+             'trainers.text_to_text.rm_score', 'trainers.text_to_text.ppo',
+             'trainers.text_to_text.multi_ppo'):
     assert 'align_anything_tpu_torch.' + name in names, name
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
@@ -45,7 +49,7 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slices was imported
-    assert int(n) >= 47
+    assert int(n) >= 54
 
 
 @pytest.mark.parametrize('module', [
@@ -54,6 +58,8 @@ def test_port_imports_no_jax():
     'align_anything_tpu_torch.scripts.bench.bench_int4_kernel_ab',
     'align_anything_tpu_torch.trainers.text_to_text.dpo',
     'align_anything_tpu_torch.checkpoint',
+    'align_anything_tpu_torch.trainers.text_to_text.rm_score',
+    'align_anything_tpu_torch.trainers.text_to_text.multi_ppo',
 ])
 def test_kernel_module_imports_first(module):
     """A module that holds a kernel, or a trainer's entry point, imports on

@@ -249,7 +249,9 @@ def test_trainer_main_from_argv(assets, tmp_path, monkeypatch):
     assert all(torch.equal(got[p], want[p]) for p in want)
 
 
-@pytest.mark.parametrize('algo', ['dpo', 'sft', 'orpo', 'simpo'])
+@pytest.mark.parametrize('algo', ['dpo', 'sft', 'orpo', 'simpo', 'rm',
+                                  'cost_model', 'rm_score', 'ppo',
+                                  'multi_ppo'])
 def test_module_entry_points(algo):
     """``python -m align_anything_tpu_torch.trainers.text_to_text.<algo>``
     exists and parses its command line (``--help`` exits before the
