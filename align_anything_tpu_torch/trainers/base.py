@@ -233,6 +233,11 @@ class TrainerBase:
         tok.bos_token_id = model_cfg.bos_token_id
         return tok
 
+    def _sync(self) -> None:
+        """Wait for the device's queued work (for host timings)."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
     def next_rng(self) -> torch.Generator:
         """A fresh generator on the trainer's device, seeded by a draw from
         the root generator (JAX: ``jax.random.split`` of the root key)."""

@@ -242,10 +242,6 @@ class PPOTrainer(TrainerBase):
 
     # ------------------------------------------------------------------
 
-    def _sync(self) -> None:
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
-
     def reward_scores(self, seq: torch.Tensor, mask: torch.Tensor
                       ) -> torch.Tensor:
         """(B,) reward end scores of rollout sequences; the reward model
@@ -261,16 +257,20 @@ class PPOTrainer(TrainerBase):
                                    ).end_scores.squeeze(-1)
 
     @torch.no_grad()
-    def score_rollout(self, seq: torch.Tensor, mask: torch.Tensor
+    def score_rollout(self, seq: torch.Tensor, mask: torch.Tensor,
+                      reward: torch.Tensor | None = None
                       ) -> dict[str, torch.Tensor]:
-        """The post-generation scoring pass (ppo.py:224-289 analog)."""
+        """The post-generation scoring pass (ppo.py:224-289 analog).
+        ``reward``, when given, stands for the reward model's end scores,
+        which are then not computed."""
         return {
             'log_probs': token_logprobs(self.actor_state.params,
                                         self.model_cfg, seq,
                                         attention_mask=mask),
             'ref_log_probs': token_logprobs(self.ref_params, self.model_cfg,
                                             seq, attention_mask=mask),
-            'reward': self.reward_scores(seq, mask),
+            'reward': (self.reward_scores(seq, mask) if reward is None
+                       else reward),
             'reward_values': self.compute_critic_values(
                 self.critic_state.params,
                 {'input_ids': seq, 'attention_mask': mask}),

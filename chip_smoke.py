@@ -39,7 +39,7 @@ Phases (any failure raises and the run exits non-zero):
      pads; query rows that see no key give exact zeros), check that the
      backward repeats bit for bit, and time kernel, plain version and
      ``scaled_dot_product_attention`` (a yardstick only) at the two main
-     shapes;
+     shapes and at phase 16's (Qwen2.5-0.5B's heads);
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -75,7 +75,30 @@ Phases (any failure raises and the run exits non-zero):
      round's wall clock split into rollout, scoring and update, generated
      tokens/s and peak memory;
  13. at bench.py's widths, 2 layers: the cost model, PPO with the
-     generation eval, PPO with PTX, and multi-sample PPO with RLOO.
+     generation eval, PPO with PTX, and multi-sample PPO with RLOO;
+ 14. KTO through ``trainer_main(KTOTrainer, ...)`` on phase 9's checkpoint
+     and rows (Llama-3-8B widths, 4 layers, 4 steps of 2 pairs, the KL
+     baseline refreshed before step 3): the baseline at init exactly 0,
+     step 1's loss 0 to 1e-6, the refreshed baseline finite and >= 0, the
+     attention kernels on every layer of every pass (the KL passes too),
+     exactly, and step 1's log-prob sums against a plain recompute; the
+     step time, the refresh step's extra time and peak memory;
+ 15. GRPO from phase 11's checkpoint and export (4 prompts x 4
+     generations a round, 128 new tokens, 2 rounds): round 1's KL 0 to
+     1e-6, every metric finite, the kernels' launches exact, round 1's
+     reward end scores against a plain recompute; the round's split,
+     generated tokens/s and peak memory;
+ 16. Safe-RLHF at Qwen2.5-0.5B's full size (24 layers, D 64, 14 / 2
+     heads; six models; 8 prompts a round, micro-batch 4, 2 rounds): round
+     1's KL exactly 0, ``log_lambda`` after round 1 against its closed
+     form, every metric finite, the kernels' launches exact, round 1's
+     log-prob sums, reward, cost and value scores against a plain
+     recompute; the round's split, generated tokens/s and peak memory;
+ 17. at bench.py's widths, 2 layers: PPO against the port's reward server
+     (stdlib, a daemon thread on a free port of 127.0.0.1) for one round,
+     each reward the ``example_length`` rule over the decoded texts; PPO
+     with the continuous rollout by default for one round (round 1's KL
+     exactly 0); one step each of KTO and GRPO.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
@@ -189,6 +212,9 @@ FLASH_SHAPES = [
     # the last row's last key tile is all padding, the tile before it none
     ('padtile', 2, 1024, 16, 8, 128, True, None, 1, 64, torch.bfloat16,
      False),
+    # phase 16's micro-batch: Qwen2.5-0.5B's heads (a GQA group of 7)
+    ('qwen05b', 4, 256, 14, 2, 64, True, None, 2, None, torch.bfloat16,
+     True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
 # version round P (and dS) to bf16 at K1a's places, but the forward kernel
@@ -731,12 +757,16 @@ def flash_counts() -> dict:
             'bwd': fa.flash_attention_bwd_cuda.launches}
 
 
-def check_launches(tag: str, launches: dict, need: dict) -> None:
+def check_launches(tag: str, launches: dict, need: dict,
+                   exact: bool = False) -> None:
+    """At least ``need`` launches of each kernel; exactly that many when
+    ``exact``."""
     for kind in need:
-        if launches[kind] < need[kind]:
+        if launches[kind] < need[kind] or (exact
+                                           and launches[kind] != need[kind]):
             raise AssertionError(f'{tag}: flash {kind} launched '
-                                 f'{launches[kind]} times, expected >= '
-                                 f'{need[kind]}')
+                                 f'{launches[kind]} times, expected '
+                                 f'{"" if exact else ">= "}{need[kind]}')
 
 
 def check_flash(dev) -> dict:
@@ -1517,12 +1547,14 @@ def rm_full(dev, smi, tmp: str, config=None) -> dict:
             'peak_gb': peak / 1e9}
 
 
-def ppo_argv(actor: str, reward: str, data: str, out: str, *extra) -> list:
+def ppo_argv(actor: str, reward: str, data: str, out: str | None,
+             *extra) -> list:
+    """A PPO command line; with no ``out`` the run exports nothing."""
     return ['--actor_model_name_or_path', actor,
             '--reward_model_name_or_path', reward,
             '--train_datasets', data, '--train_template', 'PKUSafeRLHF',
-            '--output_dir', out, '--save_checkpoint', 'False',
-            '--epochs', '1', *extra]
+            *(('--output_dir', out) if out else ()),
+            '--save_checkpoint', 'False', '--epochs', '1', *extra]
 
 
 def ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
@@ -1647,10 +1679,11 @@ def ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
                          for k in ('fwd', 'bwd')}, 'runs': runs}
 
 
-def rl_small(dev, smi, tmp: str) -> None:
+def rl_small(dev, smi, tmp: str) -> str:
     """Phase 13 at bench.py's widths, 2 layers (phase 10's checkpoint and
     data): the cost model; PPO with eval_datasets (the generation eval);
-    PPO with ptx_datasets; multi_ppo with 2 samples a prompt and RLOO."""
+    PPO with ptx_datasets; multi_ppo with 2 samples a prompt and RLOO.
+    Returns the cost model's export."""
     from align_anything_tpu_torch.trainers.text_to_text.cost_model import (  # noqa: PLC0415
         CostModelTrainer)
     from align_anything_tpu_torch.trainers.text_to_text.multi_ppo import (  # noqa: PLC0415
@@ -1718,6 +1751,557 @@ def rl_small(dev, smi, tmp: str) -> None:
         del trainer
         free_memory()
     log(f'phase13 done; card {smi}')
+    return cost
+
+
+# phases 14-17: KTO, GRPO, Safe-RLHF and the two PPO variants around the
+# remote reward model, through their entry points.  Phase 14 runs phase
+# 9's model and data; phase 15 phase 11's models and phase 12's prompts;
+# phase 16 Qwen2.5-0.5B at its full size: six models at Llama-3-8B widths
+# would hold 3 x 23.8 + 3 x 5.9 = 89 GB of state at 2 layers and 76 GB at
+# 1 layer, more than the card; at 0.494 B params three trained models (16
+# B/param) and three frozen ones (4 B/param) hold 29.6 GB.  These phases
+# pass no --output_dir, so they write no fp32 export: phases 9-13 hold the
+# export, and the card's machine ends a run whose disk writes pass 45 GiB
+# (phases 9-13 with their checkpoints and exports come near it).
+KTO_KL_STEPS, KTO_KL_BATCH = 2, 2
+GRPO_PROMPTS, GRPO_ROUND, GRPO_GROUP, GRPO_ROUNDS = 8, 4, 4, 2
+SAFE_PROMPTS, SAFE_ROUND, SAFE_MICRO, SAFE_ROUNDS = 16, 8, 4, 2
+# the multiplier after round 1 against its closed form, float64 on the host
+LAMBDA_TOL = 1e-6
+
+
+def qwen05b_config():
+    """Qwen/Qwen2.5-0.5B's published ``config.json``: the port's
+    'qwen2-0.5b' preset (vocab 151936, hidden 896, 24 layers, 14 / 2 heads,
+    D 64, MLP 4864, QKV bias) with tied embeddings."""
+    from align_anything_tpu_torch.models.config import PRESETS  # noqa: PLC0415
+
+    return PRESETS['qwen2-0.5b']().replace(tie_word_embeddings=True)
+
+
+def masked_sums(logp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return (logp.detach() * mask).sum(-1).double()
+
+
+def relative_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+def check_sums(tag: str, got: torch.Tensor, want: torch.Tensor,
+               fp32: torch.Tensor | None = None) -> str:
+    """Per-sequence log-prob sums against a plain recompute, relative,
+    within RL_TOL; given the plain recompute in fp32 compute too, within
+    SCORE_NOISE x the plain bf16 pass's own relative distance from it
+    where that is larger (as ``check_scores`` holds a score)."""
+    rel = relative_gap(got, want)
+    limit, noise = RL_TOL, ''
+    if fp32 is not None:
+        bf16_noise = relative_gap(want, fp32)
+        limit = max(RL_TOL, SCORE_NOISE * bf16_noise)
+        noise = (f', bf16 noise (plain against fp32) {bf16_noise:.3e}, '
+                 f'kernel against fp32 {relative_gap(got, fp32):.3e}')
+    msg = (f'{tag}: max relative diff per sequence {rel:.3e}{noise} (limit '
+           f'{limit:.3e})')
+    if not rel <= limit:
+        raise AssertionError(f'{msg}: the kernels disagree with the plain '
+                             'attention')
+    return msg
+
+
+def kto_full(dev, smi, tmp: str) -> dict:
+    """Phase 14: KTO through ``trainer_main(KTOTrainer, ...)`` on phase 9's
+    checkpoint (Llama-3-8B widths, 4 layers) and rows, with the KL baseline
+    refreshed before step 3."""
+    from align_anything_tpu_torch.models.hf_loader import load_params  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.logprobs import token_logprobs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.kto import (  # noqa: PLC0415
+        KTOTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    resident = torch.cuda.memory_allocated()
+    ckpt = os.path.join(tmp, 'llama8b_4layers')
+    argv = ['--model_name_or_path', ckpt,
+            '--train_datasets', os.path.join(tmp, 'pref_8b.jsonl'),
+            '--train_template', 'PKUSafeRLHF',
+            '--save_checkpoint', 'False', '--epochs', '1',
+            '--per_device_train_batch_size', str(DPO_PAIRS),
+            '--kl_steps', str(KTO_KL_STEPS),
+            '--per_device_kl_batch_size', str(KTO_KL_BATCH)]
+    first: dict = {}
+    refreshes: list = []
+    preference_loss, refresh_kl = (KTOTrainer.preference_loss,
+                                   KTOTrainer.refresh_kl)
+
+    def recording(self, logp, ref_logp, batch):
+        if not first:
+            m = batch['divergence_mask']
+            first.update(batch={k: batch[k].clone() for k in (
+                'input_ids', 'attention_mask', 'divergence_mask')},
+                sums=masked_sums(logp, m), ref_sums=masked_sums(ref_logp, m))
+        return preference_loss(self, logp, ref_logp, batch)
+
+    def timed_refresh(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refresh_kl(self)
+        torch.cuda.synchronize()
+        refreshes.append((self.global_step, self.kl,
+                          time.perf_counter() - t0))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    with mock.patch.object(KTOTrainer, 'preference_loss', recording), \
+            mock.patch.object(KTOTrainer, 'refresh_kl', timed_refresh):
+        trainer, steps, timing = run_trainer(KTOTrainer, 'text_to_text/kto',
+                                             argv, HARNESS_MESH)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    del trainer
+    free_memory()
+    shape = tuple(first['batch']['input_ids'].shape)
+    layers = mcfg.num_layers
+    seconds = [m['perf/step_time_s'] for m in steps]
+    for i, m in enumerate(steps):
+        log(f'phase14 step {i + 1}: loss={m["train/loss"]!r} kl_baseline='
+            f'{m["train/kl_baseline"]!r} grad_norm={m["train/grad_norm"]:.6e}'
+            f' seconds={seconds[i]:.4f}')
+    # every layer of every pass: the policy's forward and its recompute
+    # under 'dots_saveable' and the reference's forward each step, the
+    # backward, and the two no-grad passes of each KL estimate
+    need = {'fwd': (3 * DPO_STEPS + 2 * len(refreshes)) * layers,
+            'bwd': DPO_STEPS * layers}
+    plain_steps = [s for i, s in enumerate(seconds) if i not in (0, 2)]
+    step_s = statistics.median(plain_steps)
+    log(f'phase14 KTO: batch {shape}, remat {mcfg.remat}; KL refreshes '
+        f'(global_step, baseline, seconds) {refreshes}; step time '
+        f'{step_s:.4f} s (median of steps 2 and 4), the refresh step 3 '
+        f'{seconds[2]:.4f} s ({seconds[2] - step_s:+.4f} s); trainer_main '
+        f'load {timing["load_s"]:.2f} s; peak memory {peak / 1e9:.3f} GB '
+        f'({resident / 1e9:.3f} GB resident before); flash launches fwd '
+        f'{launches["fwd"]} (need {need["fwd"]}) bwd {launches["bwd"]} '
+        f'(need {need["bwd"]}); card {smi}')
+    if len(steps) != DPO_STEPS or shape != (2 * DPO_PAIRS, DPO_SEQ):
+        raise AssertionError(f'KTO: {len(steps)} steps at {shape}')
+    if [g for g, _, _ in refreshes] != [0, KTO_KL_STEPS]:
+        raise AssertionError(f'KTO: KL refreshes at {refreshes}')
+    if steps[0]['train/kl_baseline'] != 0.0 or refreshes[0][1] != 0.0:
+        raise AssertionError('KTO: the baseline at init is '
+                             f'{refreshes[0][1]!r}, not 0.0')
+    kl = steps[2]['train/kl_baseline']
+    if not (math.isfinite(kl) and kl >= 0 and kl == refreshes[1][1]
+            and steps[1]['train/kl_baseline'] == 0.0):
+        raise AssertionError(f'KTO: refreshed baseline {kl!r}')
+    if abs(steps[0]['train/loss']) > 1e-6:
+        raise AssertionError(f'KTO step 1 loss {steps[0]["train/loss"]!r} '
+                             'is not 0')
+    if not all(math.isfinite(m[k]) for m in steps
+               for k in ('train/loss', 'train/grad_norm')):
+        raise AssertionError('KTO: non-finite loss or grad norm')
+    check_launches('KTO', launches, need, exact=True)
+
+    # step 1 recomputed from the checkpoint with the plain attention
+    params, _ = load_params(ckpt, device=dev)
+    b = first['batch']
+    with torch.no_grad(), plain_flash():
+        sums = masked_sums(token_logprobs(
+            params, mcfg, b['input_ids'], attention_mask=b['attention_mask']),
+            b['divergence_mask'])
+    del params
+    free_memory()
+    log('phase14 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'], sums)
+        + '; ' + check_sums('reference', first['ref_sums'], sums))
+    log(f'phase14 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'step_s': step_s,
+            'refresh_s': seconds[2] - step_s, 'peak_gb': peak / 1e9}
+
+
+def grpo_full(dev, smi, tmp: str, rm: dict) -> dict:
+    """Phase 15: GRPO through ``trainer_main(GRPOTrainer, ...)``: the actor
+    from phase 11's checkpoint (Llama-3-8B widths, 2 layers), the reward
+    model from its export; 8 prompts in the 128 bucket, 4 a round, 4
+    generations each, 128 new tokens, 2 rounds."""
+    from align_anything_tpu_torch.models import score_model  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.grpo import (  # noqa: PLC0415
+        GRPOTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    resident = torch.cuda.memory_allocated()
+    argv = ['--actor_model_name_or_path', rm['ckpt'],
+            '--reward_model_name_or_path', rm['slice'],
+            '--train_datasets', os.path.join(tmp, 'prompts_8b.jsonl'),
+            '--train_template', 'PKUSafeRLHF',
+            '--save_checkpoint', 'False', '--epochs', '1',
+            '--train_size', str(GRPO_PROMPTS),
+            '--per_device_prompt_batch_size', str(GRPO_ROUND),
+            '--num_generations', str(GRPO_GROUP),
+            '--max_new_tokens', str(PPO_NEW), '--temperature', '1.0',
+            '--padding_buckets', f'[{PPO_BUCKET}]']
+    first: dict = {}
+    reward_scores = GRPOTrainer.reward_scores
+
+    def recording(self, seq, mask):
+        out = reward_scores(self, seq, mask)
+        if not first:
+            first.update(seq=seq.clone(), mask=mask.clone(),
+                         scores=out.detach().float().clone())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    with mock.patch.object(GRPOTrainer, 'reward_scores', recording):
+        trainer, steps, timing = run_trainer(GRPOTrainer, 'text_to_text/grpo',
+                                             argv)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    layers = trainer.model_cfg.num_layers
+    for i, m in enumerate(steps):
+        tps = m['perf/generated_tokens'] / m['perf/rollout_s']
+        log(f'phase15 round {i + 1}: kl={m["train/kl"]!r} loss='
+            f'{m["train/loss"]:.6e} reward={m["train/reward"]:.6e} grad_norm='
+            f'{m["train/grad_norm"]:.6e} generated={m["perf/generated_tokens"]}'
+            f' tokens; seconds: round {m["perf/step_time_s"]:.4f} = rollout '
+            f'{m["perf/rollout_s"]:.4f} + scoring {m["perf/scoring_s"]:.4f} + '
+            f'update {m["perf/update_s"]:.4f} (+ loop); generated tokens/s '
+            f'{tps:.1f}')
+    # a round: the reward model's, the policy's and the reference's
+    # forward ('save_flash' keeps the policy's), the policy's backward
+    need = {'fwd': GRPO_ROUNDS * 3 * layers, 'bwd': GRPO_ROUNDS * layers}
+    log(f'phase15 GRPO: {GRPO_ROUND} prompts x {GRPO_GROUP} generations a '
+        f'round, sequences {tuple(first["seq"].shape)}, remat '
+        f'{trainer.model_cfg.remat}; load {timing["load_s"]:.2f} s; peak '
+        f'memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident '
+        f'before); flash launches fwd {launches["fwd"]} (need {need["fwd"]}) '
+        f'bwd {launches["bwd"]} (need {need["bwd"]}); card {smi}')
+    if len(steps) != GRPO_ROUNDS or not all_finite(steps):
+        raise AssertionError(f'GRPO: {len(steps)} rounds, or a metric is not '
+                             'finite')
+    if tuple(first['seq'].shape) != (GRPO_ROUND * GRPO_GROUP,
+                                     PPO_BUCKET + PPO_NEW):
+        raise AssertionError(f'GRPO rollout {tuple(first["seq"].shape)}')
+    if not abs(steps[0]['train/kl']) <= 1e-6:
+        raise AssertionError(f'GRPO round 1 KL {steps[0]["train/kl"]!r} is '
+                             'not 0')
+    check_launches('GRPO', launches, need, exact=True)
+    with torch.no_grad(), plain_flash():
+        plain = {dtype: score_model.forward(
+            trainer.reward_params,
+            trainer.reward_cfg.replace(compute_dtype=dtype), first['seq'],
+            attention_mask=first['mask']).end_scores.squeeze(-1)
+            for dtype in ('bfloat16', 'float32')}
+    log('phase15 ' + check_scores('round 1 reward', first['scores'],
+                                  *plain.values()))
+    del trainer, plain
+    first.clear()
+    free_memory()
+    log(f'phase15 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'steps': steps, 'peak_gb': peak / 1e9}
+
+
+def saferlhf_full(dev, smi, tmp: str) -> dict:
+    """Phase 16: Safe-RLHF through ``trainer_main(SafeRLHFTrainer, ...)`` at
+    Qwen2.5-0.5B's full size: actor, reward and cost checkpoints written
+    from seeds (bf16), the reward and cost heads fresh fp32 heads from
+    seeds beside them, so each critic starts as its model; 16 prompts in
+    the 128 bucket, 8 a round, 128 new tokens, micro-batch 4, 2 rounds."""
+    from align_anything_tpu_torch.models import score_model  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import save_params  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.logprobs import token_logprobs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.saferlhf import (  # noqa: PLC0415
+        SafeRLHFTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = qwen05b_config()
+    ckpts = {}
+    for i, name in enumerate(('actor', 'reward', 'cost')):
+        ckpts[name] = os.path.join(tmp, f'qwen05b_{name}')
+        save_params(ckpts[name], transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 80 + i),
+            device=dev), cfg, dtype=torch.bfloat16)
+        if name != 'actor':
+            np.save(os.path.join(ckpts[name], 'score_head.npy'),
+                    np.random.default_rng(SEED + 83 + i).standard_normal(
+                        (cfg.hidden_size, 1)).astype(np.float32)
+                    / math.sqrt(cfg.hidden_size))
+    free_memory()
+    resident = torch.cuda.memory_allocated()
+    data = write_jsonl(os.path.join(tmp, 'prompts_qwen.jsonl'),
+                       prompt_rows(SEED + 86, SAFE_PROMPTS, (15, 116)))
+    argv = ['--actor_model_name_or_path', ckpts['actor'],
+            '--reward_model_name_or_path', ckpts['reward'],
+            '--cost_model_name_or_path', ckpts['cost'],
+            '--train_datasets', data, '--train_template', 'PKUSafeRLHF',
+            '--save_checkpoint', 'False', '--epochs', '1',
+            '--per_device_prompt_batch_size', str(SAFE_ROUND),
+            '--per_device_train_batch_size', str(SAFE_MICRO),
+            '--max_new_tokens', str(PPO_NEW), '--temperature', '1.0',
+            '--update_iters', '1', '--padding_buckets', f'[{PPO_BUCKET}]']
+    first: dict = {}
+    score_rollout, score_cost = (SafeRLHFTrainer.score_rollout,
+                                 SafeRLHFTrainer.score_cost)
+
+    def recording_rollout(self, seq, mask, reward=None):
+        out = score_rollout(self, seq, mask, reward)
+        if 'seq' not in first:
+            first.update(seq=seq.clone(), mask=mask.clone(),
+                         **{k: v.clone() for k, v in out.items()})
+        return out
+
+    def recording_cost(self, seq, mask):
+        out = score_cost(self, seq, mask)
+        if 'cost' not in first:
+            first.update({k: v.clone() for k, v in out.items()})
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    with mock.patch.object(SafeRLHFTrainer, 'score_rollout',
+                           recording_rollout), \
+            mock.patch.object(SafeRLHFTrainer, 'score_cost', recording_cost):
+        trainer, steps, timing = run_trainer(
+            SafeRLHFTrainer, 'text_to_text/saferlhf', argv)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    n_params = sum(t.numel() for t in param_leaves(trainer.ref_params))
+    for i, m in enumerate(steps):
+        tps = m['perf/generated_tokens'] / m['perf/rollout_s']
+        log(f'phase16 round {i + 1}: kl={m["train/kl_divergence"]!r} '
+            f'actor_loss={m["train/actor_loss"]:.6e} reward_critic_loss='
+            f'{m["train/reward_critic_loss"]:.6e} cost_critic_loss='
+            f'{m["train/cost_critic_loss"]:.6e} reward={m["train/reward"]:.6e}'
+            f' cost={m["train/cost"]:.6e} lambda={m["train/lambda"]!r} '
+            f'log_lambda={m["train/log_lambda"]!r} episode_cost='
+            f'{m["train/episode_cost"]!r} generated='
+            f'{m["perf/generated_tokens"]} tokens; seconds: round '
+            f'{m["perf/step_time_s"]:.4f} = rollout {m["perf/rollout_s"]:.4f}'
+            f' + scoring {m["perf/scoring_s"]:.4f} + update '
+            f'{m["perf/update_s"]:.4f} (+ loop); generated tokens/s '
+            f'{tps:.1f}')
+    n_micro = SAFE_ROUND // SAFE_MICRO
+    # a round: 6 scoring passes (actor, reference, reward, critic, cost,
+    # cost critic), then per micro-batch the actor's, the critic's and the
+    # cost critic's forward ('save_flash') and backward
+    need = {'fwd': SAFE_ROUNDS * (6 + 3 * n_micro) * mcfg.num_layers,
+            'bwd': SAFE_ROUNDS * 3 * n_micro * mcfg.num_layers}
+    log(f'phase16 Safe-RLHF config: Qwen2.5-0.5B (vocab {mcfg.vocab_size}, '
+        f'hidden {mcfg.hidden_size}, {mcfg.num_layers} layers, '
+        f'{mcfg.num_heads} / {mcfg.num_kv_heads} heads, D {mcfg.head_dim}, '
+        f'MLP {mcfg.mlp_dim}, QKV bias, tied embeddings), {n_params / 1e9:.3f}'
+        f' B params a model, six models; sequences '
+        f'{tuple(first["seq"].shape)}, micro-batch {SAFE_MICRO}, remat '
+        f'{mcfg.remat}; load {timing["load_s"]:.2f} s; peak memory '
+        f'{peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident before); '
+        f'flash launches fwd {launches["fwd"]} (need {need["fwd"]}) bwd '
+        f'{launches["bwd"]} (need {need["bwd"]}); card {smi}')
+    if len(steps) != SAFE_ROUNDS or not all_finite(steps):
+        raise AssertionError(f'Safe-RLHF: {len(steps)} rounds, or a metric '
+                             'is not finite')
+    if steps[0]['train/kl_divergence'] != 0.0:
+        raise AssertionError('Safe-RLHF round 1 KL '
+                             f'{steps[0]["train/kl_divergence"]!r} != 0.0')
+    check_launches('Safe-RLHF', launches, need, exact=True)
+    # the multiplier after round 1 in closed form from that round's costs
+    lam0 = 1.0
+    mean_cost = float(np.mean(first['cost'].float().cpu().tolist()))
+    want = math.log(lam0) + trainer.lambda_lr * float(np.clip(
+        (mean_cost - trainer.threshold) * lam0, -1e6, 1e6))
+    if trainer.lambda_max:
+        want = min(want, math.log(float(trainer.lambda_max)))
+    got = steps[0]['train/log_lambda']
+    log(f'phase16 log_lambda after round 1 {got!r}, closed form {want!r} '
+        f'(mean cost {mean_cost!r}, lambda_lr {trainer.lambda_lr}, lambda_max'
+        f' {trainer.lambda_max}; tol {LAMBDA_TOL:g})')
+    if not abs(got - want) <= LAMBDA_TOL:
+        raise AssertionError('Safe-RLHF log_lambda disagrees with its '
+                             'closed form')
+
+    # round 1's scoring passes recomputed with the plain attention: the
+    # actor then was the reference, each critic its model
+    seq, mask = first['seq'], first['mask']
+    start = PPO_BUCKET - 1
+    m = mask[:, 1:].float()[:, start:]
+    with torch.no_grad(), plain_flash():
+        logp = {dtype: token_logprobs(
+            trainer.ref_params, mcfg.replace(compute_dtype=dtype), seq,
+            attention_mask=mask) for dtype in ('bfloat16', 'float32')}
+        scores = {name: {dtype: score_model.forward(
+            params, cfg_.replace(compute_dtype=dtype), seq,
+            attention_mask=mask) for dtype in ('bfloat16', 'float32')}
+            for name, params, cfg_ in (
+                ('reward', trainer.reward_params, trainer.reward_cfg),
+                ('cost', trainer.cost_params, trainer.cost_cfg))}
+    # 24 layers of bf16: the plain pass's own distance from fp32 compute
+    # bounds how far two bf16 passes that round differently may sit apart
+    want_sums = [masked_sums(x[:, start:], m) for x in logp.values()]
+    log('phase16 round 1 scoring recomputed with the plain attention: '
+        + check_sums('log_probs', masked_sums(first['log_probs'][:, start:],
+                                              m), *want_sums)
+        + '; ' + check_sums('ref_log_probs', masked_sums(
+            first['ref_log_probs'][:, start:], m), *want_sums))
+    for name, end_key, values_key in (('reward', 'reward', 'reward_values'),
+                                      ('cost', 'cost', 'cost_values')):
+        s = scores[name]
+        log('phase16 ' + check_scores(
+            f'round 1 {name}', first[end_key],
+            *(o.end_scores.squeeze(-1) for o in s.values())))
+        log('phase16 ' + check_scores(
+            f'round 1 {values_key} (masked)', first[values_key][:, start:] * m,
+            *(o.scores.squeeze(-1)[:, :-1][:, start:] * m
+              for o in s.values())))
+    del trainer, logp, scores
+    first.clear()
+    free_memory()
+    log(f'phase16 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'steps': steps, 'peak_gb': peak / 1e9}
+
+
+def free_port() -> int:
+    import socket  # noqa: PLC0415
+
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def start_reward_server(reward_fn: str) -> str:
+    """The port's stdlib reward server in a daemon thread on a free port of
+    127.0.0.1, polled until it accepts; returns its endpoint."""
+    import socket  # noqa: PLC0415
+
+    from align_anything_tpu_torch.models.remote_rm import server  # noqa: PLC0415
+
+    port = free_port()
+    threading.Thread(target=server.start_server, kwargs={
+        'host': '127.0.0.1', 'port': port, 'reward_fn_name': reward_fn,
+        'use_flask': False}, daemon=True).start()
+    deadline = time.monotonic() + 30
+    while True:
+        try:
+            socket.create_connection(('127.0.0.1', port), timeout=1).close()
+            return f'http://127.0.0.1:{port}/get_reward'
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.01)
+
+
+def rl_variants_small(dev, smi, tmp: str, cost: str) -> dict:
+    """Phase 17 at bench.py's widths, 2 layers (phase 10's checkpoint, phase
+    13's cost model as the reward model): PPO against the port's reward
+    server for one round, PPO with the continuous rollout by default for
+    one round, and one step each of KTO and GRPO."""
+    from align_anything_tpu_torch.models.remote_rm import get_reward_function  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.grpo import (  # noqa: PLC0415
+        GRPOTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.kto import (  # noqa: PLC0415
+        KTOTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.ppo_remote_rm import (  # noqa: PLC0415
+        PPORemoteRMTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.ppo_vllm import (  # noqa: PLC0415
+        PPOVLLMTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    reset_flash_counts()
+    ckpt = os.path.join(tmp, 'small')
+    data = os.path.join(tmp, 'prompts_small.jsonl')
+    common = ('--per_device_prompt_batch_size', '4',
+              '--per_device_train_batch_size', '2', '--max_new_tokens', '32',
+              '--padding_buckets', '[64]', '--train_size', '4')
+
+    endpoint = start_reward_server('example_length')
+    rollouts = []
+    rollout = PPORemoteRMTrainer.rollout
+
+    def recording(self, prompt_batch):
+        out = rollout(self, prompt_batch)
+        rollouts.append((self, {k: v for k, v in out.items()}))
+        return out
+
+    with mock.patch.object(PPORemoteRMTrainer, 'rollout', recording):
+        trainer, steps, _ = run_trainer(
+            PPORemoteRMTrainer, 'text_to_text/ppo', ppo_argv(
+                ckpt, cost, data, None, *common,
+                '--reward_server_endpoint', endpoint))
+    (_, r), = rollouts
+    start = int(r['start'])
+    prompts, responses = trainer.decode_rollout(
+        r['input_ids'][:, :start + 1].cpu().numpy(),
+        r['input_ids'][:, start + 1:].cpu().numpy())
+    want = np.asarray(get_reward_function('example_length')(
+        prompts, responses), np.float32).tolist()
+    got = r['reward'].cpu().tolist()
+    log(f'phase17 ppo_remote_rm against {endpoint}: {len(steps)} round, '
+        f'kl {steps[0]["train/kl_divergence"]!r}, rewards {got} (the rule '
+        f'over the decoded texts: {want}), actor_loss '
+        f'{steps[0]["train/actor_loss"]:.6e}')
+    if not (len(steps) == 1 and all_finite(steps) and got == want
+            and r['reward'].dtype == torch.float32
+            and steps[0]['train/kl_divergence'] == 0.0):
+        raise AssertionError('phase 17 ppo_remote_rm failed')
+    del trainer, rollouts, r
+    free_memory()
+
+    trainer, steps, _ = run_trainer(PPOVLLMTrainer, 'text_to_text/ppo',
+                                    ppo_argv(ckpt, cost, data, None, *common))
+    log(f'phase17 ppo_vllm: backend {trainer.rollout_backend}, {len(steps)} '
+        f'round, kl {steps[0]["train/kl_divergence"]!r}, '
+        f'{steps[0]["perf/generated_tokens"]} tokens generated')
+    if not (trainer.rollout_backend == 'continuous'
+            and trainer._cont_engine is not None and len(steps) == 1
+            and all_finite(steps)
+            and steps[0]['train/kl_divergence'] == 0.0):
+        raise AssertionError('phase 17 ppo_vllm failed')
+    del trainer
+    free_memory()
+
+    _, steps, _ = run_trainer(KTOTrainer, 'text_to_text/kto', [
+        '--model_name_or_path', ckpt,
+        '--train_datasets', os.path.join(tmp, 'pref_small.jsonl'),
+        '--train_template', 'PKUSafeRLHF', '--epochs', '1',
+        '--save_checkpoint', 'False', '--train_size', '2',
+        '--per_device_train_batch_size', '2',
+        '--per_device_kl_batch_size', '2'])
+    log(f'phase17 kto: {len(steps)} step, loss {steps[0]["train/loss"]!r}, '
+        f'kl_baseline {steps[0]["train/kl_baseline"]!r}')
+    if not (len(steps) == 1 and all_finite(steps)
+            and abs(steps[0]['train/loss']) <= 1e-6
+            and steps[0]['train/kl_baseline'] == 0.0):
+        raise AssertionError('phase 17 kto failed')
+    free_memory()
+
+    _, steps, _ = run_trainer(GRPOTrainer, 'text_to_text/grpo', [
+        '--actor_model_name_or_path', ckpt,
+        '--reward_model_name_or_path', cost, '--train_datasets', data,
+        '--train_template', 'PKUSafeRLHF', '--epochs', '1',
+        '--save_checkpoint', 'False', '--train_size', '2',
+        '--per_device_prompt_batch_size', '2', '--num_generations', '2',
+        '--max_new_tokens', '32', '--padding_buckets', '[64]'])
+    log(f'phase17 grpo: {len(steps)} round, kl {steps[0]["train/kl"]!r}, '
+        f'loss {steps[0]["train/loss"]:.6e}, reward '
+        f'{steps[0]["train/reward"]:.6e}')
+    if not (len(steps) == 1 and all_finite(steps)
+            and abs(steps[0]['train/kl']) <= 1e-6):
+        raise AssertionError('phase 17 grpo failed')
+    free_memory()
+    launches = flash_counts()
+    log(f'phase17 done in {time.perf_counter() - t_phase:.1f} s; flash '
+        f'launches fwd {launches["fwd"]} bwd {launches["bwd"]}; card {smi}')
+    if not (launches['fwd'] and launches['bwd']):
+        raise AssertionError('phase 17 launched no flash kernel')
+    return {'launches': launches}
 
 
 # --planted-faults: flash_attention.cu with 64 keys (or one 64-row query
@@ -2153,7 +2737,11 @@ def main() -> int:
         free_memory()
         rm = rm_full(dev, smi, tmp)
         ppo = ppo_full(dev, smi, tmp, rm)
-        rl_small(dev, smi, tmp)
+        cost = rl_small(dev, smi, tmp)
+        kto = kto_full(dev, smi, tmp)
+        grpo = grpo_full(dev, smi, tmp, rm)
+        safe = saferlhf_full(dev, smi, tmp)
+        variants = rl_variants_small(dev, smi, tmp, cost)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2165,7 +2753,11 @@ def main() -> int:
                       'scaled_dot_product_attention, causal, no padding',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
-                             'steps) + phase 12 (3 PPO rounds)'}
+                             'steps) + phase 12 (3 PPO rounds) + phase 14 '
+                             '(4 KTO steps, 2 KL estimates) + phase 15 (2 '
+                             'GRPO rounds) + phase 16 (2 Safe-RLHF rounds) '
+                             '+ phase 17 (remote-RM PPO, PPO on the '
+                             'continuous rollout, KTO and GRPO, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -2197,8 +2789,8 @@ def main() -> int:
         'also_replaces': 'align_anything_tpu/ops/attention.py:73, '
                          'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': sum(x['launches']['fwd'] for x in (dpo, harness, rm,
-                                                        ppo)),
+        'launches': sum(x['launches']['fwd'] for x in (
+            dpo, harness, rm, ppo, kto, grpo, safe, variants)),
         'max_abs_err': fstats['worst']['fwd'], 'ms': t8['ms'],
         'plain_ms': t8['plain_ms'], 'bound_ms': t8['bound_ms'],
         'bound_by': t8['bound_by'], 'library_ms': t8['library_ms']}, {
@@ -2206,8 +2798,8 @@ def main() -> int:
         'replaces': 'align_anything_tpu/ops/attention.py:99',
         'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': sum(x['launches']['bwd'] for x in (dpo, harness, rm,
-                                                        ppo)),
+        'launches': sum(x['launches']['bwd'] for x in (
+            dpo, harness, rm, ppo, kto, grpo, safe, variants)),
         'max_abs_err': fstats['worst']['bwd'], 'ms': t8['bwd_ms'],
         'plain_ms': t8['plain_bwd_ms'], 'bound_ms': t8['bwd_bound_ms'],
         'bound_by': t8['bwd_bound_by'],

@@ -23,7 +23,8 @@ from align_anything_tpu.utils import config as jcfg  # noqa: E402
 from align_anything_tpu_torch.utils import config as tcfg  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TASKS = ('sft', 'dpo', 'orpo', 'simpo', 'rm', 'ppo')
+TASKS = ('sft', 'dpo', 'orpo', 'simpo', 'rm', 'ppo', 'kto', 'grpo',
+         'saferlhf')
 BOTH = pytest.mark.parametrize('m', [jcfg, tcfg], ids=['jax', 'port'])
 
 

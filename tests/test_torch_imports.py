@@ -21,7 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__,
 for name in names:
     importlib.import_module(name)
 # the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, the
-# trainer harness, and the reward-model and PPO trainers
+# trainer harness, the reward-model and PPO trainers, and KTO, GRPO,
+# Safe-RLHF and the two PPO variants with the remote reward model
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
@@ -32,7 +33,12 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'models.score_model', 'losses.ppo', 'trainers.text_to_text.rm',
              'trainers.text_to_text.cost_model',
              'trainers.text_to_text.rm_score', 'trainers.text_to_text.ppo',
-             'trainers.text_to_text.multi_ppo'):
+             'trainers.text_to_text.multi_ppo', 'trainers.text_to_text.kto',
+             'trainers.text_to_text.grpo', 'trainers.text_to_text.saferlhf',
+             'trainers.text_to_text.ppo_remote_rm',
+             'trainers.text_to_text.ppo_vllm', 'models.remote_rm',
+             'models.remote_rm.client', 'models.remote_rm.server',
+             'models.remote_rm.reward_functions'):
     assert 'align_anything_tpu_torch.' + name in names, name
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
@@ -49,7 +55,7 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slices was imported
-    assert int(n) >= 54
+    assert int(n) >= 63
 
 
 @pytest.mark.parametrize('module', [

@@ -66,11 +66,17 @@ WORDS = ['alpha', 'beta', 'gamma', 'delta', 'eps', 'zeta', 'eta', 'theta']
 
 @pytest.fixture(scope='module')
 def assets(tmp_path_factory):
-    d = tmp_path_factory.mktemp('rl_assets')
+    return make_assets(tmp_path_factory.mktemp('rl_assets'))
+
+
+def make_assets(d, layers: int = 2):
+    """The tiny Llama checkpoint (``layers`` layers), the reward model
+    beside it and the ``.jsonl`` rows, under the directory ``d``."""
     torch.manual_seed(0)
     cfg = transformers.LlamaConfig(
         vocab_size=256, hidden_size=64, intermediate_size=128,
-        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        num_hidden_layers=layers, num_attention_heads=4,
+        num_key_value_heads=2,
         max_position_embeddings=128, tie_word_embeddings=False,
         pad_token_id=PAD, bos_token_id=BOS, eos_token_id=EOS)
     transformers.LlamaForCausalLM(cfg).eval().save_pretrained(
@@ -539,9 +545,26 @@ def test_ppo_config_checks(assets, tmp_path, monkeypatch):
 
 def test_rl_trainers_default_to_the_card(assets, tmp_path, monkeypatch):
     """No device given: the trainer takes the first CUDA device, and
-    raises where there is none."""
+    raises where there is none: the RM trainer, KTO, GRPO, Safe-RLHF and
+    the two PPO variants."""
+    from align_anything_tpu_torch.trainers.text_to_text import (
+        grpo,
+        kto,
+        ppo_remote_rm,
+        ppo_vllm,
+        saferlhf,
+    )
+
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    cfgs, pc = tcli.parse_cfgs('text_to_text/rm',
-                               _rm_argv(assets, tmp_path))
-    with pytest.raises(RuntimeError, match='no CUDA device'):
-        trm.RMTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    ppo_argv = _ppo_argv(assets, tmp_path)
+    cases = (
+        (trm.RMTrainer, 'rm', _rm_argv(assets, tmp_path)),
+        (kto.KTOTrainer, 'kto', _rm_argv(assets, tmp_path)),
+        (grpo.GRPOTrainer, 'grpo', ppo_argv),
+        (saferlhf.SafeRLHFTrainer, 'saferlhf', ppo_argv),
+        (ppo_remote_rm.PPORemoteRMTrainer, 'ppo', ppo_argv),
+        (ppo_vllm.PPOVLLMTrainer, 'ppo', ppo_argv))
+    for cls, task, argv in cases:
+        cfgs, pc = tcli.parse_cfgs(f'text_to_text/{task}', argv)
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            cls(cfgs=cfgs, parallel_cfgs=pc)
