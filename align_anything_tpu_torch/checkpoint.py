@@ -112,13 +112,21 @@ def _prune_old(root: str, keep: int, exclude: str | None = None) -> None:
 def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
                   tokenizer: Any | None = None) -> str:
     """HF-format ``slice_{step}`` export (reference output-layout parity) of
-    a decoder param tree; the JAX module's multimodal savers are not
-    ported."""
-    from align_anything_tpu_torch.models.hf_loader import save_params  # noqa: PLC0415
+    a decoder param tree, or of a LLaVA-layout one for a multimodal config;
+    the JAX module's other multimodal savers are not ported."""
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        save_multimodal_params,
+        save_params,
+    )
+    from align_anything_tpu_torch.models.multimodal import (  # noqa: PLC0415
+        MultimodalConfig)
 
     path = os.path.join(output_dir, f'slice_{step}')
     params = {k: v for k, v in params.items() if k != 'score_head'}
-    save_params(path, params, model_config)
+    if isinstance(model_config, MultimodalConfig):
+        save_multimodal_params(path, params, model_config)
+    else:
+        save_params(path, params, model_config)
     if tokenizer is not None and hasattr(tokenizer, 'save_pretrained'):
         tokenizer.save_pretrained(path)
     return path

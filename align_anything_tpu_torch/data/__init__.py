@@ -1,8 +1,11 @@
-"""The text data layer: the port of ``align_anything_tpu/data`` (templates,
-chat formatting, tokenizers, datasets, collators, the iterator).  The
-multimodal formatters and datasets are not ported yet (ROADMAP)."""
+"""The data layer: the port of ``align_anything_tpu/data`` (templates,
+chat formatting, tokenizers, datasets, collators, the iterator), with the
+image-text templates (``multimodal_formatters.py``) and datasets
+(``image.py``).  The audio and video templates and the other multimodal
+processors are not ported yet (ROADMAP §1 item 12)."""
 
 from align_anything_tpu_torch.data import formatters  # noqa: F401  (registers templates)
+from align_anything_tpu_torch.data import multimodal_formatters  # noqa: F401
 from align_anything_tpu_torch.data.chat_template import ChatTemplate, ModelFormatter
 from align_anything_tpu_torch.data.datasets import (
     DEFAULT_BUCKETS,

@@ -5,8 +5,7 @@ Re-implementations of the reference's registered templates
 a raw dataset row to `[{'role': ..., 'content': ...}, ...]` conversations
 plus a multimodal-info dict.  The port of
 ``align_anything_tpu/data/formatters.py``, unchanged: the text-modality
-set.  The multimodal formatters (JAX ``data/multimodal_formatters.py``)
-wait for the multimodal slice.
+set; the image-text formatters are in ``multimodal_formatters.py``.
 """
 
 from __future__ import annotations

@@ -15,9 +15,12 @@ then the raw little-endian data), so the port needs no ``safetensors``
 package.  Tensors are moved to the requested device one at a time and
 laid out there.
 
-Not ported: the multimodal loaders and savers (LLaVA, Qwen2-VL, audio,
-MLlama, MiniCPM, Emu3's fused codec layout), which wait for the multimodal
-slice.
+``load_multimodal_params`` / ``save_multimodal_params`` do the same for a
+LLaVA-1.5 checkpoint (``LlavaForConditionalGeneration``: a Llama-layout
+language model, a CLIP vision tower and the projector).  Not ported yet
+(ROADMAP §1 item 12): LLaVA-Next and LLaVA-Next-Video checkpoints, and the
+other multimodal families (Qwen2-VL, audio, MLlama, MiniCPM, Emu3's fused
+codec layout).
 """
 
 from __future__ import annotations
@@ -284,6 +287,132 @@ def _load_llama_like(t: _OnDevice, c: ModelConfig) -> dict:
     return params
 
 
+def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
+                           device: torch.device | str | None = None):
+    """Load an HF LLaVA-layout checkpoint into (params, MultimodalConfig),
+    every leaf on ``device`` (default: the first CUDA device) in ``dtype``.
+
+    Handles both the ``model.language_model.*`` (transformers >= 4.52) and
+    the ``language_model.model.*`` (older) prefixes; the vision tower is
+    CLIP-style."""
+    from align_anything_tpu_torch.models.multimodal import (  # noqa: PLC0415
+        MultimodalConfig,
+    )
+    from align_anything_tpu_torch.models.vision import ViTConfig  # noqa: PLC0415
+
+    device = default_device(device)
+    with open(os.path.join(path, 'config.json')) as f:
+        hf = json.load(f)
+    if hf.get('model_type') in ('llava_next', 'llava_next_video'):
+        raise NotImplementedError(
+            f"{hf['model_type']} checkpoints are not ported yet (ROADMAP §1 "
+            'item 12: LLaVA-Next AnyRes and video)')
+    tc, vc = hf['text_config'], hf['vision_config']
+    text_cfg = ModelConfig(
+        vocab_size=tc['vocab_size'], hidden_size=tc['hidden_size'],
+        num_layers=tc['num_hidden_layers'],
+        num_heads=tc['num_attention_heads'],
+        num_kv_heads=tc.get('num_key_value_heads', tc['num_attention_heads']),
+        head_dim=tc['hidden_size'] // tc['num_attention_heads'],
+        mlp_dim=tc['intermediate_size'],
+        max_position_embeddings=tc.get('max_position_embeddings', 4096),
+        rope_theta=tc.get('rope_theta', 10000.0),
+        norm_eps=tc.get('rms_norm_eps', 1e-6),
+        qkv_bias=tc.get('model_type') == 'qwen2',
+        tie_word_embeddings=hf.get('tie_word_embeddings',
+                                   tc.get('tie_word_embeddings', False)),
+        bos_token_id=tc.get('bos_token_id', 1) or 1,
+        eos_token_id=tc.get('eos_token_id', 2) or 2,
+        pad_token_id=hf.get('pad_token_id') or tc.get('pad_token_id')
+        or tc.get('eos_token_id', 2),
+    )
+    vision_cfg = ViTConfig(
+        image_size=vc['image_size'], patch_size=vc['patch_size'],
+        hidden_size=vc['hidden_size'], num_layers=vc['num_hidden_layers'],
+        num_heads=vc['num_attention_heads'], mlp_dim=vc['intermediate_size'],
+        activation=vc.get('hidden_act', 'quick_gelu'),
+        feature_layer=hf.get('vision_feature_layer', -2),
+        feature_select=('default'
+                        if hf.get('vision_feature_select_strategy',
+                                  'default') == 'default' else 'full'),
+    )
+
+    raw = _read_all_tensors(path)
+    # normalize the prefixes to language_model.* / vision_tower.* /
+    # multi_modal_projector.*
+    norm: dict[str, torch.Tensor] = {}
+    for k, v in raw.items():
+        k = k.removeprefix('model.')
+        norm[k.replace('language_model.model.', 'language_model.')] = v
+    lm_raw = {}
+    for k, v in norm.items():
+        if k == 'language_model.lm_head.weight':
+            lm_raw['lm_head.weight'] = v
+        elif k.startswith('language_model.'):
+            lm_raw['model.' + k.removeprefix('language_model.')] = v
+    if 'lm_head.weight' in norm:
+        lm_raw['lm_head.weight'] = norm['lm_head.weight']
+    lm_params = _load_llama_like(_OnDevice(lm_raw, device, dtype), text_cfg)
+
+    vt = _OnDevice({k.removeprefix('vision_tower.vision_model.'): v
+                    for k, v in norm.items()
+                    if k.startswith('vision_tower.')}, device, dtype)
+    c = vision_cfg
+    d, h, hd, n = c.hidden_size, c.num_heads, c.head_dim, c.num_layers
+    pre = 'encoder.layers.{i}.'
+    heads = lambda x: x.reshape(h, hd)  # noqa: E731
+    tower: dict[str, Any] = {
+        # conv (D, C, P, P) -> (C*P*P, D)
+        'patch_embed': {
+            'w': vt['embeddings.patch_embedding.weight'].reshape(d, -1).T
+            .contiguous(),
+            'b': (vt['embeddings.patch_embedding.bias']
+                  if 'embeddings.patch_embedding.bias' in vt.tensors
+                  else torch.zeros(d, device=device, dtype=dtype)),
+        },
+        'pos_embed': vt['embeddings.position_embedding.weight'],
+        'pre_norm': {'w': vt['pre_layrnorm.weight'],
+                     'b': vt['pre_layrnorm.bias']},
+        'layers': {
+            'norm1': {'w': _stack(vt, pre + 'layer_norm1.weight', n, _same),
+                      'b': _stack(vt, pre + 'layer_norm1.bias', n, _same)},
+            **{nm: {'w': _stack(vt, pre + f'self_attn.{nm}_proj.weight', n,
+                                _qkv_in(d, h, hd)),
+                    'b': _stack(vt, pre + f'self_attn.{nm}_proj.bias', n,
+                                heads)}
+               for nm in ('q', 'k', 'v')},
+            'o': {'w': _stack(vt, pre + 'self_attn.out_proj.weight', n,
+                              _o_in(d, h, hd)),
+                  'b': _stack(vt, pre + 'self_attn.out_proj.bias', n, _same)},
+            'norm2': {'w': _stack(vt, pre + 'layer_norm2.weight', n, _same),
+                      'b': _stack(vt, pre + 'layer_norm2.bias', n, _same)},
+            'up': {'w': _stack(vt, pre + 'mlp.fc1.weight', n, _T),
+                   'b': _stack(vt, pre + 'mlp.fc1.bias', n, _same)},
+            'down': {'w': _stack(vt, pre + 'mlp.fc2.weight', n, _T),
+                     'b': _stack(vt, pre + 'mlp.fc2.bias', n, _same)},
+        },
+        'post_norm': {'w': vt['post_layernorm.weight'],
+                      'b': vt['post_layernorm.bias']},
+    }
+    if 'embeddings.class_embedding' in vt.tensors:
+        tower['class_token'] = vt['embeddings.class_embedding']
+
+    pt = _OnDevice(norm, device, dtype)
+    proj: dict[str, Any] = {}
+    i = 0
+    while f'multi_modal_projector.linear_{i + 1}.weight' in norm:
+        proj[f'linear_{i}'] = {
+            'w': _T(pt[f'multi_modal_projector.linear_{i + 1}.weight']),
+            'b': pt[f'multi_modal_projector.linear_{i + 1}.bias'],
+        }
+        i += 1
+    cfg = MultimodalConfig(text=text_cfg, vision=vision_cfg,
+                           image_token_id=hf.get('image_token_index', 32000),
+                           projector_layers=max(i, 1))
+    return ({'language_model': lm_params, 'vision_tower': tower,
+             'projector': proj}, cfg)
+
+
 # ---------------------------------------------------------------------------
 # save (HF layout)
 # ---------------------------------------------------------------------------
@@ -308,6 +437,97 @@ def save_params(path: str, params: dict, config: ModelConfig,
     hf_cfg = _to_hf_config(config)
     hf_cfg['torch_dtype'] = str(dtype).removeprefix('torch.')
     hf_cfg.update(hf_config_extra or {})
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf_cfg, f, indent=2)
+
+
+def save_multimodal_params(path: str, params: dict, cfg,
+                           dtype: torch.dtype = torch.float32) -> None:
+    """Write a LLaVA-layout multimodal checkpoint in HF format, every tensor
+    in ``dtype``: the inverse of ``load_multimodal_params``, with the tensor
+    names of transformers' ``LlavaForConditionalGeneration`` (the older
+    ``language_model.model.*`` prefix, as the JAX module writes)."""
+    from align_anything_tpu_torch.models.multimodal import check_supported  # noqa: PLC0415
+
+    check_supported(cfg)
+    os.makedirs(path, exist_ok=True)
+    tc = cfg.text
+    lm_params = params['language_model']
+    if tc.true_vocab_size is not None and tc.true_vocab_size != tc.vocab_size:
+        lm_params = dict(lm_params)
+        lm_params['embedding'] = lm_params['embedding'][:tc.true_vocab_size]
+        if 'lm_head' in lm_params:
+            lm_params['lm_head'] = lm_params['lm_head'][:, :tc.true_vocab_size]
+        tc = tc.replace(vocab_size=tc.true_vocab_size, true_vocab_size=None)
+    out: dict[str, torch.Tensor] = {
+        ('language_model.lm_head.weight' if k == 'lm_head.weight'
+         else 'language_model.' + k): v
+        for k, v in _dump_llama_like(lm_params, tc).items()
+    }
+
+    vc = cfg.vision
+    d, h, hd = vc.hidden_size, vc.num_heads, vc.head_dim
+    vt = params['vision_tower']
+    vpre = 'vision_tower.vision_model.'
+    # (C*P*P, D) -> conv (D, C, P, P)
+    out[vpre + 'embeddings.patch_embedding.weight'] = \
+        vt['patch_embed']['w'].T.reshape(d, -1, vc.patch_size, vc.patch_size)
+    out[vpre + 'embeddings.position_embedding.weight'] = vt['pos_embed']
+    out[vpre + 'pre_layrnorm.weight'] = vt['pre_norm']['w']
+    out[vpre + 'pre_layrnorm.bias'] = vt['pre_norm']['b']
+    out[vpre + 'post_layernorm.weight'] = vt['post_norm']['w']
+    out[vpre + 'post_layernorm.bias'] = vt['post_norm']['b']
+    if 'class_token' in vt:
+        out[vpre + 'embeddings.class_embedding'] = vt['class_token']
+    lp = vt['layers']
+    lpre = vpre + 'encoder.layers.{i}.'
+    flat = lambda x: x.reshape(-1)  # noqa: E731
+    for nm, hf_nm in (('norm1', 'layer_norm1'), ('norm2', 'layer_norm2')):
+        out.update(_unstack(lp[nm]['w'], lpre + f'{hf_nm}.weight', _same))
+        out.update(_unstack(lp[nm]['b'], lpre + f'{hf_nm}.bias', _same))
+    for nm in ('q', 'k', 'v'):
+        out.update(_unstack(lp[nm]['w'], lpre + f'self_attn.{nm}_proj.weight',
+                            lambda w: w.reshape(d, h * hd).T))
+        out.update(_unstack(lp[nm]['b'], lpre + f'self_attn.{nm}_proj.bias',
+                            flat))
+    out.update(_unstack(lp['o']['w'], lpre + 'self_attn.out_proj.weight',
+                        lambda w: w.reshape(h * hd, d).T))
+    out.update(_unstack(lp['o']['b'], lpre + 'self_attn.out_proj.bias', _same))
+    out.update(_unstack(lp['up']['w'], lpre + 'mlp.fc1.weight', lambda w: w.T))
+    out.update(_unstack(lp['up']['b'], lpre + 'mlp.fc1.bias', _same))
+    out.update(_unstack(lp['down']['w'], lpre + 'mlp.fc2.weight',
+                        lambda w: w.T))
+    out.update(_unstack(lp['down']['b'], lpre + 'mlp.fc2.bias', _same))
+    for i in range(cfg.projector_layers):
+        lin = params['projector'][f'linear_{i}']
+        out[f'multi_modal_projector.linear_{i + 1}.weight'] = lin['w'].T
+        out[f'multi_modal_projector.linear_{i + 1}.bias'] = lin['b']
+    write_safetensors(os.path.join(path, 'model.safetensors'), out,
+                      metadata={'format': 'pt'}, dtype=dtype)
+
+    torch_dtype = str(dtype).removeprefix('torch.')
+    text_hf = _to_hf_config(tc)
+    text_hf['torch_dtype'] = torch_dtype
+    hf_cfg = {
+        'architectures': ['LlavaForConditionalGeneration'],
+        'model_type': 'llava',
+        'image_token_index': cfg.image_token_id,
+        'vision_feature_layer': vc.feature_layer,
+        'vision_feature_select_strategy':
+            'default' if vc.feature_select == 'default' else 'full',
+        'tie_word_embeddings': tc.tie_word_embeddings,
+        'torch_dtype': torch_dtype,
+        'text_config': text_hf,
+        'vision_config': {
+            'model_type': 'clip_vision_model',
+            'image_size': vc.image_size, 'patch_size': vc.patch_size,
+            'hidden_size': vc.hidden_size,
+            'num_hidden_layers': vc.num_layers,
+            'num_attention_heads': vc.num_heads,
+            'intermediate_size': vc.mlp_dim,
+            'hidden_act': vc.activation,
+        },
+    }
     with open(os.path.join(path, 'config.json'), 'w') as f:
         json.dump(hf_cfg, f, indent=2)
 

@@ -444,13 +444,17 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
             positions: torch.Tensor | None = None,
             cache: KVCache | None = None,
             cache_offset: torch.Tensor | int = 0,
-            need_logits: bool = True) -> ModelOutput:
+            need_logits: bool = True,
+            inputs_embeds: torch.Tensor | None = None) -> ModelOutput:
     """Run the decoder.
 
     No cache: ``attention_mask`` is (B, L) over the inputs.  With a cache:
     inputs are written at ``cache_offset`` and ``attention_mask``, when
     given, is (B, max_len) over cache slots (and includes the new tokens).
-    ``positions`` are required with a cache."""
+    ``positions`` are required with a cache.  ``inputs_embeds`` (B, L, E),
+    when given, replaces the embedding lookup of ``input_ids`` (the
+    multimodal models merge image features into it); positions still come
+    from the mask."""
     c = config
     check_supported(c)
     dtype = torch_dtype(c.compute_dtype)
@@ -466,7 +470,8 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
             positions = torch.arange(l, device=dev).expand(b, l)
     positions = positions.to(torch.long)
 
-    x = params['embedding'][input_ids].to(dtype)
+    x = (inputs_embeds.to(dtype) if inputs_embeds is not None
+         else params['embedding'][input_ids].to(dtype))
     if c.embedding_scale is not None:
         x = x * torch.tensor(c.embedding_scale, dtype=dtype)
     if c.positional == 'learned':

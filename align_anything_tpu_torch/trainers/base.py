@@ -16,10 +16,14 @@ is the identity, and a parallel config that needs more than one device (a
 ``data``, ``fsdp``, ``stage``, ``tensor``, ``sequence`` or ``expert`` axis
 above 1) raises.  The step runs eagerly, no ``jit``.
 
+Frozen modules (``FREEZE_FLAG_MODULES``, the multimodal trainers' flags)
+are leaves labelled ``'frozen'`` (``trainers/optimizer.py``
+``freeze_labels``) that do not require grad: the optimizer leaves them out
+and autograd skips their backward.
+
 Not ported, each raising ``NotImplementedError``: LoRA / QLoRA
 (``init_peft`` with ``lora_cfgs.use_lora`` or ``bnb_cfgs.use_bnb``,
-``lora_policy``, ``save_lora_merged``, ``compile_lora_train_step``),
-and frozen modules (``FREEZE_FLAG_MODULES``: multimodal keys only).
+``lora_policy``, ``save_lora_merged``, ``compile_lora_train_step``).
 The generation-based eval of the RL trainers (``eval_generate``,
 ``generation_eval``, ``make_eval_prompt_iterator``) runs the port's
 ``generation/engine.py`` ``generate``.
@@ -49,6 +53,7 @@ from align_anything_tpu_torch.trainers.optimizer import (
     ClippedAdamW,
     MultiSteps,
     Schedule,
+    freeze_labels,
     make_optimizer,
 )
 from align_anything_tpu_torch.utils.config import namedtuple_to_dict
@@ -76,12 +81,23 @@ class TrainState:
 
 def init_train_state(params: dict, tx: ClippedAdamW | MultiSteps
                      ) -> TrainState:
-    """``params``' leaves must already be trainable (leaf tensors with
-    ``requires_grad``, as ``bridge.trainable_from_jax_tree`` makes them):
-    a frozen leaf would get no gradient and silently never move."""
-    if not all(t.is_leaf and t.requires_grad for t in param_leaves(params)):
-        raise ValueError('init_train_state: every param must be a leaf tensor '
-                         'with requires_grad')
+    """``params``' leaves must be leaf tensors, and every leaf that ``tx``'s
+    ``frozen_labels`` does not mark ``'frozen'`` must already require grad
+    (as ``bridge.trainable_from_jax_tree`` makes them): such a leaf without
+    it would get no gradient and silently never move.  A frozen leaf is
+    set not to require grad, so autograd skips its backward."""
+    leaves = param_leaves(params)
+    labels = (['train'] * len(leaves) if tx.frozen_labels is None
+              else param_leaves(tx.frozen_labels))
+    if len(labels) != len(leaves):
+        raise ValueError('init_train_state: frozen_labels does not match the '
+                         'param tree')
+    for t, label in zip(leaves, labels):
+        if not t.is_leaf or (label == 'train' and not t.requires_grad):
+            raise ValueError('init_train_state: every param must be a leaf '
+                             'tensor, with requires_grad unless it is frozen')
+        if label == 'frozen':
+            t.requires_grad_(False)
     return TrainState(params=params, optimizer=tx.init(params))
 
 
@@ -326,14 +342,23 @@ class TrainerBase:
                 mods.extend(names)
         return tuple(dict.fromkeys(mods))
 
-    def build_optimizer(self, total_steps: int, params: dict | None = None):
+    def build_optimizer(self, total_steps: int):
+        """(optimizer, schedule) from ``train_cfgs``; the modules that the
+        freeze flags name (``frozen_modules``) are labelled frozen in
+        ``self.params``."""
         tc = self.cfgs.train_cfgs
-        if self.frozen_modules():
-            raise NotImplementedError(
-                f'frozen modules {self.frozen_modules()} are not ported yet '
-                '(ROADMAP §1 item 9)')
+        mods = self.frozen_modules()
+        frozen = None
+        if mods:
+            if getattr(self, 'params', None) is None:
+                raise ValueError(
+                    f'freeze flags name {mods} but the trainer has no '
+                    'params to label; load the model before building the '
+                    'optimizer')
+            frozen = freeze_labels(self.params, mods)
         return make_optimizer(
             float(tc.learning_rate or 1e-5),
+            frozen_labels=frozen,
             lr_scheduler_type=tc.lr_scheduler_type or 'constant',
             total_steps=total_steps,
             lr_warmup_ratio=float(tc.lr_warmup_ratio or 0.0),
@@ -346,7 +371,8 @@ class TrainerBase:
 
     def trainable(self, params: dict) -> dict:
         """The loaded params as the train state's leaves: fp32 leaf tensors
-        with ``requires_grad``."""
+        with ``requires_grad`` (``init_train_state`` turns it off on the
+        leaves of frozen modules)."""
         return tree_map(lambda t: t.float().requires_grad_(True), params)
 
     def build_train_state(self, params: dict, tx) -> TrainState:

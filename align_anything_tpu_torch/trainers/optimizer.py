@@ -13,20 +13,52 @@ norm reaches max_norm, and ``max_grad_norm=0`` turns it off.
 folds this step's gradients into a running mean; every k-th call the clip
 and AdamW run once, on that mean, and AdamW's count (its bias correction
 and the ``schedule(count)`` it applies) advances once per update, not per
-call.  Frozen labels (``optax.multi_transform``) are not ported: no
-text-to-text config freezes a module.
+call.
+
+``frozen_labels`` (a tree of ``'train'`` / ``'frozen'`` from
+``freeze_labels``) is ``optax.multi_transform({'train': chain, 'frozen':
+set_to_zero()})``: the optimizer holds only the trainable leaves, so a
+frozen leaf has no AdamW state, gets no update and no weight decay, stays
+out of the global-norm clip and, under ``MultiSteps``, out of the running
+mean.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable
 
 import torch
 
 from align_anything_tpu_torch.utils.tools import param_leaves
 
 Schedule = Callable[[int], float]
+
+
+def freeze_labels(params: dict, frozen_modules: tuple[str, ...]) -> dict:
+    """Label tree for ``make_optimizer(frozen_labels=...)``: ``'frozen'`` for
+    every leaf whose path has one of ``frozen_modules`` as a component,
+    ``'train'`` otherwise (the reference's ``param.requires_grad_(False)``
+    by module name, models/pretrained_model.py:265-281)."""
+    def label(tree: Any, frozen: bool) -> Any:
+        if isinstance(tree, dict):
+            return {k: label(v, frozen or k in frozen_modules)
+                    for k, v in tree.items()}
+        return 'frozen' if frozen else 'train'
+    return label(params, False)
+
+
+def trainable_leaves(params: dict, labels: dict | None
+                     ) -> list[torch.Tensor]:
+    """The leaves of ``params`` labelled ``'train'`` (all of them without
+    labels), in ``param_leaves`` order."""
+    leaves = param_leaves(params)
+    if labels is None:
+        return leaves
+    flags = param_leaves(labels)
+    if len(flags) != len(leaves):
+        raise ValueError('frozen_labels does not match the param tree')
+    return [t for t, f in zip(leaves, flags) if f == 'train']
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
@@ -71,23 +103,27 @@ class ClippedAdamW:
     """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule,
     b1, b2, eps, weight_decay))`` for torch.
 
-    ``init(params)`` makes the ``torch.optim.AdamW`` over the tree's leaves
-    (its state holds the moments); ``apply_(optimizer, step)`` clips the
-    leaves' ``.grad`` in place, sets the learning rate to ``schedule(step)``
-    and steps, updating the params in place.  A leaf without ``.grad``
+    ``init(params)`` makes the ``torch.optim.AdamW`` over the tree's
+    trainable leaves (all of them, or those ``frozen_labels`` marks
+    ``'train'``; its state holds the moments); ``apply_(optimizer, step)``
+    clips the leaves' ``.grad`` in place, sets the learning rate to
+    ``schedule(step)`` and steps, updating the params in place.  A leaf without ``.grad``
     gets a zero gradient first, so weight decay moves it as optax's does.
     It returns the global norm of the gradients before clipping."""
 
     def __init__(self, schedule: Schedule, b1: float, b2: float, eps: float,
-                 weight_decay: float, max_grad_norm: float):
+                 weight_decay: float, max_grad_norm: float,
+                 frozen_labels: dict | None = None):
         self.schedule = schedule
         self.betas = (b1, b2)
         self.eps = eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.frozen_labels = frozen_labels
 
     def init(self, params: dict) -> torch.optim.AdamW:
-        return torch.optim.AdamW(param_leaves(params), lr=self.schedule(0),
+        return torch.optim.AdamW(trainable_leaves(params, self.frozen_labels),
+                                 lr=self.schedule(0),
                                  betas=self.betas, eps=self.eps,
                                  weight_decay=self.weight_decay)
 
@@ -160,6 +196,10 @@ class MultiSteps:
         self.inner = inner
         self.every_k = every_k
 
+    @property
+    def frozen_labels(self) -> dict | None:
+        return self.inner.frozen_labels
+
     def init(self, params: dict) -> AccumulatingOptimizer:
         return AccumulatingOptimizer(self.inner.init(params))
 
@@ -196,13 +236,10 @@ def make_optimizer(learning_rate: float, *,
                    frozen_labels: dict | None = None,
                    ) -> tuple[ClippedAdamW | MultiSteps, Schedule]:
     """(optimizer, schedule), the JAX ``make_optimizer``'s signature."""
-    if frozen_labels is not None:
-        raise NotImplementedError('frozen modules (frozen_labels) are not '
-                                  'ported yet')
     schedule = make_schedule(learning_rate, lr_scheduler_type, total_steps,
                              lr_warmup_ratio)
     tx = ClippedAdamW(schedule, adam_betas[0], adam_betas[1], adam_epsilon,
-                      weight_decay, max_grad_norm)
+                      weight_decay, max_grad_norm, frozen_labels)
     if gradient_accumulation_steps > 1:
         return MultiSteps(tx, gradient_accumulation_steps), schedule
     return tx, schedule

@@ -47,16 +47,22 @@ from align_anything_tpu_torch.utils.tools import tree_map
 class DPOStep:
     """The DPO update step.  ``preference_loss`` (default: ``dpo_loss``)
     may be replaced by a reference-free loss, which gets ``ref_logp=None``
-    when ``step`` is given no reference tree."""
+    when ``step`` is given no reference tree; ``compute_token_logprobs``
+    (default: the decoder's chunked log-probs) by another model's, such as
+    the multimodal one."""
 
     def __init__(self, model_cfg: ModelConfig, tx: ClippedAdamW | MultiSteps,
                  schedule: Schedule, scale_coeff: float = 0.1,
-                 preference_loss: Callable[..., dict] | None = None):
+                 preference_loss: Callable[..., dict] | None = None,
+                 compute_token_logprobs: Callable[..., torch.Tensor]
+                 | None = None):
         self.model_cfg = model_cfg
         self.tx = tx
         self.scale_coeff = scale_coeff
         if preference_loss is not None:
             self.preference_loss = preference_loss
+        if compute_token_logprobs is not None:
+            self.compute_token_logprobs = compute_token_logprobs
         self._step = make_train_step(self.loss_fn, tx, schedule)
 
     def init_state(self, params: dict) -> TrainState:
@@ -111,9 +117,18 @@ class DPOTrainer(TrainerBase):
             self.cfgs.model_cfgs.model_name_or_path, self.model_cfg)
         self.params = self.trainable(
             self.shard_model_params(params, self.model_cfg))
-        # frozen reference = the starting policy (reference dpo.py:114-120)
-        self.ref_params = (tree_map(lambda t: t.detach().clone(), self.params)
+        self.ref_params = (self.reference_copy(self.params)
                            if self.NEEDS_REF else None)
+
+    def reference_copy(self, params: dict) -> dict:
+        """The frozen reference = the starting policy (reference
+        dpo.py:114-120): a copy of each leaf that training updates, and the
+        policy's own tensors, detached, for the modules that the freeze
+        flags name, which no step changes."""
+        frozen = set(self.frozen_modules())
+        return {k: tree_map(torch.Tensor.detach if k in frozen
+                            else lambda t: t.detach().clone(), v)
+                for k, v in params.items()}
 
     def init_datasets(self) -> None:
         dc = self.cfgs.data_cfgs
@@ -143,12 +158,18 @@ class DPOTrainer(TrainerBase):
             logp, ref_logp, batch['input_ids'], batch['response_mask'],
             scale_coeff=float(self.cfgs.train_cfgs.scale_coeff or 0.1))
 
+    # another model's log-probs (the multimodal one's) replace DPOStep's
+    # decoder log-probs where a subclass defines this method
+    compute_token_logprobs = None
+
     def init_engines(self) -> None:
         total = self.total_training_steps(self.train_iterator)
         tx, schedule = self.build_optimizer(total)
         self.init_peft()
-        self.engine = DPOStep(self.model_cfg, tx, schedule,
-                              preference_loss=self.preference_loss)
+        self.engine = DPOStep(
+            self.model_cfg, tx, schedule,
+            preference_loss=self.preference_loss,
+            compute_token_logprobs=self.compute_token_logprobs)
         self.state = self.build_train_state(self.params, tx)
         del self.params
         self.state = self.maybe_resume(self.state)

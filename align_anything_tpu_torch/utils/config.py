@@ -3,12 +3,13 @@ port of ``align_anything_tpu/utils/config.py``, with the same functions and
 the same coercions.
 
 The configs are the port's own copies under
-``align_anything_tpu_torch/configs/`` (the text-to-text train configs and
-``parallel/mesh_fsdp.json``, plus ``parallel/single_gpu_dots_saveable.json``,
-which the JAX package does not have); the JAX package's files are never
-read.  ``yaml`` is imported where it is used, not with the module.  A
-parallel config here describes one GPU: ``trainers/base.py`` raises for a
-mesh axis other than data or fsdp above 1.
+``align_anything_tpu_torch/configs/`` (the text-to-text and
+text-image-to-text train configs and ``parallel/mesh_fsdp.json``, plus
+``parallel/single_gpu_dots_saveable.json``, which the JAX package does not
+have); the JAX package's files are never read.  ``yaml`` is imported
+where it is used, not with the module.  A parallel config here describes
+one GPU: ``trainers/base.py`` raises for a mesh axis other than data or
+fsdp above 1.
 
 Behavior-parity with the reference three-layer override scheme
 (reference: align_anything/utils/tools.py:169-206,331-375):

@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the repository root, one H100
 
 Phases (any failure raises and the run exits non-zero):
-  0. require a CUDA device; print the card's name and power limit;
+  0. require a CUDA device; print the card's name and power limit, and
+     whether Pillow imports;
   1. build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
      per source, started together; count the tensor-core instructions
      (HMMA) in each instance of K2's kernel and of its A/B variants v1 and
@@ -39,7 +40,8 @@ Phases (any failure raises and the run exits non-zero):
      pads; query rows that see no key give exact zeros), check that the
      backward repeats bit for bit, and time kernel, plain version and
      ``scaled_dot_product_attention`` (a yardstick only) at the two main
-     shapes and at phase 16's (Qwen2.5-0.5B's heads);
+     shapes, at phase 16's (Qwen2.5-0.5B's heads) and at phase 18's tower
+     (full attention at L 577);
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -98,15 +100,28 @@ Phases (any failure raises and the run exits non-zero):
      (stdlib, a daemon thread on a free port of 127.0.0.1) for one round,
      each reward the ``example_length`` rule over the decoded texts; PPO
      with the continuous rollout by default for one round (round 1's KL
-     exactly 0); one step each of KTO and GRPO.
+     exactly 0); one step each of KTO and GRPO;
+ 18. TI2T DPO through ``trainer_main(TI2TDPOTrainer, ...)`` at
+     LLaVA-1.5-7B widths (the language model cut to 4 layers, the CLIP
+     ViT-L/14-336 tower at its 24 layers, frozen): a bf16 LLaVA-layout
+     checkpoint written from a seed with the port's exporter, AA_TI2T rows
+     with 336x336 images (PNG files where Pillow imports, else arrays), 4
+     steps of 2 pairs in the 1024 bucket: step 1's loss ln 2, the tower
+     bit-equal after the run while the language model and projector move,
+     the attention kernels' launches exact, step 1's log-prob sums against
+     a plain recompute; the step time, tokens/s and peak memory;
+ 18b. TI2T SFT at the same widths, 2 text and 4 tower layers: with the
+     tower trained (its full-mode backward launched) and with the tower and
+     projector frozen (both bit-equal); launches exact.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
     python3 chip_smoke.py --profile   # instead: trace one DPO step of the
-                                      # phase 7 and phase 8 configs and
-                                      # one PPO round of phase 12's
+                                      # phase 7 and phase 8 configs, one
+                                      # PPO round of phase 12's and one
+                                      # TI2T DPO step of phase 18's
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
 each DPO config with ``torch.profiler`` and prints device time by kernel,
@@ -214,6 +229,11 @@ FLASH_SHAPES = [
      False),
     # phase 16's micro-batch: Qwen2.5-0.5B's heads (a GQA group of 7)
     ('qwen05b', 4, 256, 14, 2, 64, True, None, 2, None, torch.bfloat16,
+     True),
+    # phase 18's tower: CLIP ViT-L/14 at 336 px, full (non-causal)
+    # attention over 576 patches + the class token (not a multiple of the
+    # kernels' tiles: only the kernels' key bounds hide the keys past L)
+    ('vit336', 8, 577, 16, 16, 64, False, None, 0, None, torch.bfloat16,
      True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
@@ -1163,9 +1183,11 @@ def harness_full(dev, smi, bare: dict, tmp: str) -> dict:
     # prompt 400 words, responses 150-600: 555-1005 tokens, the 1024 bucket
     data = write_jsonl(os.path.join(tmp, 'pref_8b.jsonl'), preference_rows(
         SEED + 51, DPO_STEPS * DPO_PAIRS, 400, (150, 601)))
+    # no --output_dir: an fp32 export of this model is 7.7 GB of disk
+    # writes that nothing reads (phase 12 exports at these widths, phase 10
+    # reads its export back), and the card's machine ends a run past 45 GiB
     argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
             '--train_template', 'PKUSafeRLHF',
-            '--output_dir', os.path.join(tmp, 'out_8b'),
             '--save_checkpoint', 'False', '--epochs', '1',
             '--per_device_train_batch_size', str(DPO_PAIRS)]
     log(f'phase9 wrote the checkpoint ({cfg.num_layers} layers at Llama-3-8B '
@@ -1201,7 +1223,7 @@ def harness_full(dev, smi, bare: dict, tmp: str) -> dict:
         f'({nbytes / timing["load_s"] / 1e9:.3f} GB/s of bf16 file, fp32 on '
         f'the card); batch {tuple(shape)}; remat {mcfg.remat}, compute '
         f'{mcfg.compute_dtype}; trainer_main {total_s:.2f} s in all (load, '
-        f'{len(steps)} steps, fp32 HF slice save)')
+        f'{len(steps)} steps, no export)')
     log(f'phase9 harness step time {step_s:.4f} s (median of steps 2-'
         f'{len(steps)}, the loop\'s own clock: collation, pinned copy, '
         f'step, metrics) vs phase 7 bare step {bare["step_s"]:.4f} s '
@@ -1589,11 +1611,13 @@ def ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
     per_round = {'fwd': (4 + 2 * n_micro) * RL_LAYERS,
                  'bwd': 2 * n_micro * RL_LAYERS}
     runs = {}
-    for backend, rounds, extra in (
-            ('batch', 2, ()),
+    # the second run exports nothing: 6 GB more of disk writes (see phase
+    # 9) for the same save the first run makes
+    for backend, rounds, extra, out in (
+            ('batch', 2, (), os.path.join(tmp, 'out_ppo_batch')),
             ('continuous', 1, ('--rollout_backend', 'continuous',
                                '--rollout_num_slots', '8',
-                               '--train_size', str(PPO_ROUND)))):
+                               '--train_size', str(PPO_ROUND)), None)):
         free_memory()
         resident = torch.cuda.memory_allocated()
         torch.cuda.synchronize()
@@ -1603,8 +1627,7 @@ def ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
         with mock.patch.object(PPOTrainer, 'score_rollout', recording):
             trainer, steps, timing = run_trainer(
                 PPOTrainer, 'text_to_text/ppo', ppo_argv(
-                    rm['ckpt'], rm['slice'], data,
-                    os.path.join(tmp, f'out_ppo_{backend}'), *common, *extra))
+                    rm['ckpt'], rm['slice'], data, out, *common, *extra))
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = flash_counts()
@@ -1622,7 +1645,8 @@ def ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
                 f' (+ loop); generated tokens/s {tps:.1f}')
         need = {k: rounds * v for k, v in per_round.items()}
         log(f'phase12 {backend}: trainer_main {total_s:.2f} s (4 models '
-            f'loaded, {len(steps)} rounds, fp32 actor slice saved); peak '
+            f'loaded, {len(steps)} rounds, '
+            f'{"fp32 actor slice saved" if out else "no export"}); peak '
             f'memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident '
             f'before); flash launches fwd '
             f'{launches["fwd"]} (need >= {need["fwd"]}) bwd '
@@ -2304,6 +2328,340 @@ def rl_variants_small(dev, smi, tmp: str, cost: str) -> dict:
     return {'launches': launches}
 
 
+# phase 18: text-image-to-text DPO at LLaVA-1.5-7B widths through its
+# entry point; 18b: TI2T SFT with the tower trained and frozen.  The widths
+# are llava-hf/llava-1.5-7b-hf's config.json: a Llama-2-7B-width language
+# model (vocab 32064, hidden 4096, 32 heads of 128, MLP 11008, RMS eps
+# 1e-5, rope theta 10000) cut to 4 layers, so that its fp32 params, grads
+# and AdamW moments fit one card as phase 7's do; the CLIP ViT-L/14 tower
+# at 336 px at its full 24 layers (hidden 1024, 16 heads of 64, MLP 4096,
+# quick_gelu; features from layer -2, the class token dropped: 576 image
+# tokens a row); the 2-layer GELU projector; image token 32000.  The
+# tower is frozen (the YAML's freeze_vision_tower), so it runs forward
+# only: 23 layers a pass, for the policy and the reference.
+TI2T_TEXT_LAYERS, TI2T_PAIRS, TI2T_STEPS, TI2T_BUCKET = 4, 2, 4, 1024
+TI2T_SMALL_TEXT_LAYERS, TI2T_SMALL_TOWER_LAYERS = 2, 4
+TI2T_SMALL_ROWS, TI2T_SMALL_BATCH = 4, 2
+
+
+def llava_config(text_layers: int = TI2T_TEXT_LAYERS,
+                 tower_layers: int = 24):
+    """llava-hf/llava-1.5-7b-hf's published widths, depth cut to
+    ``text_layers`` / ``tower_layers``."""
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+    from align_anything_tpu_torch.models.multimodal import (  # noqa: PLC0415
+        MultimodalConfig)
+    from align_anything_tpu_torch.models.vision import ViTConfig  # noqa: PLC0415
+
+    text = ModelConfig(vocab_size=32064, hidden_size=4096,
+                       num_layers=text_layers, num_heads=32, num_kv_heads=32,
+                       head_dim=128, mlp_dim=11008,
+                       max_position_embeddings=4096, rope_theta=10000.0,
+                       norm_eps=1e-5, bos_token_id=1, eos_token_id=2,
+                       pad_token_id=32001)
+    tower = ViTConfig(image_size=336, patch_size=14, hidden_size=1024,
+                      num_layers=tower_layers, num_heads=16, mlp_dim=4096,
+                      activation='quick_gelu', feature_layer=-2,
+                      feature_select='default')
+    return MultimodalConfig(text=text, vision=tower, image_token_id=32000)
+
+
+def pillow_available() -> bool:
+    try:
+        import PIL.Image  # noqa: F401, PLC0415
+    except ImportError:
+        return False
+    return True
+
+
+def ti2t_images(tmp: str, n: int, size: int, seed: int) -> list:
+    """``n`` random RGB images at the tower's size, written as PNG files
+    (the data layer opens an image file with Pillow, which must import)."""
+    from PIL import Image  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        arr = rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+        path = os.path.join(tmp, f'ti2t_{seed}_{i}.png')
+        Image.fromarray(arr).save(path)
+        paths.append(path)
+    return paths
+
+
+def ti2t_rows(images: list, seed: int, preference: bool) -> list:
+    """AA_TI2T rows of random words over ``images``: a question of 100-150
+    words and responses of 50-250, so a row (576 image tokens, the chat
+    format's words) fits the 1024 bucket."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for image in images:
+        row = {'question': words(rng, int(rng.integers(100, 151))),
+               'image': image}
+        if preference:
+            row.update(response_1=words(rng, int(rng.integers(50, 251))),
+                       response_2=words(rng, int(rng.integers(50, 251))),
+                       overall_response=int(rng.integers(1, 3)))
+        else:
+            row['response'] = words(rng, int(rng.integers(50, 251)))
+        rows.append(row)
+    return rows
+
+
+def run_ti2t(trainer_cls, task: str, argv: list,
+             mesh_file: str | None = None) -> tuple:
+    """``run_trainer`` for a TI2T trainer, timing the LLaVA checkpoint's
+    load."""
+    from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
+        sft as ti2t_sft)
+
+    timing = {}
+    load = ti2t_sft.load_multimodal_params
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        timing['load_s'] = time.perf_counter() - t0
+        return out
+
+    with mock.patch.object(ti2t_sft, 'load_multimodal_params', timed_load):
+        trainer, steps, _ = run_trainer(trainer_cls, task, argv, mesh_file)
+    return trainer, steps, timing
+
+
+def write_llava(cfg, path: str, seed: int, dev) -> dict:
+    """A LLaVA checkpoint of ``cfg`` with random weights from ``seed``,
+    written in bf16 by the port's exporter: params per module, seconds and
+    bytes."""
+    from align_anything_tpu_torch.models import multimodal  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        save_multimodal_params)
+
+    params = multimodal.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = {m: sum(t.numel() for t in param_leaves(params[m]))
+                for m in params}
+    t0 = time.perf_counter()
+    save_multimodal_params(path, params, cfg, dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    del params
+    free_memory()
+    return {'n_params': n_params, 'write_s': write_s,
+            'bytes': os.path.getsize(os.path.join(path, 'model.safetensors'))}
+
+
+def changed_modules(params: dict, start: dict) -> dict:
+    """module -> whether any leaf of it differs from ``start``."""
+    return {m: any(not torch.equal(a, start[m][k])
+                   for k, a in leaves_by_path(params[m]).items())
+            for m in params}
+
+
+def ti2t_dpo_assets(cfg, dev, tmp: str) -> tuple:
+    """Phase 18's checkpoint (seeded), its AA_TI2T preference rows and the
+    command line: (checkpoint dir, what was written, images, argv)."""
+    path = os.path.join(tmp, 'llava7b')
+    w = write_llava(cfg, path, SEED + 80, dev)
+    n = w['n_params']
+    images = ti2t_images(tmp, TI2T_STEPS * TI2T_PAIRS,
+                         cfg.vision.image_size, SEED + 81)
+    data = write_jsonl(os.path.join(tmp, 'pref_llava.jsonl'),
+                       ti2t_rows(images, SEED + 82, preference=True))
+    argv = ['--model_name_or_path', path, '--train_datasets', data,
+            '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(TI2T_PAIRS), '--padding_buckets', f'[{TI2T_BUCKET}]']
+    line = (f'wrote the checkpoint (LLaVA-1.5-7B widths, text '
+            f'{cfg.text.num_layers} layers, tower {cfg.vision.num_layers} '
+            f'layers; params language_model '
+            f'{n["language_model"] / 1e9:.3f} B, vision_tower '
+            f'{n["vision_tower"] / 1e9:.3f} B, projector '
+            f'{n["projector"] / 1e9:.4f} B; bf16 safetensors in LLaVA '
+            f'layout): {w["bytes"] / 1e9:.3f} GB in {w["write_s"]:.2f} s')
+    return path, line, images, argv
+
+
+def ti2t_full(dev, smi, tmp: str) -> dict:
+    """Phase 18: TI2T DPO through ``trainer_main(TI2TDPOTrainer, ...)``
+    (``python -m ...text_image_to_text.dpo``) at LLaVA-1.5-7B widths, from
+    a bf16 LLaVA-layout checkpoint written by the port's exporter."""
+    from align_anything_tpu_torch.models import multimodal  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_multimodal_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = llava_config()
+    ckpt, written, images, argv = ti2t_dpo_assets(cfg, dev, tmp)
+    log(f'phase18 {written}; {len(images)} AA_TI2T preference rows over '
+        f'PNG files; argv '
+        f'{" ".join(argv[2:])}; MESH_FILE={HARNESS_MESH}')
+    first: dict = {}
+    preference_loss = TI2TDPOTrainer.preference_loss
+
+    def recording(self, logp, ref_logp, batch):
+        if not first:
+            m = batch['response_mask']
+            first.update(batch={k: batch[k].clone() for k in (
+                'input_ids', 'attention_mask', 'response_mask',
+                'pixel_values')},
+                sums=masked_sums(logp, m), ref_sums=masked_sums(ref_logp, m))
+        return preference_loss(self, logp, ref_logp, batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(TI2TDPOTrainer, 'preference_loss', recording):
+        trainer, steps, timing = run_ti2t(
+            TI2TDPOTrainer, 'text_image_to_text/dpo', argv, HARNESS_MESH)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    start, _ = load_multimodal_params(ckpt, device=dev)
+    moved = changed_modules(trainer.state.params,
+                            {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    n_image = (b['input_ids'] == cfg.image_token_id).sum(-1).tolist()
+    losses = [m['train/loss'] for m in steps]
+    seconds = [m['perf/step_time_s'] for m in steps]
+    for i, m in enumerate(steps):
+        log(f'phase18 step {i + 1}: loss={losses[i]!r} grad_norm='
+            f'{m["train/grad_norm"]:.6e} reward_accuracy='
+            f'{m["train/reward_accuracy"]:.3f} seconds={seconds[i]:.4f}')
+    step_s = statistics.median(seconds[1:])
+    tps = shape[0] * shape[1] / step_s
+    tower = cfg.vision.layers_run
+    layers = mcfg.text.num_layers
+    # each step: the tower's forward (frozen: no backward) for the policy
+    # and for the reference, the language model's forward for both and
+    # its recompute under 'dots_saveable', and its backward
+    need = {'fwd': TI2T_STEPS * (2 * tower + 3 * layers),
+            'bwd': TI2T_STEPS * layers}
+    log(f'phase18 TI2T DPO: batch {shape} with pixel_values '
+        f'{tuple(b["pixel_values"].shape)}; image tokens per row {n_image} '
+        f'(576 patches: a row with more holds a text word that hashes to the '
+        f'image token, ROADMAP R12); remat {mcfg.text.remat}, compute '
+        f'{mcfg.text.compute_dtype}; trainer_main {total_s:.2f} s (load '
+        f'{timing["load_s"]:.2f} s, {len(steps)} steps); step time '
+        f'{step_s:.4f} s (median of steps 2-{len(steps)}), {tps:.1f} '
+        f'tokens/s; peak memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB '
+        f'resident before); modules moved {moved}; flash launches fwd '
+        f'{launches["fwd"]} (need {need["fwd"]}) bwd {launches["bwd"]} (need '
+        f'{need["bwd"]}); card {smi}')
+    if len(steps) != TI2T_STEPS or shape != (2 * TI2T_PAIRS, TI2T_BUCKET):
+        raise AssertionError(f'TI2T DPO: {len(steps)} steps at {shape}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'TI2T DPO step 1 loss {losses[0]!r} != ln 2')
+    if not all_finite(steps):
+        raise AssertionError('TI2T DPO: a non-finite metric')
+    if moved != {'language_model': True, 'vision_tower': False,
+                 'projector': True}:
+        raise AssertionError(f'TI2T DPO: modules moved {moved}; the frozen '
+                             'tower must stay bit-equal, the rest train')
+    check_launches('TI2T DPO', launches, need, exact=True)
+
+    # step 1 recomputed from the checkpoint with the plain attention, in
+    # bf16 compute and in fp32 (the bf16 noise through 23 + 4 layers)
+    params, _ = load_multimodal_params(ckpt, device=dev)
+    sums = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            sums[dtype] = masked_sums(multimodal.token_logprobs(
+                params, mcfg.replace(compute_dtype=dtype), b['input_ids'],
+                attention_mask=b['attention_mask'],
+                pixel_values=b['pixel_values']), b['response_mask'])
+    del params
+    free_memory()
+    log('phase18 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'],
+                                       sums['bfloat16'], sums['float32'])
+        + '; ' + check_sums('reference', first['ref_sums'], sums['bfloat16'],
+                            sums['float32']))
+    log(f'phase18 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'peak_gb': peak / 1e9}
+
+
+def ti2t_small(dev, smi, tmp: str) -> dict:
+    """Phase 18b: TI2T SFT through ``trainer_main(TI2TSupervisedTrainer,
+    ...)`` at LLaVA-1.5-7B widths, 2 text layers and 4 tower layers, the
+    default remat ('save_flash'): once with the tower trained (its full-
+    mode backward launched), once with the tower and the projector frozen
+    (both bit-equal)."""
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_multimodal_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.sft import (  # noqa: PLC0415
+        TI2TSupervisedTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = llava_config(TI2T_SMALL_TEXT_LAYERS, TI2T_SMALL_TOWER_LAYERS)
+    ckpt = os.path.join(tmp, 'llava7b_small')
+    write_llava(cfg, ckpt, SEED + 85, dev)
+    images = ti2t_images(tmp, TI2T_SMALL_ROWS, cfg.vision.image_size,
+                         SEED + 86)
+    data = write_jsonl(os.path.join(tmp, 'sft_llava.jsonl'),
+                       ti2t_rows(images, SEED + 87, preference=False))
+    base_argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+                 '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+                 '--epochs', '1', '--per_device_train_batch_size',
+                 str(TI2T_SMALL_BATCH), '--padding_buckets',
+                 f'[{TI2T_BUCKET}]', '--learning_rate', '1e-4']
+    n_steps = TI2T_SMALL_ROWS // TI2T_SMALL_BATCH
+    tower, layers = cfg.vision.layers_run, cfg.text.num_layers
+    total = {'fwd': 0, 'bwd': 0}
+    runs = (('tower trained', ('--freeze_vision_tower', 'False'),
+             {'language_model': True, 'vision_tower': True,
+              'projector': True}, {'fwd': tower + layers,
+                                   'bwd': tower + layers}),
+            ('tower and projector frozen',
+             ('--freeze_vision_tower', 'True', '--freeze_mm_proj', 'True'),
+             {'language_model': True, 'vision_tower': False,
+              'projector': False}, {'fwd': tower + layers, 'bwd': layers}))
+    for name, flags, want_moved, per_step in runs:
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        trainer, steps, _ = run_ti2t(
+            TI2TSupervisedTrainer, 'text_image_to_text/sft',
+            base_argv + list(flags))
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        start, _ = load_multimodal_params(ckpt, device=dev)
+        moved = changed_modules(trainer.state.params,
+                                {m: leaves_by_path(start[m]) for m in start})
+        remat = trainer.model_cfg.text.remat
+        del trainer, start
+        free_memory()
+        need = {k: n_steps * v for k, v in per_step.items()}
+        log(f'phase18b TI2T SFT, {name}: losses '
+            f'{[m["train/loss"] for m in steps]}; remat {remat}; modules '
+            f'moved {moved}; flash launches fwd {launches["fwd"]} (need '
+            f'{need["fwd"]}) bwd {launches["bwd"]} (need {need["bwd"]}, the '
+            f'tower\'s full-mode backward {launches["bwd"] - n_steps * layers})'
+            f'; card {smi}')
+        if len(steps) != n_steps or not all_finite(steps):
+            raise AssertionError(f'TI2T SFT ({name}): {len(steps)} steps, '
+                                 'or a non-finite metric')
+        if moved != want_moved:
+            raise AssertionError(f'TI2T SFT ({name}): modules moved {moved}'
+                                 f', expected {want_moved}')
+        check_launches(f'TI2T SFT ({name})', launches, need, exact=True)
+        for k in total:
+            total[k] += launches[k]
+    log(f'phase18b done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': total}
+
+
 # --planted-faults: flash_attention.cu with 64 keys (or one 64-row query
 # tile) skipped for the second half of the rows, in the tensor-core
 # kernels (bf16, the main path).  (name, loop text, the broken loop,
@@ -2605,6 +2963,34 @@ def profile_ppo(dev, smi, tmp: str) -> None:
     free_memory()
 
 
+def profile_ti2t(dev, smi, tmp: str) -> None:
+    """``--profile``: one TI2T DPO step of phase 18's config after a warm-up
+    step, traced whole, then the tower and projector's forward over the
+    step's images alone (a step runs it twice: policy and reference)."""
+    from align_anything_tpu_torch.models import multimodal  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    cfg = llava_config()
+    argv = ti2t_dpo_assets(cfg, dev, tmp)[3]
+    with mock.patch.dict(os.environ, {'MESH_FILE': HARNESS_MESH}):
+        cfgs, pc = parse_cfgs('text_image_to_text/dpo', argv)
+    trainer = TI2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    report_trace('ti2t dpo step', prof, wall, smi)
+    pixels = trainer.put_batch(batch)['pixel_values']
+    with torch.no_grad():
+        _, prof, wall = traced(lambda: multimodal.project_image_features(
+            trainer.state.params, trainer.model_cfg, pixels))
+    report_trace(f'ti2t tower + projector forward ({pixels.shape[0]} '
+                 'images)', prof, wall, smi)
+    del trainer, prof
+    free_memory()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on the GPU',
@@ -2622,6 +3008,7 @@ def main() -> int:
         f'count={torch.cuda.device_count()} torch={torch.__version__} '
         f'cuda={torch.version.cuda}')
     log(f'phase0 nvidia-smi: {smi}')
+    log(f'phase0 Pillow (PIL) imports: {pillow_available()}')
 
     libs = build_kernels()
     if '--profile' in sys.argv[1:]:
@@ -2629,6 +3016,7 @@ def main() -> int:
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
         try:
             profile_ppo(dev, smi, tmp)
+            profile_ti2t(dev, smi, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         return 0
@@ -2742,22 +3130,33 @@ def main() -> int:
         grpo = grpo_full(dev, smi, tmp, rm)
         safe = saferlhf_full(dev, smi, tmp)
         variants = rl_variants_small(dev, smi, tmp, cost)
+        ti2t = ti2t_full(dev, smi, tmp)
+        ti2t_sft = ti2t_small(dev, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     t8 = fstats['timed']['llama8b']
+    vit = fstats['timed']['vit336']
+    main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
+                 ti2t_sft)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
                       '(Llama-3-8B widths); library_ms: '
-                      'scaled_dot_product_attention, causal, no padding',
+                      'scaled_dot_product_attention, causal, no padding; '
+                      'vit336: B8 L577 H16 KH16 D64 full (the CLIP '
+                      'ViT-L/14-336 tower), SDPA full',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
                              '(4 KTO steps, 2 KL estimates) + phase 15 (2 '
                              'GRPO rounds) + phase 16 (2 Safe-RLHF rounds) '
                              '+ phase 17 (remote-RM PPO, PPO on the '
-                             'continuous rollout, KTO and GRPO, small)'}
+                             'continuous rollout, KTO and GRPO, small) + '
+                             'phase 18 (4 TI2T DPO steps at LLaVA-1.5-7B '
+                             'widths: the 23-layer tower forward twice a '
+                             'step) + phase 18b (TI2T SFT, tower trained and '
+                             'frozen, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -2789,21 +3188,25 @@ def main() -> int:
         'also_replaces': 'align_anything_tpu/ops/attention.py:73, '
                          'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': sum(x['launches']['fwd'] for x in (
-            dpo, harness, rm, ppo, kto, grpo, safe, variants)),
+        'launches': sum(x['launches']['fwd'] for x in main_path),
         'max_abs_err': fstats['worst']['fwd'], 'ms': t8['ms'],
         'plain_ms': t8['plain_ms'], 'bound_ms': t8['bound_ms'],
-        'bound_by': t8['bound_by'], 'library_ms': t8['library_ms']}, {
+        'bound_by': t8['bound_by'], 'library_ms': t8['library_ms'],
+        'vit336': {k: vit[k] for k in ('ms', 'plain_ms', 'library_ms',
+                                       'bound_ms', 'bound_by')}}, {
         'name': 'flash_attention_bwd', **flash,
         'replaces': 'align_anything_tpu/ops/attention.py:99',
         'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
                          'align_anything_tpu/ops/attention.py:225',
-        'launches': sum(x['launches']['bwd'] for x in (
-            dpo, harness, rm, ppo, kto, grpo, safe, variants)),
+        'launches': sum(x['launches']['bwd'] for x in main_path),
         'max_abs_err': fstats['worst']['bwd'], 'ms': t8['bwd_ms'],
         'plain_ms': t8['plain_bwd_ms'], 'bound_ms': t8['bwd_bound_ms'],
         'bound_by': t8['bwd_bound_by'],
-        'library_ms': t8['library_bwd_ms']}]}))
+        'library_ms': t8['library_bwd_ms'],
+        'vit336': {'ms': vit['bwd_ms'], 'plain_ms': vit['plain_bwd_ms'],
+                   'library_ms': vit['library_bwd_ms'],
+                   'bound_ms': vit['bwd_bound_ms'],
+                   'bound_by': vit['bwd_bound_by']}}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -23,8 +23,9 @@ from align_anything_tpu.utils import config as jcfg  # noqa: E402
 from align_anything_tpu_torch.utils import config as tcfg  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# text-to-text tasks by name; the others by their path under train/
 TASKS = ('sft', 'dpo', 'orpo', 'simpo', 'rm', 'ppo', 'kto', 'grpo',
-         'saferlhf')
+         'saferlhf', 'text_image_to_text/sft', 'text_image_to_text/dpo')
 BOTH = pytest.mark.parametrize('m', [jcfg, tcfg], ids=['jax', 'port'])
 
 
@@ -105,15 +106,16 @@ def test_coercion_matches_jax(value):
 
 @pytest.mark.parametrize('task', TASKS)
 def test_config_copies_equal_the_jax_files(task):
-    rel = os.path.join('train', 'text_to_text', f'{task}.yaml')
+    if '/' not in task:
+        task = f'text_to_text/{task}'
+    rel = os.path.join('train', f'{task}.yaml')
     with open(os.path.join(REPO, 'align_anything_tpu', 'configs', rel)) as f:
         want = yaml.safe_load(f)
     with open(os.path.join(REPO, 'align_anything_tpu_torch', 'configs',
                            rel)) as f:
         got = yaml.safe_load(f)
     assert got == want
-    assert tcfg.read_cfgs('train', f'text_to_text/{task}') == \
-        jcfg.read_cfgs('train', f'text_to_text/{task}')
+    assert tcfg.read_cfgs('train', task) == jcfg.read_cfgs('train', task)
 
 
 def test_parallel_configs():

@@ -21,8 +21,9 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__,
 for name in names:
     importlib.import_module(name)
 # the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, the
-# trainer harness, the reward-model and PPO trainers, and KTO, GRPO,
-# Safe-RLHF and the two PPO variants with the remote reward model
+# trainer harness, the reward-model and PPO trainers, KTO, GRPO,
+# Safe-RLHF and the two PPO variants with the remote reward model, and the
+# LLaVA image-text path
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
@@ -38,7 +39,10 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'trainers.text_to_text.ppo_remote_rm',
              'trainers.text_to_text.ppo_vllm', 'models.remote_rm',
              'models.remote_rm.client', 'models.remote_rm.server',
-             'models.remote_rm.reward_functions'):
+             'models.remote_rm.reward_functions', 'models.vision',
+             'models.multimodal', 'data.image', 'data.multimodal_formatters',
+             'trainers.text_image_to_text', 'trainers.text_image_to_text.sft',
+             'trainers.text_image_to_text.dpo'):
     assert 'align_anything_tpu_torch.' + name in names, name
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
@@ -55,7 +59,7 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slices was imported
-    assert int(n) >= 63
+    assert int(n) >= 70
 
 
 @pytest.mark.parametrize('module', [
@@ -66,6 +70,8 @@ def test_port_imports_no_jax():
     'align_anything_tpu_torch.checkpoint',
     'align_anything_tpu_torch.trainers.text_to_text.rm_score',
     'align_anything_tpu_torch.trainers.text_to_text.multi_ppo',
+    'align_anything_tpu_torch.models.multimodal',
+    'align_anything_tpu_torch.trainers.text_image_to_text.dpo',
 ])
 def test_kernel_module_imports_first(module):
     """A module that holds a kernel, or a trainer's entry point, imports on

@@ -202,8 +202,13 @@ def test_optimizer_matches_optax(jx, max_grad_norm):
 
 @pytest.mark.parametrize('option', [dict(frozen_labels={})])
 def test_optimizer_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError):
-        topt.make_optimizer(1e-3, **option)
+    """Every option of the JAX ``make_optimizer`` is ported now
+    (``frozen_labels`` with the multimodal slice; its parity is in
+    ``tests/test_torch_ti2t_trainers.py``): the optimizer builds, and a
+    label tree that does not match the params raises when it is applied."""
+    tx, _ = topt.make_optimizer(1e-3, **option)
+    with pytest.raises(ValueError, match='frozen_labels'):
+        tx.init({'a': torch.zeros(2)})
 
 
 @pytest.mark.parametrize('max_grad_norm', [0.0, 0.5])
