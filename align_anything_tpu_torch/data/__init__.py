@@ -1,8 +1,9 @@
 """The data layer: the port of ``align_anything_tpu/data`` (templates,
 chat formatting, tokenizers, datasets, collators, the iterator), with the
 image-text templates (``multimodal_formatters.py``) and datasets
-(``image.py``).  The audio and video templates and the other multimodal
-processors are not ported yet (ROADMAP §1 item 12)."""
+(``image.py``: the supervised, preference and prompt-only sets).  The
+audio and video templates and the other multimodal processors are not
+ported yet (ROADMAP §1 item 12)."""
 
 from align_anything_tpu_torch.data import formatters  # noqa: F401  (registers templates)
 from align_anything_tpu_torch.data import multimodal_formatters  # noqa: F401
@@ -19,6 +20,13 @@ from align_anything_tpu_torch.data.datasets import (
     SupervisedDataset,
     UnmatchedSupervisedDataset,
     load_raw_dataset,
+)
+from align_anything_tpu_torch.data.image import (
+    ImageProcessor,
+    ImageProcessorConfig,
+    TI2TPreferenceDataset,
+    TI2TPromptOnlyDataset,
+    TI2TSupervisedDataset,
 )
 from align_anything_tpu_torch.data.template_registry import (
     TEMPLATE_REGISTRY,
@@ -41,6 +49,11 @@ __all__ = [
     'SupervisedDataset',
     'UnmatchedSupervisedDataset',
     'load_raw_dataset',
+    'ImageProcessor',
+    'ImageProcessorConfig',
+    'TI2TPreferenceDataset',
+    'TI2TPromptOnlyDataset',
+    'TI2TSupervisedDataset',
     'TEMPLATE_REGISTRY',
     'get_template_class',
     'register_template',

@@ -7,10 +7,13 @@ Collators expand each ``<image>`` placeholder into ``num_patches`` copies of
 the model's image token id (LLaVA processor semantics), so a row's length
 is fixed per (text bucket, number of images).
 
+``TI2TPromptOnlyDataset`` is the RL trainers' prompt set: each row holds
+the prompt with its image expanded, and the image's pixels in ``meta``;
+the text ``PromptOnlyCollator`` left-pads the rows.
+
 Not ported yet, with the models and trainers that use them (ROADMAP §1 item
 12): ``AnyResProcessor``, ``MiniCPMVSliceProcessor``,
-``Idefics2NaViTProcessor``, ``MllamaTileProcessor`` and
-``TI2TPromptOnlyDataset``.
+``Idefics2NaViTProcessor`` and ``MllamaTileProcessor``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from align_anything_tpu_torch.data.datasets import (
     IGNORE_INDEX,
     PreferenceCollator,
     PreferenceDataset,
+    PromptOnlyDataset,
     SupervisedDataset,
     _common_prefix_len,
 )
@@ -280,3 +284,30 @@ class TI2TPreferenceCollator:
             for key, arr in stacked.items():
                 batch[key] = np.concatenate([arr, arr])
         return batch
+
+
+class TI2TPromptOnlyDataset(TI2TMixin, PromptOnlyDataset):
+    """Deduplicated image prompts for the RL trainers (JAX
+    ``data/image.py`` ``TI2TPromptOnlyDataset``): a row's ``input_ids`` are
+    the prompt with each <image> expanded to the image's tokens and no
+    trailing EOS; its ``meta`` is ``{'pixel_values': (C, H, W)}``, or the
+    template's mm-info where the row has no image.  Prompts are
+    deduplicated by their text, as the text set does, so two rows that ask
+    the same question of different images keep the first."""
+
+    def __init__(self, path: str, template: ChatTemplate, tokenizer,
+                 image_token_id: int, num_patches: int,
+                 image_processor: ImageProcessor | None = None, **kw):
+        PromptOnlyDataset.__init__(self, path, template, tokenizer, **kw)
+        self._setup_mm(image_token_id, num_patches, image_processor)
+
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        s = self.samples[idx]
+        meta = dict(s['meta'])
+        pixel, n_tok = self._process_image(meta.get('image'))
+        ids = self._encode_mm(s['prompt_text'], n_tok)[:self.max_length]
+        if ids and ids[-1] == self.tokenizer.eos_token_id:
+            ids = ids[:-1]
+        if pixel is not None:
+            meta = {'pixel_values': pixel}
+        return {'input_ids': ids, 'meta': meta}

@@ -1,8 +1,13 @@
 """Batch generation: one prefill over left-padded prompts, then one token
 per step for every row until each row hits EOS or the budget.
 
-Port of ``align_anything_tpu/generation/engine.py`` for the generic decoder;
-the continuous engine's tests hold it to this engine's tokens.
+Port of ``align_anything_tpu/generation/engine.py``: the generic decoder,
+and a vision-language model whose prefill takes the image
+(``pixel_values`` with ``prefill_forward`` / ``step_forward``, as JAX's
+TI2T PPO and GRPO call it).  The continuous engine's tests hold it to this
+engine's tokens.  JAX's ``media``, ``prefill_positions``,
+``position_offset`` and ``init_cache_fn`` serve model families the port
+does not have yet (ROADMAP §1 item 12) and are left out.
 """
 
 from __future__ import annotations
@@ -30,11 +35,20 @@ class GenerationConfig:
 
 
 @torch.no_grad()
-def generate(params: dict, model_cfg: ModelConfig, gen_cfg: GenerationConfig,
+def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
              input_ids: torch.Tensor, attention_mask: torch.Tensor,
-             generator: torch.Generator | None = None
+             generator: torch.Generator | None = None,
+             pixel_values: torch.Tensor | None = None,
+             prefill_forward=None, step_forward=None
              ) -> dict[str, torch.Tensor]:
     """Generate completions for left-padded prompts (B, P).
+
+    A multimodal model passes ``pixel_values`` and a ``prefill_forward``
+    that takes them (``multimodal.forward``): the image features matter
+    only in the prefill, whose keys and values the cache keeps, and each
+    decode step runs ``step_forward`` (``multimodal.decode_forward``) over
+    the text trunk.  Both default to ``transformer.forward``; the cache is
+    built from ``model_cfg.text`` where the config has one.
 
     Returns ``sequences`` (B, P+T) (prompt block + completions, pad after
     EOS), ``attention_mask``, ``completions`` (B, T), ``completion_mask``
@@ -46,19 +60,26 @@ def generate(params: dict, model_cfg: ModelConfig, gen_cfg: GenerationConfig,
     dev = input_ids.device
     t_max = gen_cfg.max_new_tokens
     total = p + t_max
+    if step_forward is None:
+        step_forward = transformer.forward
+    if prefill_forward is None:
+        prefill_forward = step_forward
+    prefill_kwargs = {} if pixel_values is None else {
+        'pixel_values': pixel_values}
 
-    cache = transformer.init_cache(c, b, total,
-                                   dtype=transformer.torch_dtype(c.compute_dtype),
-                                   device=dev)
+    text_cfg = getattr(c, 'text', c)
+    cache = transformer.init_cache(
+        text_cfg, b, total,
+        dtype=transformer.torch_dtype(text_cfg.compute_dtype), device=dev)
     attention_mask = attention_mask.to(torch.long)
     full_mask = torch.zeros((b, total), dtype=torch.long, device=dev)
     full_mask[:, :p] = attention_mask
     prompt_positions = (torch.cumsum(attention_mask, -1) - 1).clamp_min(0)
     prompt_lens = attention_mask.sum(-1)
 
-    out = transformer.forward(params, c, input_ids, attention_mask=full_mask,
-                              positions=prompt_positions, cache=cache,
-                              cache_offset=0)
+    out = prefill_forward(params, c, input_ids, attention_mask=full_mask,
+                          positions=prompt_positions, cache=cache,
+                          cache_offset=0, **prefill_kwargs)
     next_logits = out.logits[:, -1]
     seqs = torch.zeros((b, total), dtype=torch.long, device=dev)
     seqs[:, :p] = input_ids
@@ -73,10 +94,10 @@ def generate(params: dict, model_cfg: ModelConfig, gen_cfg: GenerationConfig,
         # finished rows keep their mask slot closed so attention skips them
         full_mask[:, p + t] = (~done).to(torch.long)
         done = done | (tok == eos)
-        step = transformer.forward(params, c, tok[:, None],
-                                   attention_mask=full_mask,
-                                   positions=(prompt_lens + t)[:, None],
-                                   cache=cache, cache_offset=p + t)
+        step = step_forward(params, c, tok[:, None],
+                            attention_mask=full_mask,
+                            positions=(prompt_lens + t)[:, None],
+                            cache=cache, cache_offset=p + t)
         next_logits = step.logits[:, 0]
         if bool(done.all()):
             break

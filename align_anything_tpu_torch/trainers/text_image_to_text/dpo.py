@@ -11,7 +11,9 @@ The north-star config (LLaVA-1.5-7B TI2T DPO).  The text DPO trainer with
 the multimodal model's log-probs and the image preference dataset; the
 reference model is a frozen copy of the loaded policy that shares the
 tensors of the frozen modules (the vision tower by default,
-``freeze_vision_tower``).
+``freeze_vision_tower``).  KTO, ORPO and SimPO (``kto.py``, ``orpo.py``,
+``simpo.py``) mix their text trainers over this one; the reference-free
+ones hold no reference.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ class TI2TDPOTrainer(TI2TTrainerMixin, DPOTrainer):
 
     def init_models(self) -> None:
         super().init_models()
-        self.ref_params = self.reference_copy(self.params)
+        self.ref_params = (self.reference_copy(self.params)
+                           if self.NEEDS_REF else None)
 
     def compute_token_logprobs(self, params: dict,
                                batch: dict) -> torch.Tensor:

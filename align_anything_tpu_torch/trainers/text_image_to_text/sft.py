@@ -61,14 +61,24 @@ def load_vision_lm(path: str, device: torch.device | str | None = None):
     return params, cfg, multimodal
 
 
-def runtime_config(trainer, cfg: multimodal.MultimodalConfig
+def compute_config(trainer, cfg: multimodal.MultimodalConfig
                    ) -> multimodal.MultimodalConfig:
     """The loaded config with the run's compute dtype (bf16 unless
-    ``bf16`` is False) and remat policy, as the JAX TI2T trainers set
-    them."""
+    ``bf16`` is False) and nothing else, as JAX's TI2T RM, PPO, GRPO and
+    Safe-RLHF-V trainers set it (no remat)."""
     tc = trainer.cfgs.train_cfgs
     cfg = cfg.replace(
-        compute_dtype='bfloat16' if tc.bf16 in (True, None) else 'float32',
+        compute_dtype='bfloat16' if tc.bf16 in (True, None) else 'float32')
+    multimodal.check_supported(cfg)
+    return cfg
+
+
+def runtime_config(trainer, cfg: multimodal.MultimodalConfig
+                   ) -> multimodal.MultimodalConfig:
+    """``compute_config`` plus the run's remat policy, as the JAX TI2T SFT
+    and DPO trainers set them."""
+    tc = trainer.cfgs.train_cfgs
+    cfg = compute_config(trainer, cfg).replace(
         remat=trainer.mesh_config.remat
         if tc.gradient_checkpointing in (True, None) else 'none')
     multimodal.check_supported(cfg)

@@ -19,8 +19,10 @@ critic's keys (``critic_lr``, ...).
 
 Per prompt batch (``train_step``):
   1. the PPO rollout and scoring pass, then the cost model's end scores and
-     the cost critic's values under ``torch.no_grad()``; the episode costs
-     join a window of ``episode_cost_window_size``;
+     the cost critic's values under ``torch.no_grad()``, over the
+     rollout's media too where it has them (``MEDIA_KEYS``: Safe-RLHF-V's
+     ``pixel_values``); the episode costs join a window of
+     ``episode_cost_window_size``;
   2. per micro-batch: the KL-shaped rewards and costs (the cost's shaping
      takes the negated log-probs), GAE for each, the dual-combined
      advantage ``(reward_adv - lambda * cost_adv) / (1 + lambda)`` with
@@ -62,6 +64,8 @@ from align_anything_tpu_torch.trainers.text_to_text.ppo import (
     load_score_model_params,
 )
 from align_anything_tpu_torch.utils.tools import masked_mean
+
+MEDIA_KEYS = ('pixel_values', 'audio_values')
 
 
 class SafeRLHFTrainer(PPOTrainer):
@@ -129,11 +133,12 @@ class SafeRLHFTrainer(PPOTrainer):
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def score_cost(self, seq: torch.Tensor, mask: torch.Tensor
-                   ) -> dict[str, torch.Tensor]:
+    def score_cost(self, seq: torch.Tensor, mask: torch.Tensor,
+                   **media: torch.Tensor) -> dict[str, torch.Tensor]:
         """The cost model's end scores and the cost critic's values of the
-        rollout sequences."""
-        batch = {'input_ids': seq, 'attention_mask': mask}
+        rollout sequences, with the rollout's media (``pixel_values``,
+        ``audio_values``) where it has them."""
+        batch = {'input_ids': seq, 'attention_mask': mask, **media}
         return {'cost': self.compute_cost_end_scores(self.cost_params, batch),
                 'cost_values': self.compute_cost_values(
                     self.cost_critic_state.params, batch)}
@@ -141,7 +146,11 @@ class SafeRLHFTrainer(PPOTrainer):
     def rollout(self, prompt_batch: dict) -> dict[str, Any]:
         out = super().rollout(prompt_batch)
         t0 = time.perf_counter()
-        out.update(self.score_cost(out['input_ids'], out['attention_mask']))
+        # a multimodal rollout's media reach the cost model and the cost
+        # critic, as in JAX's rollout (saferlhf.py:213-225)
+        media = {k: out[k] for k in MEDIA_KEYS if k in out}
+        out.update(self.score_cost(out['input_ids'], out['attention_mask'],
+                                   **media))
         self.episode_costs.extend(out['cost'].float().cpu().tolist())
         out['perf/scoring_s'] += time.perf_counter() - t0
         return out

@@ -37,11 +37,12 @@ Phases (any failure raises and the run exits non-zero):
   6. hold the flash-attention forward (out, lse) and backward (dq, dk, dv)
      against their plain versions at the training shapes, at the edges
      of the kernels' tiles and at PPO's mask pattern (leading and trailing
-     pads; query rows that see no key give exact zeros), check that the
-     backward repeats bit for bit, and time kernel, plain version and
-     ``scaled_dot_product_attention`` (a yardstick only) at the two main
-     shapes, at phase 16's (Qwen2.5-0.5B's heads) and at phase 18's tower
-     (full attention at L 577);
+     pads; query rows that see no key give exact zeros; text PPO's and
+     phase 20's scoring shape, ``ti2t_ppo``: L 1152 at LLaVA's heads),
+     check that the backward repeats bit for bit, and time kernel, plain
+     version and ``scaled_dot_product_attention`` (a yardstick only) at the
+     two main shapes, at phase 16's (Qwen2.5-0.5B's heads), at phase 18's
+     tower (full attention at L 577) and at ``ti2t_ppo``;
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -112,7 +113,27 @@ Phases (any failure raises and the run exits non-zero):
      a plain recompute; the step time, tokens/s and peak memory;
  18b. TI2T SFT at the same widths, 2 text and 4 tower layers: with the
      tower trained (its full-mode backward launched) and with the tower and
-     projector frozen (both bit-equal); launches exact.
+     projector frozen (both bit-equal); launches exact;
+ 19. the TI2T reward model through ``trainer_main(TI2TRMTrainer, ...)`` at
+     LLaVA-1.5-7B widths, the text model cut to 2 layers, the 24-layer
+     tower frozen: 8 AA_TI2T preference rows with PNG images, 4 steps of 2
+     pairs in the 1024 bucket; every loss finite, the tower bit-equal,
+     step 1's end scores against a plain recompute, launches exact, 576
+     image tokens a row (ROADMAP R12), the export and ``score_head.npy``
+     written; step time, peak memory and the bytes written;
+ 20. TI2T PPO through ``trainer_main(TI2TPPOTrainer, ...)`` at the same
+     widths: the actor from phase 19's checkpoint, reward model and critic
+     from its export; 24 image prompts, 8 a round, 128 new tokens,
+     micro-batch 4, three rounds; round 1's KL exactly 0, 576 image tokens
+     a prompt, the image prefill's first decode logits against the model
+     without a cache, round 1's scoring log-prob sums and rewards against a
+     plain recompute, launches exact, and every module of actor and critic
+     moved (the tower too, as in JAX: ROADMAP R13); the round split into
+     rollout, scoring and update, generated tokens/s and peak memory;
+ 21. at phase 18b's depth: the TI2T cost model, Safe-RLHF-V (round 1's
+     ``log_lambda`` = ``lambda_lr`` x episode cost), GRPO with 2
+     generations a prompt (round 1's KL 0), KTO, ORPO and SimPO through
+     their entry points; every metric finite, launches exact.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
@@ -863,29 +884,47 @@ def check_flash(dev) -> dict:
         del q, k, v, mask, dout, out, lse, grads, again, rout, rlse, rgrads
     return {'worst': worst, 'timed': timed}
 
-def check_flash_ppo(dev) -> dict:
-    """Phase 6, PPO's mask pattern: left-padded prompts followed by
-    completions padded after EOS (B 8, L 256, H 32, KH 8, D 128, bf16).
-    Rows have 0-100 leading and 0-60 trailing pads; one row is all pad but
-    one token.  Against the plain versions per row; a query row that sees
-    no key must give out = 0 and dq = 0 exactly, a pad key dk = dv = 0
-    exactly; nothing NaN; the backward repeats bit for bit."""
-    b, l, h, kh, d = 8, 256, 32, 8, 128
+# PPO's mask pattern: left-padded prompts followed by completions padded
+# after EOS.  (name, B, L, H, KH, D, leading pads [lo, hi), trailing pads
+# [lo, hi), whether one row holds a single token, timed)
+FLASH_PPO = [
+    ('ppo_mask', 8, 256, 32, 8, 128, (0, 101), (0, 61), True, False),
+    # phase 20's scoring pass: a round's 8 rows at LLaVA-1.5-7B's text
+    # heads (MHA), image prompts of 20-60 words + 576 image tokens left-
+    # padded in the 1024 bucket, then up to 128 new tokens
+    ('ti2t_ppo', 8, 1024 + 128, 32, 32, 128, (350, 431), (0, 128), False,
+     True),
+]
+
+
+def check_flash_ppo(dev, case: tuple, seed: int) -> tuple:
+    """Phase 6, PPO's mask pattern (a ``FLASH_PPO`` case), causal, bf16:
+    rows with leading and trailing pads from the case's ranges (the first
+    row at their low ends, the second at their high ends), and where the
+    case says so one row that is all pad but one token.  Against the plain
+    versions per row; a query row that sees no key must give out = 0 and
+    dq = 0 exactly, a pad key dk = dv = 0 exactly; nothing NaN; the
+    backward repeats bit for bit.  Returns (worst errors, timings or
+    None)."""
+    name, b, l, h, kh, d, lead_range, trail_range, lone_row, timed = case
     dtype = torch.bfloat16
     q, k, v, _, dout = flash_inputs(b, l, h, kh, d, 0, None, dtype, dev,
-                                    SEED + 40)
-    rng = np.random.default_rng(SEED + 40)
-    lead = rng.integers(0, 101, size=b)
-    trail = rng.integers(0, 61, size=b)
-    lead[:2], trail[:2] = (0, 100), (0, 60)   # none; the most of both
+                                    seed)
+    rng = np.random.default_rng(seed)
+    lead = rng.integers(*lead_range, size=b)
+    trail = rng.integers(*trail_range, size=b)
+    lead[:2] = lead_range[0], lead_range[1] - 1
+    trail[:2] = trail_range[0], trail_range[1] - 1
     mask = torch.ones((b, l), dtype=torch.int32, device=dev)
     for r in range(b):
         mask[r, :lead[r]] = 0
         mask[r, l - trail[r]:] = 0
-    lone = 131                                 # the row with one token
-    mask[b - 1] = 0
-    mask[b - 1, lone] = 1
-    first = torch.as_tensor([*lead[:-1], lone], device=dev)
+    first = torch.as_tensor(lead, device=dev)
+    if lone_row:
+        lone = 131                             # the row with one token
+        mask[b - 1] = 0
+        mask[b - 1, lone] = 1
+        first[b - 1] = lone
     blind = torch.arange(l, device=dev)[None] < first[:, None]   # (B, L)
     pad_keys = mask == 0
     out, lse = fa.flash_attention_fwd_cuda(q, k, v, mask, True, None)
@@ -908,7 +947,7 @@ def check_flash_ppo(dev) -> dict:
             worst['fwd' if label == 'out' else 'bwd'], err)
         parts.append(f'{label} {rel:.2e} (abs {err:.2e})')
         if not (bool(torch.isfinite(got).all()) and rel <= tol):
-            raise AssertionError(f'flash {label} disagrees at PPO\'s mask: '
+            raise AssertionError(f'flash {label} disagrees at {name}: '
                                  f'{rel} > {tol} x the row max|plain|')
     zeros = {'out': bool((out[blind] == 0).all()),
              'dq': bool((grads[0][blind] == 0).all()),
@@ -917,21 +956,47 @@ def check_flash_ppo(dev) -> dict:
              'dv': bool((grads[2][pad_keys] == 0).all())}
     lse_err = float((lse - rlse).abs().max())
     same = all(torch.equal(g1, g2) for g1, g2 in zip(grads, again))
-    log(f'phase6 ppo_mask   B={b} L={l} H={h} KH={kh} D={d} causal, leading '
-        f'pads {lead[:-1].tolist()} + one row with one token, trailing pads '
-        f'{trail[:-1].tolist()}, {int(blind.sum())} query rows see no key: '
+    rows = b - 1 if lone_row else b
+    log(f'phase6 {name:10s} B={b} L={l} H={h} KH={kh} D={d} causal, leading '
+        f'pads {lead[:rows].tolist()}'
+        f'{" + one row with one token" if lone_row else ""}, trailing pads '
+        f'{trail[:rows].tolist()}, {int(blind.sum())} query rows see no key: '
         f'max over rows of max|kernel-plain|/max|plain| {", ".join(parts)} '
         f'(tol {tol:g}); lse {lse_err:.2e} (tol {LSE_TOL:g}); exact zeros '
         f'(blind rows: out, dq, lse; pad keys: dk, dv) {zeros}; backward '
         f'repeats bit for bit: {same}')
     if not all(zeros.values()):
-        raise AssertionError(f'flash: nonzero where no key is seen {zeros}')
+        raise AssertionError(f'flash: nonzero where no key is seen at '
+                             f'{name} {zeros}')
     if not lse_err <= LSE_TOL:
-        raise AssertionError(f'flash lse disagrees at PPO\'s mask: {lse_err}')
+        raise AssertionError(f'flash lse disagrees at {name}: {lse_err}')
     if not same:
-        raise AssertionError('flash backward not deterministic at PPO\'s '
-                             'mask')
-    return worst
+        raise AssertionError(f'flash backward not deterministic at {name}')
+    t = None
+    if timed:
+        flush = l2_flush_buffer(dev)
+        (fb, fby), (bb, bby), flops = flash_bounds(b, l, h, kh, d, True, None,
+                                                   mask, dtype, dev)
+        lib_f, lib_b = sdpa_ms(q, k, v, dout, True, flush)
+        t = {'ms': time_ms(lambda: fa.flash_attention_fwd_cuda(
+                 q, k, v, mask, True, None), 10, flush),
+             'bwd_ms': time_ms(lambda: fa.flash_attention_bwd_cuda(
+                 q, k, v, mask, out, lse, dout, True, None), 10, flush),
+             'plain_ms': time_ms(lambda: fa.flash_attention_fwd_reference(
+                 q, k, v, mask, True, None), 3, flush),
+             'plain_bwd_ms': time_ms(
+                 lambda: fa.flash_attention_bwd_reference(
+                     q, k, v, mask, out, lse, dout, True, None), 3, flush),
+             'bound_ms': fb, 'bound_by': fby, 'bwd_bound_ms': bb,
+             'bwd_bound_by': bby, 'library_ms': lib_f,
+             'library_bwd_ms': lib_b}
+        log(f'phase6 {name:10s} time: forward kernel_ms={t["ms"]:.4f} '
+            f'({flops / t["ms"] / 1e9:.1f} TFLOP/s of the masked pairs) '
+            f'plain_ms={t["plain_ms"]:.4f} sdpa_ms={lib_f:.4f} (causal, no '
+            f'padding mask) bound_ms={fb:.4f} ({fby}); backward kernel_ms='
+            f'{t["bwd_ms"]:.4f} plain_ms={t["plain_bwd_ms"]:.4f} '
+            f'sdpa_ms={lib_b:.4f} bound_ms={bb:.4f} ({bby})')
+    return worst, t
 
 
 def dpo_flops_per_token(n_params: int, seq: int, hidden: int,
@@ -2080,8 +2145,8 @@ def saferlhf_full(dev, smi, tmp: str) -> dict:
                          **{k: v.clone() for k, v in out.items()})
         return out
 
-    def recording_cost(self, seq, mask):
-        out = score_cost(self, seq, mask)
+    def recording_cost(self, seq, mask, **media):
+        out = score_cost(self, seq, mask, **media)
         if 'cost' not in first:
             first.update({k: v.clone() for k, v in out.items()})
         return out
@@ -2410,19 +2475,19 @@ def ti2t_rows(images: list, seed: int, preference: bool) -> list:
 
 def run_ti2t(trainer_cls, task: str, argv: list,
              mesh_file: str | None = None) -> tuple:
-    """``run_trainer`` for a TI2T trainer, timing the LLaVA checkpoint's
-    load."""
+    """``run_trainer`` for a TI2T trainer, timing the LLaVA checkpoints'
+    loads (summed where the trainer loads several)."""
     from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
         sft as ti2t_sft)
 
-    timing = {}
+    timing = {'load_s': 0.0}
     load = ti2t_sft.load_multimodal_params
 
     def timed_load(*args, **kwargs):
         t0 = time.perf_counter()
         out = load(*args, **kwargs)
         torch.cuda.synchronize()
-        timing['load_s'] = time.perf_counter() - t0
+        timing['load_s'] += time.perf_counter() - t0
         return out
 
     with mock.patch.object(ti2t_sft, 'load_multimodal_params', timed_load):
@@ -2659,6 +2724,461 @@ def ti2t_small(dev, smi, tmp: str) -> dict:
         for k in total:
             total[k] += launches[k]
     log(f'phase18b done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': total, 'ckpt': ckpt}
+
+
+# phases 19-21: the image-text reward model and RL trainers through their
+# entry points.  Phases 19-20 run LLaVA-1.5-7B widths with the text model
+# cut to 2 layers: PPO holds four LLaVA trees, and as in JAX its TI2T
+# trainers freeze nothing (ROADMAP §3 R13), so actor and critic train all
+# 0.99 B params at 16 B/param while reference and reward model hold 4
+# B/param, about 40 GB; 4 text layers would be about 56 GB before
+# activations.  The RL trainers take the compute dtype and no remat, as
+# JAX's do.
+TI2T_RM_ROWS, TI2T_RM_PAIRS, TI2T_RM_STEPS = 8, 2, 4
+TI2T_PPO_PROMPTS, TI2T_PPO_ROUND, TI2T_PPO_MICRO = 24, 8, 4
+TI2T_PPO_NEW, TI2T_PPO_WORDS = 128, (20, 61)
+TI2T_SMALL_PROMPTS, TI2T_SMALL_NEW = 4, 16
+
+
+def ti2t_prompt_rows(images: list, seed: int, words_range: tuple) -> list:
+    """AA_TI2T prompt rows (the prompt-only set reads the question and the
+    image) with questions of ``words_range`` words."""
+    rng = np.random.default_rng(seed)
+    return [{'question': words(rng, int(rng.integers(*words_range))),
+             'image': image, 'response_1': 'a', 'response_2': 'b',
+             'overall_response': 1} for image in images]
+
+
+def disk_written() -> float:
+    """GB this process has passed to ``write`` so far (``wchar`` of Linux
+    ``/proc/self/io``, files and pipes alike; the card's machine ends a
+    call past 45 GiB of disk writes); nan where the kernel has no such
+    file.  A reading for the log, not a check."""
+    try:
+        with open('/proc/self/io') as f:
+            fields = dict(line.split(': ') for line in f.read().splitlines())
+    except OSError:
+        return float('nan')
+    return int(fields['wchar']) / 1e9
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def ti2t_rm_full(dev, smi, tmp: str) -> dict:
+    """Phase 19: the TI2T reward model through ``trainer_main(
+    TI2TRMTrainer, ...)`` at LLaVA-1.5-7B widths (text 2 layers, the
+    24-layer tower frozen by rm.yaml) from a bf16 checkpoint written from a
+    seed; 8 AA_TI2T preference rows with PNG images, 2 pairs a step in the
+    1024 bucket, 4 steps, exported for phase 20."""
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_multimodal_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.rm import (  # noqa: PLC0415
+        TI2TRMTrainer, multimodal_end_scores)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = llava_config(RL_LAYERS)
+    ckpt = os.path.join(tmp, 'llava7b_rl')
+    w = write_llava(cfg, ckpt, SEED + 90, dev)
+    images = ti2t_images(tmp, TI2T_RM_ROWS, cfg.vision.image_size,
+                         SEED + 91)
+    data = write_jsonl(os.path.join(tmp, 'pref_llava_rm.jsonl'),
+                       ti2t_rows(images, SEED + 92, preference=True))
+    out = os.path.join(tmp, 'out_ti2t_rm')
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'AA_TI2T', '--output_dir', out,
+            '--save_checkpoint', 'False', '--epochs', '1',
+            '--per_device_train_batch_size', str(TI2T_RM_PAIRS),
+            '--padding_buckets', f'[{TI2T_BUCKET}]']
+    first: dict = {}
+    end_scores = TI2TRMTrainer.end_scores
+
+    def recording(self, params, batch):
+        better, worse = end_scores(self, params, batch)
+        if not first:
+            first.update(batch={k: v.clone() for k, v in batch.items()},
+                         head=params['score_head']['w'].detach().clone(),
+                         scores=torch.cat([better, worse]).detach().float())
+        return better, worse
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    with mock.patch.object(TI2TRMTrainer, 'end_scores', recording):
+        trainer, steps, timing = run_ti2t(TI2TRMTrainer,
+                                          'text_image_to_text/rm', argv)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    start, _ = load_multimodal_params(ckpt, device=dev)
+    moved = changed_modules(
+        {m: trainer.state.params[m] for m in start},
+        {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    n_image = (b['input_ids'] == cfg.image_token_id).sum(-1).tolist()
+    seconds = [m['perf/step_time_s'] for m in steps]
+    for i, m in enumerate(steps):
+        log(f'phase19 step {i + 1}: loss={m["train/loss"]:.9f} accuracy='
+            f'{m["train/accuracy"]:.3f} grad_norm={m["train/grad_norm"]:.6e} '
+            f'seconds={seconds[i]:.4f}')
+    tower, layers = cfg.vision.layers_run, cfg.text.num_layers
+    # a step: the frozen tower's forward, the language model's forward and
+    # backward (no remat)
+    need = {'fwd': TI2T_RM_STEPS * (tower + layers),
+            'bwd': TI2T_RM_STEPS * layers}
+    slice_dir = os.path.join(out, f'slice_{TI2T_RM_STEPS}')
+    written = sorted(os.listdir(slice_dir)) if os.path.isdir(slice_dir) \
+        else []
+    disk = w['bytes'] + dir_bytes(slice_dir) + sum(
+        os.path.getsize(i) for i in images)
+    log(f'phase19 TI2T RM: batch {shape} with pixel_values '
+        f'{tuple(b["pixel_values"].shape)}; image tokens per row {n_image}; '
+        f'remat {mcfg.text.remat}, compute {mcfg.text.compute_dtype}; load '
+        f'{timing["load_s"]:.2f} s; step time '
+        f'{statistics.median(seconds[1:]):.4f} s (median of steps '
+        f'2-{len(steps)}); peak memory {peak / 1e9:.3f} GB '
+        f'({resident / 1e9:.3f} GB resident before); modules moved {moved}; '
+        f'flash launches fwd {launches["fwd"]} (need {need["fwd"]}) bwd '
+        f'{launches["bwd"]} (need {need["bwd"]}); export {written}; bytes '
+        f'written {disk / 1e9:.3f} GB (checkpoint, export, images), '
+        f'{disk_written():.3f} GB by the run so far; card {smi}')
+    if len(steps) != TI2T_RM_STEPS or shape != (2 * TI2T_RM_PAIRS,
+                                                TI2T_BUCKET):
+        raise AssertionError(f'TI2T RM: {len(steps)} steps at {shape}')
+    if set(n_image) != {cfg.vision.num_patches}:
+        raise AssertionError(f'TI2T RM: image tokens per row {n_image}, not '
+                             'one per patch (ROADMAP R12)')
+    if not all_finite(steps):
+        raise AssertionError('TI2T RM: a non-finite metric')
+    if moved != {'language_model': True, 'vision_tower': False,
+                 'projector': True}:
+        raise AssertionError(f'TI2T RM: modules moved {moved}; the frozen '
+                             'tower must stay bit-equal, the rest train')
+    check_launches('TI2T RM', launches, need, exact=True)
+    if not {'config.json', 'model.safetensors',
+            'score_head.npy'} <= set(written):
+        raise AssertionError('TI2T RM export lacks the slice or '
+                             'score_head.npy')
+
+    # step 1 recomputed from the checkpoint and step 1's head, plain
+    # attention, in bf16 and in fp32 compute
+    params, _ = load_multimodal_params(ckpt, device=dev)
+    params['score_head'] = {'w': first['head']}
+    with torch.no_grad(), plain_flash():
+        plain = [multimodal_end_scores(
+            params, mcfg.replace(compute_dtype=dtype), b).float()
+            for dtype in ('bfloat16', 'float32')]
+    del params
+    free_memory()
+    log('phase19 ' + check_scores('step 1 end scores', first['scores'],
+                                  *plain))
+    log(f'phase19 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'ckpt': ckpt, 'slice': slice_dir,
+            'peak_gb': peak / 1e9}
+
+
+def ti2t_ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
+    """Phase 20: TI2T PPO through ``trainer_main(TI2TPPOTrainer, ...)`` at
+    LLaVA-1.5-7B widths, 2 text layers: the actor from phase 19's base
+    checkpoint, reward model and critic from its export; 24 AA_TI2T
+    prompts with PNG images in the 1024 bucket, 8 a round, 128 new tokens,
+    micro-batch 4, three rounds; no export."""
+    from align_anything_tpu_torch.models import multimodal  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_multimodal_params)
+    from align_anything_tpu_torch.models.score_model import (  # noqa: PLC0415
+        load_score_head)
+    from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
+        ppo as ti2t_ppo)
+    from align_anything_tpu_torch.trainers.text_image_to_text.rm import (  # noqa: PLC0415
+        multimodal_end_scores)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = llava_config(RL_LAYERS)
+    images = ti2t_images(tmp, TI2T_PPO_PROMPTS, cfg.vision.image_size,
+                         SEED + 93)
+    data = write_jsonl(os.path.join(tmp, 'prompts_llava.jsonl'),
+                       ti2t_prompt_rows(images, SEED + 94, TI2T_PPO_WORDS))
+    argv = ['--actor_model_name_or_path', rm['ckpt'],
+            '--reward_model_name_or_path', rm['slice'],
+            '--train_datasets', data, '--train_template', 'AA_TI2T',
+            '--save_checkpoint', 'False', '--epochs', '1',
+            '--per_device_prompt_batch_size', str(TI2T_PPO_ROUND),
+            '--per_device_train_batch_size', str(TI2T_PPO_MICRO),
+            '--max_new_tokens', str(TI2T_PPO_NEW), '--temperature', '1.0',
+            '--update_iters', '1', '--padding_buckets', f'[{TI2T_BUCKET}]']
+    first: dict = {}
+    trainer_cls = ti2t_ppo.TI2TPPOTrainer
+    generate, score_rollout = ti2t_ppo.generate, trainer_cls.score_rollout
+
+    def recording_generate(*args, **kwargs):
+        prefill = kwargs['prefill_forward']
+
+        def recording_prefill(params, cfg, ids, **kw):
+            out = prefill(params, cfg, ids, **kw)
+            if 'prefill' not in first:
+                first['prefill'] = {
+                    'ids': ids.clone(), 'pixels': kw['pixel_values'].clone(),
+                    'mask': kw['attention_mask'][:, :ids.shape[1]].clone(),
+                    'logits': out.logits[:, -1].float().clone()}
+            return out
+
+        return generate(*args, **dict(kwargs,
+                                      prefill_forward=recording_prefill))
+
+    def recording_scores(self, seq, mask, pixel_values):
+        out = score_rollout(self, seq, mask, pixel_values)
+        if 'seq' not in first:
+            first.update(seq=seq.clone(), mask=mask.clone(),
+                         **{k: v.clone() for k, v in out.items()})
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(ti2t_ppo, 'generate', recording_generate), \
+            mock.patch.object(trainer_cls, 'score_rollout',
+                              recording_scores):
+        trainer, steps, timing = run_ti2t(trainer_cls,
+                                          'text_image_to_text/ppo', argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = [m for m in steps if 'train/actor_loss' in m]
+    rounds = TI2T_PPO_PROMPTS // TI2T_PPO_ROUND
+    for i, m in enumerate(steps):
+        tps = m['perf/generated_tokens'] / m['perf/rollout_s']
+        log(f'phase20 round {i + 1}: kl={m["train/kl_divergence"]!r} '
+            f'actor_loss={m["train/actor_loss"]:.6e} critic_loss='
+            f'{m["train/reward_critic_loss"]:.6e} reward='
+            f'{m["train/reward"]:.6e} generated={m["perf/generated_tokens"]}'
+            f' tokens; seconds: round {m["perf/step_time_s"]:.4f} = rollout '
+            f'{m["perf/rollout_s"]:.4f} + scoring {m["perf/scoring_s"]:.4f} '
+            f'+ update {m["perf/update_s"]:.4f} (+ loop); generated tokens/s '
+            f'{tps:.1f}')
+    tower, layers = cfg.vision.layers_run, cfg.text.num_layers
+    n_micro = TI2T_PPO_ROUND // TI2T_PPO_MICRO
+    # a round: the tower in the rollout's prefill (the text prefill and
+    # decode run the cache path, no kernel); four scoring passes; per
+    # micro-batch the actor's and the critic's forward and backward, the
+    # tower's too (R13)
+    model = tower + layers
+    need = {'fwd': rounds * (tower + 4 * model + 2 * n_micro * model),
+            'bwd': rounds * 2 * n_micro * model}
+    pre = first['prefill']
+    lead = (pre['mask'] == 0).sum(-1).tolist()
+    n_image = (pre['ids'] == cfg.image_token_id).sum(-1).tolist()
+    log(f'phase20 TI2T PPO: prompts {tuple(pre["ids"].shape)} (leading pads '
+        f'{lead}; image tokens per row {n_image}), sequences '
+        f'{tuple(first["seq"].shape)}, remat {trainer.model_cfg.text.remat}; '
+        f'trainer_main {total_s:.2f} s (4 LLaVA trees loaded in '
+        f'{timing["load_s"]:.2f} s, {len(steps)} rounds, no export); peak '
+        f'memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident '
+        f'before); flash launches fwd {launches["fwd"]} (need {need["fwd"]}) '
+        f'bwd {launches["bwd"]} (need {need["bwd"]}); card {smi}')
+    if len(steps) != rounds or not all_finite(steps):
+        raise AssertionError(f'TI2T PPO: {len(steps)} rounds, or a metric '
+                             'is not finite')
+    if tuple(first['seq'].shape) != (TI2T_PPO_ROUND,
+                                     TI2T_BUCKET + TI2T_PPO_NEW):
+        raise AssertionError(f'TI2T PPO rollout {tuple(first["seq"].shape)}')
+    if set(n_image) != {cfg.vision.num_patches}:
+        raise AssertionError(f'TI2T PPO: image tokens per prompt {n_image}, '
+                             'not one per patch (ROADMAP R12)')
+    if steps[0]['train/kl_divergence'] != 0.0:
+        raise AssertionError(f'TI2T PPO round 1 KL '
+                             f'{steps[0]["train/kl_divergence"]!r} != 0.0')
+    check_launches('TI2T PPO', launches, need, exact=True)
+
+    # R13: the YAML freezes the tower; JAX trains it, and so does the port
+    start, _ = load_multimodal_params(rm['ckpt'], device=dev)
+    critic0, _ = load_multimodal_params(rm['slice'], device=dev)
+    critic0['score_head'] = {'w': load_score_head(
+        rm['slice'], cfg.text.hidden_size, None, device=dev)}
+    moved = {
+        'actor': changed_modules(trainer.actor_state.params,
+                                 {m: leaves_by_path(start[m])
+                                  for m in start}),
+        'critic': changed_modules(trainer.critic_state.params,
+                                  {m: leaves_by_path(critic0[m])
+                                   for m in critic0})}
+    del start, critic0
+    free_memory()
+    log(f'phase20 modules moved after {rounds} rounds (freeze_vision_tower '
+        f'{trainer.cfgs.train_cfgs.freeze_vision_tower}, which JAX\'s TI2T '
+        f'PPO does not apply, ROADMAP R13): {moved}')
+    if not all(all(m.values()) for m in moved.values()):
+        raise AssertionError(f'TI2T PPO: modules moved {moved}; as in JAX, '
+                             'every module of actor and critic trains')
+
+    # round 1 recomputed with the plain attention (the actor's params then
+    # were the reference's): the prefill's last logits against the model
+    # without a cache, the scoring pass's log-prob sums and reward scores
+    seq, mask = first['seq'], first['mask']
+    start_pos = TI2T_BUCKET - 1
+    cmask = mask[:, 1:].float()[:, start_pos:]
+    batch = {'input_ids': seq, 'attention_mask': mask,
+             'pixel_values': pre['pixels']}
+    plain = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            c = trainer.model_cfg.replace(compute_dtype=dtype)
+            plain[dtype] = {
+                'logits': multimodal.forward(
+                    trainer.ref_params, c, pre['ids'],
+                    attention_mask=pre['mask'],
+                    pixel_values=pre['pixels']).logits[:, -1].float(),
+                'sums': masked_sums(multimodal.token_logprobs(
+                    trainer.ref_params, c, seq, attention_mask=mask,
+                    pixel_values=pre['pixels'])[:, start_pos:], cmask),
+                'reward': multimodal_end_scores(
+                    trainer.reward_params,
+                    trainer.reward_cfg.replace(compute_dtype=dtype),
+                    batch).float()}
+    del trainer
+    free_memory()
+    log('phase20 round 1 recomputed with the plain attention: ' + '; '.join((
+        check_scores('first decode logits (image prefill, cache) against '
+                     'the model without a cache', pre['logits'],
+                     plain['bfloat16']['logits'],
+                     plain['float32']['logits']),
+        check_sums('scoring log_probs', masked_sums(
+            first['log_probs'][:, start_pos:], cmask),
+            plain['bfloat16']['sums'], plain['float32']['sums']),
+        check_sums('scoring ref_log_probs', masked_sums(
+            first['ref_log_probs'][:, start_pos:], cmask),
+            plain['bfloat16']['sums'], plain['float32']['sums']),
+        check_scores('scoring reward', first['reward'],
+                     plain['bfloat16']['reward'],
+                     plain['float32']['reward']))))
+    first.clear()
+    free_memory()
+    log(f'phase20 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written():.3f} GB written by the run so far')
+    return {'launches': launches, 'steps': steps, 'peak_gb': peak / 1e9}
+
+
+def ti2t_rl_small(dev, smi, tmp: str, small: dict) -> dict:
+    """Phase 21 at LLaVA-1.5-7B widths, 2 text and 4 tower layers (phase
+    18b's checkpoint): through their entry points, the TI2T cost model,
+    Safe-RLHF-V (one round), GRPO with 2 generations a prompt, KTO, ORPO
+    and SimPO; every metric finite, every launch count exact, Safe-RLHF-V's
+    first multiplier step in closed form and the RL trainers' round-1 KL
+    0."""
+    from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
+        cost_model, grpo, kto, orpo, saferlhf, simpo)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = llava_config(TI2T_SMALL_TEXT_LAYERS, TI2T_SMALL_TOWER_LAYERS)
+    tower, layers = cfg.vision.layers_run, cfg.text.num_layers
+    model = tower + layers
+    ckpt = small['ckpt']
+    images = ti2t_images(tmp, TI2T_SMALL_ROWS, cfg.vision.image_size,
+                         SEED + 95)
+    pref = write_jsonl(os.path.join(tmp, 'pref_llava_small.jsonl'),
+                       ti2t_rows(images, SEED + 96, preference=True))
+    prompts = write_jsonl(os.path.join(tmp, 'prompts_llava_small.jsonl'),
+                          ti2t_prompt_rows(images, SEED + 97, (20, 61)))
+    common = ['--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+              '--epochs', '1', '--padding_buckets', f'[{TI2T_BUCKET}]']
+    pref_argv = ['--model_name_or_path', ckpt, '--train_datasets', pref,
+                 '--per_device_train_batch_size', str(TI2T_SMALL_BATCH),
+                 *common]
+    # the score models are the base checkpoint with fresh heads: phases
+    # 19-20 hold the RM export's handoff, and an export here would add
+    # 3 GB of disk writes that nothing else reads
+    rl_argv = ['--actor_model_name_or_path', ckpt,
+               '--reward_model_name_or_path', ckpt,
+               '--train_datasets', prompts, '--max_new_tokens',
+               str(TI2T_SMALL_NEW), *common]
+    n_steps = TI2T_SMALL_ROWS // TI2T_SMALL_BATCH
+    safe_micro = 2            # micro-batches a Safe-RLHF-V round
+    runs = (
+        # (name, class, task, argv, launches: the cost model's frozen tower
+        # runs forward only; Safe-RLHF-V's round: the prefill's tower, six
+        # scoring passes, three models' forward and backward per
+        # micro-batch; GRPO's round: the prefill's tower, the reward's,
+        # policy's and reference's passes, the policy's backward; KTO: the
+        # policy and the reference a step, its KL estimate at start-up two
+        # text-only passes (R14); ORPO and SimPO: the policy alone; their
+        # text YAMLs freeze nothing, so the tower runs backward too)
+        ('cost model', cost_model.TI2TCostModelTrainer,
+         'text_image_to_text/rm', pref_argv,
+         {'fwd': n_steps * model, 'bwd': n_steps * layers}),
+        ('Safe-RLHF-V', saferlhf.TI2TSafeRLHFTrainer,
+         'text_image_to_text/saferlhf',
+         [*rl_argv, '--train_size', str(safe_micro),
+          '--per_device_prompt_batch_size', str(safe_micro),
+          '--per_device_train_batch_size', '1'],
+         {'fwd': tower + 6 * model + 3 * safe_micro * model,
+          'bwd': 3 * safe_micro * model}),
+        ('GRPO', grpo.TI2TGRPOTrainer, 'text_image_to_text/grpo',
+         [*rl_argv, '--train_size', '2', '--per_device_prompt_batch_size',
+          '2', '--num_generations', '2'],
+         {'fwd': tower + 3 * model, 'bwd': model}),
+        ('KTO', kto.TI2TKTOTrainer, 'text_to_text/kto',
+         [*pref_argv, '--per_device_kl_batch_size', str(TI2T_SMALL_BATCH)],
+         {'fwd': n_steps * 2 * model + 2 * layers, 'bwd': n_steps * model}),
+        ('ORPO', orpo.TI2TORPOTrainer, 'text_to_text/orpo', pref_argv,
+         {'fwd': n_steps * model, 'bwd': n_steps * model}),
+        ('SimPO', simpo.TI2TSimPOTrainer, 'text_to_text/simpo', pref_argv,
+         {'fwd': n_steps * model, 'bwd': n_steps * model}))
+    total = {'fwd': 0, 'bwd': 0}
+    for name, cls, task, argv, need in runs:
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        trainer, steps, _ = run_ti2t(cls, task, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = flash_counts()
+        steps = [m for m in steps if any(k.startswith('train/loss')
+                                         or k == 'train/actor_loss'
+                                         for k in m)]
+        loss_key = ('train/actor_loss' if 'train/actor_loss' in steps[0]
+                    else 'train/loss')
+        log(f'phase21 TI2T {name}: {len(steps)} steps, {loss_key} '
+            f'{[m[loss_key] for m in steps]}; trainer_main {seconds:.2f} s; '
+            f'flash launches fwd {launches["fwd"]} (need {need["fwd"]}) bwd '
+            f'{launches["bwd"]} (need {need["bwd"]}); card {smi}')
+        if not steps or not all_finite(steps):
+            raise AssertionError(f'TI2T {name}: no step, or a non-finite '
+                                 'metric')
+        check_launches(f'TI2T {name}', launches, need, exact=True)
+        if name == 'Safe-RLHF-V':
+            m = steps[0]
+            want = trainer.lambda_lr * m['train/episode_cost']
+            log(f'phase21 Safe-RLHF-V round 1: log_lambda '
+                f'{m["train/log_lambda"]!r}, lambda_lr x episode_cost '
+                f'{want!r}; kl {m["train/kl_divergence"]!r}')
+            if not (abs(m['train/log_lambda'] - want) <= 1e-9
+                    and m['train/kl_divergence'] == 0.0):
+                raise AssertionError('Safe-RLHF-V round 1: log_lambda is '
+                                     'not lambda_lr x episode_cost, or KL '
+                                     '!= 0')
+        if name == 'GRPO' and not abs(steps[0]['train/kl']) <= 1e-6:
+            raise AssertionError(f'TI2T GRPO step 1 KL '
+                                 f'{steps[0]["train/kl"]!r} is not 0')
+        del trainer
+        free_memory()
+        for k in total:
+            total[k] += launches[k]
+    log(f'phase21 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written():.3f} GB written by the run so far')
     return {'launches': total}
 
 
@@ -3111,8 +3631,12 @@ def main() -> int:
     check_tensor_cores(libs['flash_attention'])
 
     fstats = check_flash(dev)
-    for kind, err in check_flash_ppo(dev).items():
-        fstats['worst'][kind] = max(fstats['worst'][kind], err)
+    for seed, case in enumerate(FLASH_PPO):
+        worst, timed = check_flash_ppo(dev, case, SEED + 40 + seed)
+        for kind, err in worst.items():
+            fstats['worst'][kind] = max(fstats['worst'][kind], err)
+        if timed:
+            fstats['timed'][case[0]] = timed
     dpo = train_dpo(dev, smi)
     torch.cuda.empty_cache()
     bench_dpo(dev, smi)
@@ -3132,20 +3656,27 @@ def main() -> int:
         variants = rl_variants_small(dev, smi, tmp, cost)
         ti2t = ti2t_full(dev, smi, tmp)
         ti2t_sft = ti2t_small(dev, smi, tmp)
+        ti2t_rm = ti2t_rm_full(dev, smi, tmp)
+        ti2t_ppo = ti2t_ppo_full(dev, smi, tmp, ti2t_rm)
+        ti2t_rl = ti2t_rl_small(dev, smi, tmp, ti2t_sft)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    log(f'done: {disk_written():.3f} GB written by the run')
     t8 = fstats['timed']['llama8b']
     vit = fstats['timed']['vit336']
+    mm_ppo = fstats['timed']['ti2t_ppo']
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
-                 ti2t_sft)
+                 ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
                       '(Llama-3-8B widths); library_ms: '
                       'scaled_dot_product_attention, causal, no padding; '
                       'vit336: B8 L577 H16 KH16 D64 full (the CLIP '
-                      'ViT-L/14-336 tower), SDPA full',
+                      'ViT-L/14-336 tower), SDPA full; ti2t_ppo: B8 L1152 '
+                      'H32 KH32 D128 causal with leading and trailing pads '
+                      '(phase 20\'s scoring pass), SDPA causal, no padding',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
@@ -3156,7 +3687,12 @@ def main() -> int:
                              'phase 18 (4 TI2T DPO steps at LLaVA-1.5-7B '
                              'widths: the 23-layer tower forward twice a '
                              'step) + phase 18b (TI2T SFT, tower trained and '
-                             'frozen, small)'}
+                             'frozen, small) + phase 19 (4 TI2T RM steps) + '
+                             'phase 20 (3 TI2T PPO rounds: the tower in the '
+                             'prefill, 4 scoring passes, actor and critic '
+                             'updates, towers trained) + phase 21 (TI2T cost '
+                             'model, Safe-RLHF-V, GRPO, KTO, ORPO, SimPO, '
+                             'small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -3193,7 +3729,9 @@ def main() -> int:
         'plain_ms': t8['plain_ms'], 'bound_ms': t8['bound_ms'],
         'bound_by': t8['bound_by'], 'library_ms': t8['library_ms'],
         'vit336': {k: vit[k] for k in ('ms', 'plain_ms', 'library_ms',
-                                       'bound_ms', 'bound_by')}}, {
+                                       'bound_ms', 'bound_by')},
+        'ti2t_ppo': {k: mm_ppo[k] for k in ('ms', 'plain_ms', 'library_ms',
+                                            'bound_ms', 'bound_by')}}, {
         'name': 'flash_attention_bwd', **flash,
         'replaces': 'align_anything_tpu/ops/attention.py:99',
         'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
@@ -3206,7 +3744,12 @@ def main() -> int:
         'vit336': {'ms': vit['bwd_ms'], 'plain_ms': vit['plain_bwd_ms'],
                    'library_ms': vit['library_bwd_ms'],
                    'bound_ms': vit['bwd_bound_ms'],
-                   'bound_by': vit['bwd_bound_by']}}]}))
+                   'bound_by': vit['bwd_bound_by']},
+        'ti2t_ppo': {'ms': mm_ppo['bwd_ms'],
+                     'plain_ms': mm_ppo['plain_bwd_ms'],
+                     'library_ms': mm_ppo['library_bwd_ms'],
+                     'bound_ms': mm_ppo['bwd_bound_ms'],
+                     'bound_by': mm_ppo['bwd_bound_by']}}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

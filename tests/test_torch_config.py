@@ -25,7 +25,9 @@ from align_anything_tpu_torch.utils import config as tcfg  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # text-to-text tasks by name; the others by their path under train/
 TASKS = ('sft', 'dpo', 'orpo', 'simpo', 'rm', 'ppo', 'kto', 'grpo',
-         'saferlhf', 'text_image_to_text/sft', 'text_image_to_text/dpo')
+         'saferlhf', 'text_image_to_text/sft', 'text_image_to_text/dpo',
+         'text_image_to_text/rm', 'text_image_to_text/ppo',
+         'text_image_to_text/grpo', 'text_image_to_text/saferlhf')
 BOTH = pytest.mark.parametrize('m', [jcfg, tcfg], ids=['jax', 'port'])
 
 

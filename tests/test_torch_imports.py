@@ -22,8 +22,8 @@ for name in names:
     importlib.import_module(name)
 # the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, the
 # trainer harness, the reward-model and PPO trainers, KTO, GRPO,
-# Safe-RLHF and the two PPO variants with the remote reward model, and the
-# LLaVA image-text path
+# Safe-RLHF and the two PPO variants with the remote reward model, the
+# LLaVA image-text path and the image-text RL and preference trainers
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
@@ -42,7 +42,15 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'models.remote_rm.reward_functions', 'models.vision',
              'models.multimodal', 'data.image', 'data.multimodal_formatters',
              'trainers.text_image_to_text', 'trainers.text_image_to_text.sft',
-             'trainers.text_image_to_text.dpo'):
+             'trainers.text_image_to_text.dpo',
+             'trainers.text_image_to_text.rm',
+             'trainers.text_image_to_text.cost_model',
+             'trainers.text_image_to_text.ppo',
+             'trainers.text_image_to_text.grpo',
+             'trainers.text_image_to_text.saferlhf',
+             'trainers.text_image_to_text.kto',
+             'trainers.text_image_to_text.orpo',
+             'trainers.text_image_to_text.simpo'):
     assert 'align_anything_tpu_torch.' + name in names, name
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
@@ -59,7 +67,7 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slices was imported
-    assert int(n) >= 70
+    assert int(n) >= 78
 
 
 @pytest.mark.parametrize('module', [
@@ -72,6 +80,8 @@ def test_port_imports_no_jax():
     'align_anything_tpu_torch.trainers.text_to_text.multi_ppo',
     'align_anything_tpu_torch.models.multimodal',
     'align_anything_tpu_torch.trainers.text_image_to_text.dpo',
+    'align_anything_tpu_torch.trainers.text_image_to_text.ppo',
+    'align_anything_tpu_torch.trainers.text_image_to_text.saferlhf',
 ])
 def test_kernel_module_imports_first(module):
     """A module that holds a kernel, or a trainer's entry point, imports on

@@ -43,8 +43,16 @@ from align_anything_tpu_torch.trainers import base as tbase  # noqa: E402
 from align_anything_tpu_torch.trainers import cli as tcli  # noqa: E402
 from align_anything_tpu_torch.trainers import optimizer as topt  # noqa: E402
 from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: E402
+    cost_model as tcost,
     dpo as tdpo,
+    grpo as tgrpo,
+    kto as tkto,
+    orpo as torpo,
+    ppo as tppo,
+    rm as trm,
+    saferlhf as tsafe,
     sft as tsft,
+    simpo as tsimpo,
 )
 from align_anything_tpu_torch.utils.tools import param_leaves  # noqa: E402
 
@@ -105,35 +113,49 @@ def assets(tmp_path_factory):
 
 
 def _argv(assets, algo, out, per_device, extra=()):
-    data = 'pref' if algo == 'dpo' else 'sft'
+    data = 'sft' if algo == 'sft' else 'pref'
+    kl = (('--per_device_kl_batch_size', str(per_device)) if algo == 'kto'
+          else ())
     return ['--model_name_or_path', str(assets / 'model'),
             '--train_datasets', str(assets / f'{data}.jsonl'),
             '--train_template', 'AA_TI2T', '--output_dir', str(out),
             '--epochs', '1', '--learning_rate', '1e-4', '--bf16', 'False',
             '--padding_buckets', '[32]', '--save_checkpoint', 'False',
-            '--per_device_train_batch_size', str(per_device), *extra]
+            '--per_device_train_batch_size', str(per_device), *kl, *extra]
 
 
-PORT = {'sft': tsft.TI2TSupervisedTrainer, 'dpo': tdpo.TI2TDPOTrainer}
+PORT = {'sft': tsft.TI2TSupervisedTrainer, 'dpo': tdpo.TI2TDPOTrainer,
+        'kto': tkto.TI2TKTOTrainer, 'orpo': torpo.TI2TORPOTrainer,
+        'simpo': tsimpo.TI2TSimPOTrainer}
+# KTO, ORPO and SimPO read the text tasks, as in JAX
+TASK = {'sft': 'text_image_to_text/sft', 'dpo': 'text_image_to_text/dpo',
+        'kto': 'text_to_text/kto', 'orpo': 'text_to_text/orpo',
+        'simpo': 'text_to_text/simpo'}
 
 
 def _port(assets, algo, out, extra=()):
     cfgs, pc = tcli.parse_cfgs(
-        f'text_image_to_text/{algo}',
-        _argv(assets, algo, out, JAX_DEVICES, extra))
+        TASK[algo], _argv(assets, algo, out, JAX_DEVICES, extra))
     return PORT[algo](cfgs=cfgs, parallel_cfgs=pc, device='cpu')
 
 
 def _jax(assets, algo, out, monkeypatch, extra=()):
     from align_anything_tpu.models import multimodal as jmm
     from align_anything_tpu.trainers import cli as jcli
-    from align_anything_tpu.trainers.text_image_to_text import dpo, sft
+    from align_anything_tpu.trainers.text_image_to_text import (
+        dpo,
+        kto,
+        orpo,
+        sft,
+        simpo,
+    )
 
     # R1: the JAX SFT engine reads model_cfg.pp_stages (see the docstring)
     monkeypatch.setattr(jmm.MultimodalConfig, 'pp_stages', 1, raising=False)
-    cls = {'sft': sft.TI2TSupervisedTrainer, 'dpo': dpo.TI2TDPOTrainer}[algo]
-    cfgs, pc = jcli.parse_cfgs(f'text_image_to_text/{algo}',
-                               _argv(assets, algo, out, 1, extra))
+    cls = {'sft': sft.TI2TSupervisedTrainer, 'dpo': dpo.TI2TDPOTrainer,
+           'kto': kto.TI2TKTOTrainer, 'orpo': orpo.TI2TORPOTrainer,
+           'simpo': simpo.TI2TSimPOTrainer}[algo]
+    cfgs, pc = jcli.parse_cfgs(TASK[algo], _argv(assets, algo, out, 1, extra))
     return cls(cfgs=cfgs, parallel_cfgs=pc)
 
 
@@ -298,6 +320,56 @@ def test_ti2t_steps_match_jax(assets, tmp_path, monkeypatch, algo):
         assert abs(want[0]['train/loss'] - math.log(2)) <= 1e-6
 
 
+@pytest.mark.parametrize('algo', ['kto', 'orpo', 'simpo'])
+def test_ti2t_dpo_family_steps_match_jax(assets, tmp_path, monkeypatch, algo):
+    """Two steps of 8 pairs of TI2T KTO (the KL baseline refreshed before
+    step 2), ORPO and SimPO against JAX's: every metric (KTO's
+    ``train/kl_baseline`` too), and the policy
+    after the steps.  Their text YAMLs set no freeze flag, so the tower
+    trains, in both packages; the reference-free two hold no reference."""
+    extra = ('--kl_steps', '1') if algo == 'kto' else ()
+    jtrainer = _jax(assets, algo, tmp_path / 'jax', monkeypatch, extra)
+    trainer = _port(assets, algo, tmp_path / 'port', extra)
+    assert trainer.frozen_modules() == ()
+    assert (trainer.ref_params is None) == (algo != 'kto')
+    tower = {p: v.copy()
+             for p, v in _leaves(trainer.state.params['vision_tower']).items()}
+    want = _steps(jtrainer, 2)
+    got = _steps(trainer, 2)
+    _compare(got, want)
+    assert got[0]['train/loss'] != got[1]['train/loss']
+    for path, leaf in _leaves(trainer.state.params).items():
+        np.testing.assert_allclose(
+            leaf, np.asarray(_leaves(jtrainer.state.params)[path]),
+            rtol=TOL, atol=TOL, err_msg=path)
+    moved = _leaves(trainer.state.params['vision_tower'])
+    assert any(not np.array_equal(moved[p], tower[p]) for p in tower)
+    if algo == 'kto':
+        # before any update exactly 0; refreshed (and clamped at 0) after
+        assert got[0]['train/kl_baseline'] == 0.0
+        assert got[1]['train/kl_baseline'] >= 0.0
+
+
+def test_ti2t_kto_kl_baseline_has_no_images(assets, tmp_path, monkeypatch):
+    """R14, in both packages: the KL baseline's unmatched rows come from
+    AA_TI2T's ``format_unmatched_supervised_sample``, which drops the
+    image, so the KL batch holds neither ``pixel_values`` nor image tokens
+    and the estimate is the policy's against the reference over text
+    alone."""
+    jtrainer = _jax(assets, 'kto', tmp_path / 'jax', monkeypatch)
+    trainer = _port(assets, 'kto', tmp_path / 'port')
+    for t in (jtrainer, trainer):
+        batch = next(iter(t.kl_iterator.epoch_batches(0)))
+        assert 'pixel_values' not in batch
+        assert not (batch['input_ids'] == IMAGE_TOKEN).any()
+        train = next(iter(t.train_iterator.epoch_batches(0)))
+        assert 'pixel_values' in train
+        assert (train['input_ids'] == IMAGE_TOKEN).sum() > 0
+    np.testing.assert_array_equal(
+        next(iter(trainer.kl_iterator.epoch_batches(0)))['input_ids'],
+        next(iter(jtrainer.kl_iterator.epoch_batches(0)))['input_ids'])
+
+
 @pytest.mark.parametrize('flags,frozen', [
     (('--freeze_vision_tower', 'False'), ()),
     (('--freeze_vision_tower', 'True', '--freeze_mm_proj', 'True'),
@@ -375,12 +447,26 @@ def test_build_optimizer_refuses_freeze_flags_without_params(assets,
 
 
 def test_ti2t_trainers_default_to_the_card(assets, tmp_path, monkeypatch):
-    """No device given: the trainers take the first CUDA device, and raise
-    where there is none."""
+    """No device given: every TI2T trainer takes the first CUDA device, and
+    raises where there is none."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    for algo, cls in PORT.items():
-        cfgs, pc = tcli.parse_cfgs(f'text_image_to_text/{algo}',
-                                   _argv(assets, algo, tmp_path, 8))
+    model = str(assets / 'model')
+    rl = ['--actor_model_name_or_path', model,
+          '--reward_model_name_or_path', model,
+          '--train_datasets', str(assets / 'pref.jsonl'),
+          '--train_template', 'AA_TI2T', '--per_device_prompt_batch_size',
+          '8']
+    cases = [(cls, TASK[algo], _argv(assets, algo, tmp_path, 8))
+             for algo, cls in PORT.items()]
+    cases += [(trm.TI2TRMTrainer, 'text_image_to_text/rm',
+               _argv(assets, 'dpo', tmp_path, 8)),
+              (tcost.TI2TCostModelTrainer, 'text_image_to_text/rm',
+               _argv(assets, 'dpo', tmp_path, 8)),
+              (tppo.TI2TPPOTrainer, 'text_image_to_text/ppo', rl),
+              (tgrpo.TI2TGRPOTrainer, 'text_image_to_text/grpo', rl),
+              (tsafe.TI2TSafeRLHFTrainer, 'text_image_to_text/saferlhf', rl)]
+    for cls, task, argv in cases:
+        cfgs, pc = tcli.parse_cfgs(task, argv)
         with pytest.raises(RuntimeError, match='no CUDA device'):
             cls(cfgs=cfgs, parallel_cfgs=pc)
 
@@ -394,7 +480,8 @@ def test_ti2t_loader_refuses_other_families(tmp_path):
         tsft.load_vision_lm(str(tmp_path), device='cpu')
 
 
-@pytest.mark.parametrize('algo', ['sft', 'dpo'])
+@pytest.mark.parametrize('algo', ['sft', 'dpo', 'rm', 'cost_model', 'ppo',
+                                  'grpo', 'saferlhf', 'kto', 'orpo', 'simpo'])
 def test_ti2t_entry_point(algo):
     """``python -m align_anything_tpu_torch.trainers.text_image_to_text.
     <algo>`` exists and parses its command line (``--help`` exits before
