@@ -34,7 +34,13 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from align_anything_tpu_torch.models.config import ModelConfig
-from align_anything_tpu_torch.models.quantization import Int4Weight
+from align_anything_tpu_torch.models.lora import LoraWeight
+from align_anything_tpu_torch.models.quantization import (
+    QUANTIZED,
+    Int4Weight,
+    Int8Weight,
+    dequantize_weight,
+)
 from align_anything_tpu_torch.ops.attention import causal_attention
 # the module, not its function: ops/int4_matmul.py imports models/, so
 # either may be imported first
@@ -182,8 +188,8 @@ def init_params(config: ModelConfig, generator: torch.Generator,
 
 def layer_params(layers: dict, li: int) -> dict:
     """Layer ``li`` of the stacked layer tree (views, no copies)."""
-    return {name: {k: (leaf.layer(li) if isinstance(leaf, Int4Weight)
-                       else leaf[li])
+    return {name: {k: (leaf[li] if isinstance(leaf, torch.Tensor)
+                       else leaf.layer(li))
                    for k, leaf in sub.items()}
             for name, sub in layers.items()}
 
@@ -192,27 +198,100 @@ def layer_params(layers: dict, li: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
+class _QuantizedMatmul(torch.autograd.Function):
+    """``einsum(eq, x, w)`` over a quantized weight leaf, dequantized in
+    ``dtype`` in the forward and again in the backward: autograd keeps the
+    packed leaf, not the dense copy that ``torch.einsum`` would save for the
+    gradient of ``x`` (a layer's worth at every layer of a pass without
+    remat).  The weight gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, leaf, eq, dtype, shape):
+        ctx.leaf, ctx.eq, ctx.dtype, ctx.shape = leaf, eq, dtype, shape
+        return torch.einsum(eq, x, _QuantizedMatmul.dense(leaf, dtype, shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        ins, out = ctx.eq.split('->')
+        x_sub, w_sub = ins.split(',')
+        w = _QuantizedMatmul.dense(ctx.leaf, ctx.dtype, ctx.shape)
+        gx = torch.einsum(f'{out},{w_sub}->{x_sub}', grad, w)
+        return gx, None, None, None, None
+
+    @staticmethod
+    def dense(leaf, dtype: torch.dtype, shape: tuple | None) -> torch.Tensor:
+        w = leaf.dequantize(dtype)
+        return w if shape is None else w.reshape(shape)
+
+
+def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int8 (M, K) x int8 (K, N) -> int32 (M, N), by
+    ``torch._int_mm``.  Its CUDA route needs M > 16 and K, N multiples of
+    8, so the operands are zero-padded to at least 32 rows and to K, N
+    multiples of 8 (zeros add nothing to any sum) and the product cut
+    back."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    mp, kp, np_ = max(m, 32), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        xq = F.pad(xq, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        wq = F.pad(wq, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(xq.contiguous(), wq.contiguous())[:m, :n]
+
+
+def _int8_compute(x: torch.Tensor, w_leaf: Int8Weight, dtype: torch.dtype,
+                  n_contract: int) -> torch.Tensor:
+    """The int8-COMPUTE matmul (AQT-style, JAX ``_wmm``): activations
+    quantized per row over the contracted axes, the int8 x int8 -> int32
+    product, then both scales folded into the output."""
+    batch_nd = x.ndim - n_contract
+    axes = tuple(range(batch_nd, x.ndim))
+    xf = x.to(torch.float32)
+    a_scale = xf.abs().amax(dim=axes, keepdim=True).clamp_min(1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / a_scale), -127, 127).to(torch.int8)
+    lead = tuple(x.shape[:batch_nd])
+    out_dims = tuple(w_leaf.values.shape[n_contract:])
+    acc = int8_product(xq.reshape(math.prod(lead), -1),
+                       w_leaf.values.reshape(-1, math.prod(out_dims)))
+    out = acc.reshape(lead + out_dims).to(torch.float32)
+    a = a_scale.reshape(lead + (1,) * len(out_dims))
+    # the scales keep the contracted axes as size-1 dims: dropping them
+    # leaves the output dims, which broadcast against the product
+    w_scale = w_leaf.scales.reshape(w_leaf.scales.shape[n_contract:])
+    return (out * a * w_scale).to(dtype)
+
+
 def _wmm(eq: str, x: torch.Tensor, w_leaf, dtype: torch.dtype,
          n_contract: int = 1) -> torch.Tensor:
-    """Weight matmul that dispatches on the leaf type.
+    """Weight matmul that dispatches on the leaf type (JAX ``_wmm``).
 
-    fp leaves: the einsum in ``dtype``.  ``Int4Weight(compute=True)``
-    leaves: the int4 kernel (``ops/int4_matmul.py``) where it applies, else
-    dequantize and einsum.  Other Int4Weight leaves dequantize."""
-    if isinstance(w_leaf, Int4Weight):
-        batch_nd = x.ndim - n_contract
-        if w_leaf.compute:
-            xf = x if n_contract == 1 else x.reshape(
-                tuple(x.shape[:batch_nd]) + (-1,))
-            out = k2.int4_matmul(xf, w_leaf, dtype=dtype)
-            if out is not None:
-                return out
-        w = w_leaf.dequantize(dtype)
-        if n_contract == 2:
-            # grouped over part of the contraction, or stored flattened:
-            # restore the einsum's operand shape
-            w = w.reshape(tuple(x.shape[batch_nd:]) + (-1,))
-        return torch.einsum(eq, x.to(dtype), w)
+    fp leaves: the einsum in ``dtype``.  ``LoraWeight``: the base's matmul
+    plus ``s * (x @ A) @ B`` at the activation level.
+    ``Int4Weight(compute=True)``: the int4 kernel (``ops/int4_matmul.py``)
+    where it applies.  ``Int8Weight(compute=True)``: the int8 product.
+    Other quantized leaves dequantize on read (``_QuantizedMatmul``)."""
+    batch_nd = x.ndim - n_contract
+    if isinstance(w_leaf, LoraWeight):
+        out = _wmm(eq, x, w_leaf.base, dtype, n_contract=n_contract)
+        xf = x if n_contract == 1 else x.reshape(
+            tuple(x.shape[:batch_nd]) + (-1,))
+        side = (xf.to(dtype) @ w_leaf.a.to(dtype)) @ w_leaf.b.to(dtype)
+        return out + (w_leaf.scaling * side).reshape(out.shape).to(out.dtype)
+    if isinstance(w_leaf, Int4Weight) and w_leaf.compute:
+        xf = x if n_contract == 1 else x.reshape(
+            tuple(x.shape[:batch_nd]) + (-1,))
+        out = k2.int4_matmul(xf, w_leaf, dtype=dtype)
+        if out is not None:
+            return out
+    if isinstance(w_leaf, Int8Weight) and w_leaf.compute:
+        return _int8_compute(x, w_leaf, dtype, n_contract)
+    if isinstance(w_leaf, QUANTIZED):
+        # an int4 leaf grouped over part of the contraction, or stored
+        # flattened, dequantizes to (K, ...): restore the einsum's shape
+        shape = (tuple(x.shape[batch_nd:]) + (-1,) if n_contract == 2
+                 else None)
+        return _QuantizedMatmul.apply(x.to(dtype), w_leaf, eq, dtype, shape)
     return torch.einsum(eq, x.to(dtype), w_leaf.to(dtype))
 
 
@@ -222,15 +301,14 @@ def _head_logits(c: ModelConfig, params: dict, x: torch.Tensor
     applied; the caller handles true_vocab_size)."""
     head = (params['embedding'].T if c.tie_word_embeddings
             else params['lm_head'])
-    if getattr(head, 'compute', False):  # int4-COMPUTE quantized head
+    if getattr(head, 'compute', False):  # int8/int4-COMPUTE quantized head
         logits = _wmm('ble,ev->blv', x, head, torch.float32)
     else:
         dtype = torch_dtype(c.compute_dtype)
-        w = head.dequantize(dtype) if isinstance(head, Int4Weight) else head
+        w = dequantize_weight(head, dtype, stacked=False)
         # bf16 x bf16 products are exact in fp32: the fp32 einsum is the
         # JAX einsum with preferred_element_type=float32
-        logits = torch.einsum('ble,ev->blv', x.to(dtype).float(),
-                              w.to(dtype).float())
+        logits = torch.einsum('ble,ev->blv', x.to(dtype).float(), w.float())
     if c.final_logit_softcap:
         logits = torch.tanh(logits / c.final_logit_softcap) \
             * c.final_logit_softcap

@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from align_anything_tpu_torch.models import transformer
 from align_anything_tpu_torch.models.config import ModelConfig
+from align_anything_tpu_torch.models.quantization import dequantize_weight
 from align_anything_tpu_torch.utils.tools import gather_log_probabilities
 
 
@@ -68,8 +69,11 @@ def token_logprobs(params: dict, config: ModelConfig,
                               attention_mask=attention_mask,
                               need_logits=False)
     hidden = out.last_hidden_state
-    head = (params['embedding'].T if config.tie_word_embeddings
-            else params['lm_head']).to(hidden.dtype)
+    # a quantized head (QLoRA's frozen base) is dequantized, as the JAX
+    # ``.astype`` does
+    head = dequantize_weight(
+        params['embedding'].T if config.tie_word_embeddings
+        else params['lm_head'], hidden.dtype, stacked=False)
     return hidden_to_token_logprobs(
         hidden[:, :-1], head, input_ids[:, 1:], chunk_size=chunk_size,
         softcap=config.final_logit_softcap,

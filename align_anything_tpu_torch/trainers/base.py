@@ -21,10 +21,11 @@ are leaves labelled ``'frozen'`` (``trainers/optimizer.py``
 ``freeze_labels``) that do not require grad: the optimizer leaves them out
 and autograd skips their backward.
 
-Not ported, each raising ``NotImplementedError``: LoRA / QLoRA
-(``init_peft`` with ``lora_cfgs.use_lora`` or ``bnb_cfgs.use_bnb``,
-``lora_policy``, ``save_lora_merged``, ``compile_lora_train_step``).
-The generation-based eval of the RL trainers (``eval_generate``,
+LoRA and QLoRA (``init_peft``): the base is frozen (no gradient, no AdamW
+state) and, with ``bnb_cfgs.use_bnb``, quantized to int4 or int8 in place;
+the train state holds the adapters of ``models/lora.py``, attached to the
+base per step by ``lora_policy``.  ``save_lora_merged`` exports the merged
+model.  The generation-based eval of the RL trainers (``eval_generate``,
 ``generation_eval``, ``make_eval_prompt_iterator``) runs the port's
 ``generation/engine.py`` ``generate``.
 """
@@ -47,6 +48,8 @@ from align_anything_tpu_torch.data import (
     load_tokenizer,
 )
 from align_anything_tpu_torch.models import config as model_config_lib
+from align_anything_tpu_torch.models import lora as lora_lib
+from align_anything_tpu_torch.models import quantization as quant
 from align_anything_tpu_torch.models import transformer
 from align_anything_tpu_torch.models.hf_loader import load_params
 from align_anything_tpu_torch.trainers.optimizer import (
@@ -156,7 +159,7 @@ class MeshConfig:
         if wide:
             raise NotImplementedError(
                 f'parallel config axes {wide} need more than one device: '
-                'multi-GPU training is not ported yet (ROADMAP §1 item 11)')
+                'multi-GPU training is not ported yet (ROADMAP §1 item 14)')
         return config
 
 
@@ -169,6 +172,7 @@ class TrainerBase:
         self.parallel_cfgs = parallel_cfgs or {}
         self.device = default_device(device)
         self.global_step = 0
+        self.use_lora = False
         self._preempted = False
         self.rng = seed_everything(cfgs.train_cfgs.seed or 42)
 
@@ -264,26 +268,102 @@ class TrainerBase:
         """One device: the params stay as they are."""
         return params
 
+    def lora_requested(self) -> bool:
+        """Whether the config turns LoRA on (``init_peft`` acts on it)."""
+        lc = self.cfgs.lora_cfgs
+        return bool(lc and lc.use_lora)
+
     def init_peft(self) -> bool:
-        """LoRA/QLoRA setup (JAX ``init_peft``): not ported.  Returns False
-        when neither is asked for; raises when one is."""
+        """LoRA / QLoRA setup shared by the trainers (JAX ``init_peft``;
+        reference models/pretrained_model.py:196-252).
+
+        ``bnb_cfgs.use_bnb``: quantize ``self.params`` in place, int4
+        (``load_in_4bit``) or int8, weight-only (int8 ``int8_compute`` runs
+        the int8 product).  ``lora_cfgs.use_lora``: the adapters as
+        ``self.lora_params`` (trainable fp32 leaves) and the frozen,
+        possibly quantized, base as ``self.base_params``.  Returns True
+        when LoRA is on; the caller builds the train state over
+        ``self.lora_params`` and attaches it per step with
+        :meth:`lora_policy`.  ``lora_dropout`` is not read, as in JAX."""
         lc = self.cfgs.lora_cfgs
         bc = self.cfgs.bnb_cfgs
-        if (lc and lc.use_lora) or (bc and bc.use_bnb):
-            raise NotImplementedError('LoRA / QLoRA (lora_cfgs.use_lora, '
-                                      'bnb_cfgs.use_bnb) are not ported yet '
-                                      '(ROADMAP §1 item 8)')
-        self.use_lora = False
-        return False
+        self.use_lora = self.lora_requested()
+        use_bnb = bool(bc and bc.use_bnb)
+        if use_bnb and not self.use_lora:
+            raise ValueError('bnb_cfgs.use_bnb quantizes the frozen base and '
+                             'requires lora_cfgs.use_lora (QLoRA); full '
+                             'fine-tuning needs fp weights')
+        if not self.use_lora:
+            return False
+        if 'layers' not in self.params:
+            # JAX fails here too, on the multimodal trees (ROADMAP R19)
+            raise ValueError(
+                ('bnb quantization' if use_bnb else 'LoRA')
+                + ' supports the generic decoder param tree only')
+        base = tree_map(lambda t: t.requires_grad_(False)
+                        if isinstance(t, torch.Tensor) else t, self.params)
+        if use_bnb:
+            with torch.no_grad():
+                if bc.load_in_4bit:
+                    base = quant.quantize_decoder_int4(
+                        base, num_experts=self.model_cfg.num_experts)
+                else:
+                    base = quant.quantize_decoder_int8(
+                        base, num_experts=self.model_cfg.num_experts,
+                        compute=bool(bc.int8_compute))
+        self.params = base
+        self.lora_r = int(lc.r or 16)
+        self.lora_alpha = float(lc.lora_alpha or 16)
+        self.lora_targets = tuple(lc.target_modules or ('q_proj', 'v_proj'))
+        self.lora_params = tree_map(
+            lambda t: t.requires_grad_(True),
+            lora_lib.init_lora_params(self.model_cfg, self.next_rng(),
+                                      r=self.lora_r,
+                                      target_modules=self.lora_targets,
+                                      device=self.device))
+        self.base_params = base
+        return True
 
     def lora_policy(self, lora_p: dict, base_p: dict) -> dict:
-        raise NotImplementedError('LoRA is not ported yet (ROADMAP §1 item 8)')
+        """Adapters + the frozen base -> the policy's params (``LoraWeight``
+        leaves; no weight math, see ``models/lora.py``)."""
+        return lora_lib.attach_lora(base_p, lora_p, self.model_cfg,
+                                    self.lora_r, self.lora_alpha)
 
-    def save_lora_merged(self, *args, **kwargs) -> None:
-        raise NotImplementedError('LoRA is not ported yet (ROADMAP §1 item 8)')
+    def merged_params(self, adapters: dict) -> dict:
+        """The base with ``adapters`` baked in, every leaf dense: the
+        export's tree."""
+        with torch.no_grad():
+            return quant.dequantize_decoder(lora_lib.merge_lora(
+                self.base_params, adapters, self.model_cfg, self.lora_r,
+                self.lora_alpha))
+
+    def save_lora_merged(self, tag: int | None = None,
+                         adapters: dict | None = None,
+                         extra: dict | None = None,
+                         state: TrainState | None = None) -> None:
+        """The merged full-model export (save_full_model parity, reference
+        supervised_trainer.py:441-450); a quantized base is dequantized for
+        it.  ``state`` (default ``self.state``) is the train state the
+        checkpoint holds, so a resume continues the adapters and their
+        AdamW moments (JAX checkpoints the merged tree, ROADMAP R20);
+        ``adapters`` default to its params, and ``extra`` leaves (a trained
+        head) overwrite the merged tree's."""
+        if not self.cfgs.logger_cfgs.output_dir:
+            return
+        state = self.state if state is None else state
+        adapters = state.params if adapters is None else adapters
+        merged = self.merged_params(adapters)
+        if extra:
+            merged = dict(merged, **extra)
+        self.save_state_and_slice(state, self.model_cfg, self.tokenizer, tag,
+                                  slice_params=merged)
 
     def compile_lora_train_step(self, loss_fn, tx, schedule):
-        raise NotImplementedError('LoRA is not ported yet (ROADMAP §1 item 8)')
+        """``loss_fn(adapters, base, batch) -> (loss, metrics)`` becomes
+        ``step(state, base, batch)`` over the adapter train state; the
+        frozen base is an input, so gradients reach only the adapters."""
+        return make_train_step(loss_fn, tx, schedule)
 
     # subclass hooks -----------------------------------------------------
 
@@ -569,7 +649,10 @@ class TrainerBase:
         raise NotImplementedError
 
     def save_state_and_slice(self, state: TrainState, model_cfg,
-                             tokenizer=None, tag: int | None = None) -> None:
+                             tokenizer=None, tag: int | None = None,
+                             slice_params: dict | None = None) -> None:
+        """The train-state checkpoint of ``state`` and the HF slice of
+        ``slice_params`` (default: ``state.params``)."""
         out = self.cfgs.logger_cfgs.output_dir
         if not out:
             return
@@ -578,8 +661,9 @@ class TrainerBase:
             ckpt_lib.save_train_state(
                 out, tag, state, keep=self.cfgs.logger_cfgs.save_total_limit)
         if is_main_process():
-            path = ckpt_lib.save_hf_slice(out, tag, state.params, model_cfg,
-                                          tokenizer)
+            path = ckpt_lib.save_hf_slice(
+                out, tag, state.params if slice_params is None
+                else slice_params, model_cfg, tokenizer)
             self.logger.print(f'saved HF slice to {path}')
 
     def maybe_resume(self, state: TrainState) -> TrainState:

@@ -15,6 +15,12 @@ param tree passed to ``step``; its log-probs are computed under
 tokenizer, the preference dataset and collator, the optimizer, the loop and
 the saves.  The reference tree is a frozen copy of the loaded policy.
 ORPO and SimPO (``orpo.py``, ``simpo.py``) subclass it without a reference.
+
+With LoRA (``--use_lora``, QLoRA with ``--use_bnb``) the train state holds
+the adapters, the policy is the adapters attached to the frozen, possibly
+quantized, base (``DPOStep``'s ``policy_of``), and the reference IS that
+base: the adapters start at B = 0, so step 1's policy equals it exactly and
+no second model is held.  ``save`` exports the merged model.
 """
 
 from __future__ import annotations
@@ -49,16 +55,19 @@ class DPOStep:
     may be replaced by a reference-free loss, which gets ``ref_logp=None``
     when ``step`` is given no reference tree; ``compute_token_logprobs``
     (default: the decoder's chunked log-probs) by another model's, such as
-    the multimodal one."""
+    the multimodal one.  ``policy_of``, when given, maps the train state's
+    params to the policy's (LoRA: the adapters attached to the base)."""
 
     def __init__(self, model_cfg: ModelConfig, tx: ClippedAdamW | MultiSteps,
                  schedule: Schedule, scale_coeff: float = 0.1,
                  preference_loss: Callable[..., dict] | None = None,
                  compute_token_logprobs: Callable[..., torch.Tensor]
-                 | None = None):
+                 | None = None,
+                 policy_of: Callable[[dict], dict] | None = None):
         self.model_cfg = model_cfg
         self.tx = tx
         self.scale_coeff = scale_coeff
+        self.policy_of = policy_of
         if preference_loss is not None:
             self.preference_loss = preference_loss
         if compute_token_logprobs is not None:
@@ -83,6 +92,8 @@ class DPOStep:
 
     def loss_fn(self, params: dict, ref_params: dict | None,
                 batch: dict) -> tuple[torch.Tensor, dict]:
+        if self.policy_of is not None:
+            params = self.policy_of(params)
         logp = self.compute_token_logprobs(params, batch)
         ref_logp = None
         if ref_params is not None:
@@ -117,8 +128,10 @@ class DPOTrainer(TrainerBase):
             self.cfgs.model_cfgs.model_name_or_path, self.model_cfg)
         self.params = self.trainable(
             self.shard_model_params(params, self.model_cfg))
+        # with LoRA the frozen base is the reference (init_engines)
         self.ref_params = (self.reference_copy(self.params)
-                           if self.NEEDS_REF else None)
+                           if self.NEEDS_REF and not self.lora_requested()
+                           else None)
 
     def reference_copy(self, params: dict) -> dict:
         """The frozen reference = the starting policy (reference
@@ -165,11 +178,22 @@ class DPOTrainer(TrainerBase):
     def init_engines(self) -> None:
         total = self.total_training_steps(self.train_iterator)
         tx, schedule = self.build_optimizer(total)
-        self.init_peft()
+        policy_of = None
+        if self.init_peft():
+            # the reference IS the frozen base (reference dpo.py:114-120
+            # loads two engines)
+            if self.NEEDS_REF:
+                self.ref_params = self.base_params
+            self.params = self.lora_params
+            del self.lora_params
+
+            def policy_of(adapters):
+                return self.lora_policy(adapters, self.base_params)
         self.engine = DPOStep(
             self.model_cfg, tx, schedule,
             preference_loss=self.preference_loss,
-            compute_token_logprobs=self.compute_token_logprobs)
+            compute_token_logprobs=self.compute_token_logprobs,
+            policy_of=policy_of)
         self.state = self.build_train_state(self.params, tx)
         del self.params
         self.state = self.maybe_resume(self.state)
@@ -198,6 +222,9 @@ class DPOTrainer(TrainerBase):
         return info
 
     def save(self, tag: int | None = None) -> None:
+        if self.use_lora:
+            self.save_lora_merged(tag)
+            return
         self.save_state_and_slice(self.state, self.model_cfg, self.tokenizer,
                                   tag)
 

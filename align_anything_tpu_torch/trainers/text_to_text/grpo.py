@@ -91,7 +91,13 @@ class GRPOTrainer(TrainerBase):
         self.beta = float(tc.beta if tc.beta is not None else 0.04)
         total = self.total_training_steps(self.train_iterator)
         tx, self.schedule = self.build_optimizer(total)
-        self.init_peft()
+        # JAX's GRPO never calls init_peft: it trains the full actor whatever
+        # lora_cfgs and bnb_cfgs say (ROADMAP R17), and so does the port
+        bc = self.cfgs.bnb_cfgs
+        if self.lora_requested() or (bc and bc.use_bnb):
+            self.logger.print('GRPO ignores lora_cfgs and bnb_cfgs, as the '
+                              'reference trainer does: it trains the full '
+                              'actor in fp32')
         self.actor_state = self.build_train_state(self.actor_params, tx)
         del self.actor_params
         self.gen_cfg = GenerationConfig(

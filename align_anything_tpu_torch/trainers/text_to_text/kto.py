@@ -59,7 +59,19 @@ class KTOTrainer(DPOTrainer):
     @torch.no_grad()
     def kl_estimate(self, batch: dict) -> torch.Tensor:
         """The KL baseline of the policy against the reference on one
-        unmatched batch, over its response tokens."""
+        unmatched batch, over its response tokens.
+
+        With LoRA the JAX estimate (``kto.py:44-61``) reads the adapter
+        tree as the model and fails (a ``KeyError``): LoRA KTO runs there
+        only while no KL batch is drawn.  The port raises here, at that
+        point (ROADMAP R18)."""
+        if self.use_lora:
+            raise ValueError(
+                "KTO's KL baseline reads the train state as the model, "
+                'which under LoRA holds the adapters alone: the reference '
+                'trainer fails here too; draw no KL batch (a '
+                'per_device_kl_batch_size above the dataset) or train '
+                'without lora_cfgs.use_lora')
         logp = self.engine.compute_token_logprobs(self.state.params, batch)
         ref_logp = self.engine.compute_token_logprobs(self.ref_params, batch)
         resp_mask = (batch['labels'][:, 1:] != -100).to(logp.dtype)

@@ -33,7 +33,13 @@ Per prompt batch (``train_step``):
 Reported metrics are means over micro-batches x ``update_iters``;
 ``perf/rollout_s``, ``perf/scoring_s`` and ``perf/update_s`` split the
 round's wall clock and ``perf/generated_tokens`` counts the completion
-tokens.  LoRA (``init_peft``) raises, as in every port trainer so far.
+tokens.
+
+With LoRA (``--use_lora``, QLoRA with ``--use_bnb``) the adapters sit on
+the actor alone: its train state holds them, the policy is them attached to
+the frozen, possibly quantized, base (``actor_policy``), and that base is
+the reference, so no second actor-sized tree is held.  The critic and the
+reward model stay full.  ``save`` exports the merged actor.
 """
 
 from __future__ import annotations
@@ -94,9 +100,11 @@ class PPOTrainer(TrainerBase):
             mc.actor_model_name_or_path, self.model_cfg, padding_side='left')
         self.actor_params = self.trainable(
             self.shard_model_params(actor_params, self.model_cfg))
-        # the frozen reference is the starting policy, in fp32
-        self.ref_params = tree_map(lambda t: t.detach().clone(),
-                                   self.actor_params)
+        # the frozen reference is the starting policy, in fp32 (with LoRA
+        # the frozen base, set in init_engines)
+        self.ref_params = (None if self.lora_requested() else
+                           tree_map(lambda t: t.detach().clone(),
+                                    self.actor_params))
 
         # reward model (frozen) + critic (trained), both score models
         reward_path = mc.reward_model_name_or_path
@@ -180,7 +188,15 @@ class PPOTrainer(TrainerBase):
             weight_decay=float(tc.critic_weight_decay or 0.0),
             adam_betas=tuple(tc.adam_betas or (0.9, 0.95)),
             max_grad_norm=float(tc.max_grad_norm or 1.0))
-        self.init_peft()
+        self.params = self.actor_params
+        if self.init_peft():
+            # actor-adapter (Q)LoRA PPO: the frozen base is the reference
+            # too (the reference holds four engines,
+            # trainers/base/rl_trainer.py:198)
+            self.ref_params = self.base_params
+            self.actor_params = self.lora_params
+            del self.lora_params
+        del self.params
         self.actor_state = init_train_state(self.actor_params, self.actor_tx)
         self.critic_state = init_train_state(self.critic_params,
                                              self.critic_tx)
@@ -226,6 +242,13 @@ class PPOTrainer(TrainerBase):
                                   if tc.rollout_num_slots else None)
         self._cont_engine = None
 
+    def actor_policy(self) -> dict:
+        """The actor's params for a forward: the train state's, attached to
+        the frozen base under LoRA (JAX ``_actor_policy``)."""
+        params = self.actor_state.params
+        return (self.lora_policy(params, self.base_params) if self.use_lora
+                else params)
+
     # loss hooks -------------------------------------------------------
 
     def compute_actor_logprobs(self, params: dict, batch: dict
@@ -264,9 +287,8 @@ class PPOTrainer(TrainerBase):
         ``reward``, when given, stands for the reward model's end scores,
         which are then not computed."""
         return {
-            'log_probs': token_logprobs(self.actor_state.params,
-                                        self.model_cfg, seq,
-                                        attention_mask=mask),
+            'log_probs': token_logprobs(self.actor_policy(), self.model_cfg,
+                                        seq, attention_mask=mask),
             'ref_log_probs': token_logprobs(self.ref_params, self.model_cfg,
                                             seq, attention_mask=mask),
             'reward': (self.reward_scores(seq, mask) if reward is None
@@ -300,7 +322,7 @@ class PPOTrainer(TrainerBase):
                 self.model_cfg, num_slots=slots, max_len=max_len)
         prompts = [ids[i][mask[i].astype(bool)].tolist() for i in range(b)]
         outs = self._cont_engine.generate(
-            self.actor_state.params, prompts, self.gen_cfg, self.next_rng())
+            self.actor_policy(), prompts, self.gen_cfg, self.next_rng())
         pad = (self.gen_cfg.pad_token_id
                if self.gen_cfg.pad_token_id is not None
                else self.model_cfg.pad_token_id)
@@ -322,7 +344,7 @@ class PPOTrainer(TrainerBase):
             seq, seq_mask = self._generate_continuous(prompt_batch)
         else:
             prompts = self.put_batch(prompt_batch)
-            gen = generate(self.actor_state.params, self.model_cfg,
+            gen = generate(self.actor_policy(), self.model_cfg,
                            self.gen_cfg, prompts['input_ids'],
                            prompts['attention_mask'], self.next_rng())
             seq = gen['sequences']
@@ -397,8 +419,7 @@ class PPOTrainer(TrainerBase):
             advantages = returns.detach()
         mask = sequence_mask[:, start:]
 
-        log_probs = self.compute_actor_logprobs(self.actor_state.params,
-                                                batch)
+        log_probs = self.compute_actor_logprobs(self.actor_policy(), batch)
         actor_loss = ppo_actor_loss(log_probs[:, start:],
                                     old_log_probs[:, start:], advantages,
                                     mask, self.clip_ratio)
@@ -436,7 +457,7 @@ class PPOTrainer(TrainerBase):
         """SFT loss on a PTX batch; its gradients x ``ptx_coeff`` update
         the actor."""
         logits = transformer.forward(
-            self.actor_state.params, self.model_cfg, batch['input_ids'],
+            self.actor_policy(), self.model_cfg, batch['input_ids'],
             attention_mask=batch['attention_mask']).logits
         loss = cross_entropy_loss(logits, batch['labels'])['loss']
         self.actor_state, _ = self._update(self.actor_state, self.actor_tx,
@@ -489,10 +510,14 @@ class PPOTrainer(TrainerBase):
         """Generation-based eval with the table dump (rl_trainer.py:288-329),
         plus the reward model's mean score over the eval completions."""
         with torch.no_grad():
-            return self.generation_eval(self.actor_state.params,
+            return self.generation_eval(self.actor_policy(),
                                         score_fn=self.reward_scores)
 
     def save(self, tag: int | None = None) -> None:
+        if self.use_lora:
+            # the merged actor (base + baked adapters, dense leaves)
+            self.save_lora_merged(tag, state=self.actor_state)
+            return
         self.save_state_and_slice(self.actor_state, self.model_cfg,
                                   self.tokenizer, tag)
 

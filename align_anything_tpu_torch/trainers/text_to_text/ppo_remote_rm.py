@@ -80,6 +80,17 @@ class PPORemoteRMTrainer(PPOTrainer):
             endpoint,
             timeout=int(self.cfgs.train_cfgs.reward_server_timeout or 100))
 
+    def init_engines(self) -> None:
+        if self.lora_requested():
+            # JAX's rollout generates from the adapter tree as if it were
+            # the model (ppo_remote_rm.py:63) and fails at the first round
+            # (ROADMAP R18)
+            raise ValueError('remote-RM PPO does not run with '
+                             'lora_cfgs.use_lora: its rollout reads the '
+                             'adapters as the model, in the reference '
+                             'trainer too')
+        super().init_engines()
+
     def decode_rollout(self, prompt_ids: np.ndarray, completions: np.ndarray
                        ) -> tuple[list[str], list[str]]:
         """Prompts and completions as text, pads stripped (reference

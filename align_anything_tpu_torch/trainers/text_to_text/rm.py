@@ -13,7 +13,9 @@ preference batch.  The trunk's ``lm_head`` is never read (the score model
 skips the vocab projection), so it gets a zero gradient and moves only by
 weight decay, as in JAX.  ``save`` writes the HF slice of the trunk and
 ``score_head.npy`` beside it: the head's handoff to PPO and ``rm_score``.
-LoRA (``init_peft``) raises, as in every port trainer so far.
+With LoRA (``--use_lora``, QLoRA with ``--use_bnb``) the train state is
+``{'lora': adapters, 'score_head': head}`` over the frozen, possibly
+quantized, trunk, and the slice holds the merged trunk.
 """
 
 from __future__ import annotations
@@ -91,23 +93,50 @@ class RMTrainer(TrainerBase):
     def init_engines(self) -> None:
         total = self.total_training_steps(self.train_iterator)
         tx, schedule = self.build_optimizer(total)
-        self.init_peft()
+        if self.init_peft():
+            # trainable: the adapters and the fresh score head; the trunk
+            # stays frozen (possibly quantized), and the base keeps its
+            # untrained copy of the head, as in JAX
+            head = self.base_params['score_head']['w']
+            self.state = self.build_train_state(
+                {'lora': self.lora_params,
+                 'score_head': {'w': head.detach().clone().requires_grad_(
+                     True)}}, tx)
+            del self.params, self.lora_params
+            self.state = self.maybe_resume(self.state)
+            self._step = self.compile_lora_train_step(self.lora_loss, tx,
+                                                      schedule)
+            return
         self.state = self.build_train_state(self.params, tx)
         del self.params
         self.state = self.maybe_resume(self.state)
         self._step = self.compile_train_step(self.loss_fn, tx, schedule)
 
+    def lora_params_of(self, trainable: dict, base: dict) -> dict:
+        """The score model's params: the adapters attached to ``base``, and
+        the trained head."""
+        return dict(self.lora_policy(trainable['lora'], base),
+                    score_head=trainable['score_head'])
+
+    def lora_loss(self, trainable: dict, base: dict, batch: dict
+                  ) -> tuple[torch.Tensor, dict]:
+        return self.loss_fn(self.lora_params_of(trainable, base), batch)
+
     def train_step(self, batch: dict) -> dict[str, Any]:
-        self.state, metrics = self._step(self.state, self.put_batch(batch))
+        inputs = ((self.base_params,) if self.use_lora else ()) + (
+            self.put_batch(batch),)
+        self.state, metrics = self._step(self.state, *inputs)
         return {k: float(v) for k, v in metrics.items()}
 
     def eval(self) -> dict[str, Any]:
         if self.eval_iterator is None:
             return {}
         accs = []
+        params = (self.lora_params_of(self.state.params, self.base_params)
+                  if self.use_lora else self.state.params)
         for batch in self.eval_iterator.epoch_batches(0):
             with torch.no_grad():
-                _, m = self.loss_fn(self.state.params, self.put_batch(batch))
+                _, m = self.loss_fn(params, self.put_batch(batch))
             accs.append(float(m['train/accuracy']))
         info = {'eval/accuracy': float(np.mean(accs))} if accs else {}
         if info:
@@ -117,9 +146,12 @@ class RMTrainer(TrainerBase):
 
     def save(self, tag: int | None = None) -> None:
         # the score head rides along in the train state; the HF slice holds
-        # the LM trunk and score_head.npy the head
-        self.save_state_and_slice(self.state, self.model_cfg, self.tokenizer,
-                                  tag)
+        # the LM trunk (merged under LoRA) and score_head.npy the head
+        if self.use_lora:
+            self.save_lora_merged(tag, adapters=self.state.params['lora'])
+        else:
+            self.save_state_and_slice(self.state, self.model_cfg,
+                                      self.tokenizer, tag)
         out = self.cfgs.logger_cfgs.output_dir
         if out:
             head = self.state.params['score_head']['w'].detach().cpu().numpy()

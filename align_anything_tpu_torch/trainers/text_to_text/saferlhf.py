@@ -88,6 +88,14 @@ class SafeRLHFTrainer(PPOTrainer):
         self.cost_critic_params = self.trainable(cost_critic_params)
 
     def init_engines(self) -> None:
+        if self.lora_requested():
+            # JAX's update differentiates the actor's log-probs of the
+            # adapter tree as if it were the model (saferlhf.py:141-145) and
+            # fails at the first round (ROADMAP R18)
+            raise ValueError('Safe-RLHF does not run with '
+                             'lora_cfgs.use_lora: its actor update reads the '
+                             'adapters as the model, in the reference '
+                             'trainer too')
         super().init_engines()
         tc = self.cfgs.train_cfgs
 

@@ -7,9 +7,13 @@ Launch:
         --model_name_or_path <dir|preset> --train_datasets <path> \\
         --train_template Alpaca --output_dir ./output/sft
 
-Left out with the modules they need: LoRA (``init_peft`` raises), the
-pipeline stages and the 1F1B schedule (one device), and the MoE router's
-aux term (``check_supported`` raises for MoE).
+With LoRA (``--use_lora``, QLoRA with ``--use_bnb``) the train state holds
+the adapters over the frozen, possibly quantized, base, ``save`` exports
+the merged model, and, as in JAX, ``load_checkpoint`` resumes nothing.
+
+Left out with the modules they need: the pipeline stages and the 1F1B
+schedule (one device), and the MoE router's aux term (``check_supported``
+raises for MoE).
 """
 
 from __future__ import annotations
@@ -76,24 +80,41 @@ class SupervisedTrainer(TrainerBase):
     def init_engines(self) -> None:
         total = self.total_training_steps(self.train_iterator)
         tx, schedule = self.build_optimizer(total)
-        self.init_peft()
+        if self.init_peft():
+            # the adapters are the train state; the frozen base is an input
+            # of the step (reference lora_cfgs path,
+            # models/pretrained_model.py:196-252).  JAX's LoRA SFT does not
+            # resume (ROADMAP R20), nor does this
+            self.state = self.build_train_state(self.lora_params, tx)
+            del self.params, self.lora_params
+            self._step = self.compile_lora_train_step(self.lora_loss, tx,
+                                                      schedule)
+            return
         self.state = self.build_train_state(self.params, tx)
         del self.params  # lives inside state now
         self.state = self.maybe_resume(self.state)
         self._step = self.compile_train_step(self.loss_fn, tx, schedule)
 
+    def lora_loss(self, adapters: dict, base: dict, batch: dict
+                  ) -> tuple[torch.Tensor, dict]:
+        """``loss_fn`` of the adapters attached to ``base``."""
+        return self.loss_fn(self.lora_policy(adapters, base), batch)
+
     def train_step(self, batch: dict) -> dict[str, Any]:
-        self.state, metrics = self._step(self.state, self.put_batch(batch))
+        inputs = ((self.base_params,) if self.use_lora else ()) + (
+            self.put_batch(batch),)
+        self.state, metrics = self._step(self.state, *inputs)
         return {k: float(v) for k, v in metrics.items()}
 
     def eval(self) -> dict[str, Any]:
         if self.eval_iterator is None:
             return {}
         losses = []
+        params = (self.lora_policy(self.state.params, self.base_params)
+                  if self.use_lora else self.state.params)
         for batch in self.eval_iterator.epoch_batches(0):
             with torch.no_grad():
-                loss, _ = self.loss_fn(self.state.params,
-                                       self.put_batch(batch))
+                loss, _ = self.loss_fn(params, self.put_batch(batch))
             losses.append(float(loss))
         info = {'eval/loss': float(np.mean(losses))} if losses else {}
         if info:
@@ -102,6 +123,11 @@ class SupervisedTrainer(TrainerBase):
         return info
 
     def save(self, tag: int | None = None) -> None:
+        if self.use_lora:
+            # the merged export (save_full_model parity,
+            # supervised_trainer.py:441-450)
+            self.save_lora_merged(tag)
+            return
         self.save_state_and_slice(self.state, self.model_cfg, self.tokenizer,
                                   tag)
 

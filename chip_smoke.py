@@ -133,16 +133,40 @@ Phases (any failure raises and the run exits non-zero):
  21. at phase 18b's depth: the TI2T cost model, Safe-RLHF-V (round 1's
      ``log_lambda`` = ``lambda_lr`` x episode cost), GRPO with 2
      generations a prompt (round 1's KL 0), KTO, ORPO and SimPO through
-     their entry points; every metric finite, launches exact.
+     their entry points; every metric finite, launches exact;
+ 22. QLoRA DPO at Llama-3-8B's full size, all 32 layers, through
+     ``trainer_main(DPOTrainer, ...)`` from the 'llama-3-8b' preset (fp32
+     weights from the trainer's seed on the card), the base quantized by
+     ``init_peft``: int4 (group 64, weight-only, the head int4, the
+     embedding fp32), adapters on q_proj and v_proj (r 16, alpha 16),
+     phase 9's rows, 2 pairs in the 1024 bucket, 4 steps at a LoRA
+     learning rate, remat 'dots_saveable'; then 2 steps over an int8 base.
+     Step 1's loss ln 2, the base bit-unchanged and every adapter moved,
+     launches exact; the trained adapters' forward through the kernels
+     against the plain attention (``check_sums``) and, in fp32, against
+     ``merge_lora``'s dense tree; the step time, tokens/s, peak memory
+     and the base, adapter and AdamW bytes;
+ 23. at phase 10's depth: the int8-COMPUTE product exact at 8B shapes;
+     SFT, DPO, ORPO, SimPO, KTO (no KL batch), the RM, the cost model, PPO
+     on 'batch', ``ppo_vllm`` on 'continuous' and multi-PPO with LoRA, and
+     DPO, the RM and PPO over int4 and int8 bases, through their entry
+     points: step 1's invariants (DPO ln 2, PPO's KL exactly 0), every B
+     moved, the base equal to a fresh quantization of the checkpoint, the
+     merged exports read back as ``merge_lora`` of the trained adapters, a
+     QLoRA resume against the uninterrupted run; KTO with a KL batch,
+     Safe-RLHF and remote-RM PPO refuse LoRA, as JAX's trainers fail.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
-    python3 chip_smoke.py --profile   # instead: trace one DPO step of the
+    python3 chip_smoke.py --profile [dpo ppo ti2t qlora]
+                                      # instead: trace one DPO step of the
                                       # phase 7 and phase 8 configs, one
-                                      # PPO round of phase 12's and one
-                                      # TI2T DPO step of phase 18's
+                                      # PPO round of phase 12's, one TI2T
+                                      # DPO step of phase 18's and one
+                                      # QLoRA DPO step of phase 22's (the
+                                      # ones named; all by default)
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
 each DPO config with ``torch.profiler`` and prints device time by kernel,
@@ -3182,6 +3206,416 @@ def ti2t_rl_small(dev, smi, tmp: str, small: dict) -> dict:
     return {'launches': total}
 
 
+# phases 22-23: LoRA and QLoRA through the trainers' entry points.  Phase
+# 22 runs DPO at Llama-3-8B's full size, all 32 layers, from the port's
+# 'llama-3-8b' preset (fp32 weights drawn from the trainer's seed on the
+# card), its base quantized in place by ``init_peft``: int4 (group 64,
+# weight-only, the head int4, the embedding fp32), then int8; adapters on
+# q_proj and v_proj, r 16, alpha 16 (the YAML's), over phase 9's rows.  No
+# checkpoint or export is written at this size: an 8B bf16 checkpoint is 16
+# GB, and a full run already writes 41 GB of the card machine's 45 GiB.
+# Phase 23 runs every LoRA trainer at phase 10's depth.
+QLORA_PRESET = 'llama-3-8b'
+QLORA_STEPS, QLORA_INT8_STEPS = 4, 2
+# a LoRA learning rate (dpo.yaml's 2e-5 is a full fine-tune's): in 4 steps
+# the adapters move the policy's log-probs well past the bf16 noise, which
+# the merge check needs to see them
+QLORA_LR = 1e-4
+LORA_FLAGS = {'lora': ('--use_lora', 'True'),
+              'int4': ('--use_lora', 'True', '--use_bnb', 'True',
+                       '--load_in_4bit', 'True'),
+              'int8': ('--use_lora', 'True', '--use_bnb', 'True')}
+
+
+def base_tensors(tree) -> list:
+    """Every tensor of a (possibly quantized) param tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in base_tensors(v)]
+    return q.weight_tensors(tree)
+
+
+def tree_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# attached against merged, both in fp32 compute through the plain
+# attention: the same sums in another order (2e-8 on the CPU at tiny
+# widths); a wrong scaling or layout of the adapters' path reads about
+# the adapters' own share, 1e-3 or more after phase 22's steps
+MERGE_TOL = 1e-5
+
+
+def merge_check(tag: str, trainer, batch: dict) -> list:
+    """The trained adapters attached to the quantized base: (1) through the
+    kernels in bf16 against the plain attention, per-sequence response
+    log-prob sums within ``check_sums`` (3x the plain pass's own bf16 noise
+    against fp32 compute); (2) in fp32 compute against ``merge_lora``'s
+    dense tree (the base dequantized to fp32 plus s * A @ B), both through
+    the plain attention, within MERGE_TOL."""
+    from align_anything_tpu_torch.ops.logprobs import token_logprobs  # noqa: PLC0415
+
+    cfg = trainer.model_cfg
+    cfg32 = cfg.replace(compute_dtype='float32')
+    ids, mask = batch['input_ids'], batch['attention_mask']
+
+    def sums(params, c):
+        return masked_sums(token_logprobs(params, c, ids,
+                                          attention_mask=mask),
+                           batch['response_mask'])
+
+    with torch.no_grad():
+        policy = trainer.lora_policy(trainer.state.params, trainer.base_params)
+        got, base = sums(policy, cfg), sums(trainer.base_params, cfg)
+        with plain_flash():
+            want, fp32 = sums(policy, cfg), sums(policy, cfg32)
+            merged = trainer.merged_params(trainer.state.params)
+            merged32 = sums(merged, cfg32)
+    del merged
+    torch.cuda.empty_cache()
+    msgs = [check_sums(f'{tag} attached, kernels against plain', got, want,
+                       fp32)]
+    gap = relative_gap(fp32, merged32)
+    msgs.append(f'{tag} attached against merge_lora\'s dense tree, fp32: '
+                f'max relative diff per sequence {gap:.3e} (limit '
+                f'{MERGE_TOL:g}); the adapters move the sums by '
+                f'{relative_gap(got, base):.3e} from the base\'s')
+    if not gap <= MERGE_TOL:
+        raise AssertionError(f'{msgs[-1]}: the attached adapters disagree '
+                             'with the merged model')
+    return msgs
+
+
+def qlora_full(dev, smi, tmp: str, bits: int, steps: int) -> dict:
+    """Phase 22: QLoRA DPO at Llama-3-8B's full 32 layers through
+    ``trainer_main(DPOTrainer, ...)`` on a ``bits``-bit base."""
+    from align_anything_tpu_torch.trainers.base import TrainerBase  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+
+    tag = f'phase22 int{bits}'
+    argv = ['--model_name_or_path', QLORA_PRESET,
+            '--train_datasets', os.path.join(tmp, 'pref_8b.jsonl'),
+            '--train_template', 'PKUSafeRLHF', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size', str(DPO_PAIRS),
+            '--train_size', str(steps * DPO_PAIRS),
+            '--learning_rate', str(QLORA_LR), *LORA_FLAGS[f'int{bits}']]
+    seen: dict = {}
+    train = TrainerBase.train
+
+    def measured_train(self):
+        # what the build left on the card, and the base and adapters as
+        # they start, on the host; then the run's own peak and launches
+        torch.cuda.synchronize()
+        seen['build_peak'] = torch.cuda.max_memory_allocated()
+        seen['resident'] = torch.cuda.memory_allocated()
+        seen['base'] = [t.to('cpu', copy=True)
+                        for t in base_tensors(self.base_params)]
+        seen['adapters'] = [t.detach().to('cpu', copy=True)
+                            for t in param_leaves(self.state.params)]
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        seen['t0'] = time.perf_counter()
+        train(self)
+        torch.cuda.synchronize()
+        seen['train_s'] = time.perf_counter() - seen['t0']
+        seen['peak'] = torch.cuda.max_memory_allocated()
+        seen['launches'] = flash_counts()
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(TrainerBase, 'train', measured_train):
+        trainer, metrics, _ = run_trainer(DPOTrainer, 'text_to_text/dpo',
+                                          argv, HARNESS_MESH)
+    build_s = seen['t0'] - t0
+    cfg = trainer.model_cfg
+    batch = trainer.put_batch(next(trainer.train_iterator.epoch_batches(0)))
+    shape = tuple(batch['input_ids'].shape)
+    kind = q.Int4Weight if bits == 4 else q.Int8Weight
+    leaf = trainer.base_params['layers']['q']['w']
+    losses = [m['train/loss'] for m in metrics]
+    seconds = [m['perf/step_time_s'] for m in metrics]
+    for i, m in enumerate(metrics):
+        log(f'{tag} step {i + 1}: loss={losses[i]:.9f} grad_norm='
+            f'{m["train/grad_norm"]:.6e} reward_accuracy='
+            f'{m["train/reward_accuracy"]:.3f} seconds={seconds[i]:.4f}')
+    step_s = statistics.median(seconds[1:])
+    tps = shape[0] * shape[1] / step_s
+    base_now = [t.cpu() for t in base_tensors(trainer.base_params)]
+    base_same = len(base_now) == len(seen['base']) and all(
+        torch.equal(a, b) for a, b in zip(base_now, seen['base']))
+    adapters = param_leaves(trainer.state.params)
+    moved = [not torch.equal(t.detach().cpu(), t0_)
+             for t, t0_ in zip(adapters, seen['adapters'])]
+    opt_bytes = tree_bytes(t for st in trainer.state.optimizer.state.values()
+                           for t in st.values()
+                           if isinstance(t, torch.Tensor) and t.ndim)
+    need = {'fwd': steps * 3 * cfg.num_layers, 'bwd': steps * cfg.num_layers}
+    launches = seen['launches']
+    log(f'{tag} config: {cfg.num_layers} layers (not cut), vocab '
+        f'{cfg.vocab_size}, hidden {cfg.hidden_size}, {cfg.num_heads} / '
+        f'{cfg.num_kv_heads} heads of {cfg.head_dim}, MLP {cfg.mlp_dim}; '
+        f'base leaves {type(leaf).__name__} (compute={leaf.compute}), head '
+        f'{type(trainer.base_params["lm_head"]).__name__}, embedding '
+        f'{trainer.base_params["embedding"].dtype}; adapters '
+        f'{trainer.lora_targets} r {trainer.lora_r} alpha '
+        f'{trainer.lora_alpha}; remat {cfg.remat}; batch {shape}')
+    log(f'{tag} bytes: base {q.quantized_bytes(trainer.base_params) / 1e9:.3f}'
+        f' GB (quantized_bytes), adapters {tree_bytes(adapters) / 1e6:.3f} '
+        f'MB, AdamW moments {opt_bytes / 1e6:.3f} MB; after the build '
+        f'{seen["resident"] / 1e9:.3f} GB resident, build peak '
+        f'{seen["build_peak"] / 1e9:.3f} GB in {build_s:.1f} s (the '
+        f'preset\'s fp32 draw and the quantization)')
+    log(f'{tag} step time {step_s:.4f} s (median of steps 2-{len(seconds)}, '
+        f'the loop\'s clock), {tps:.1f} tokens/s, training peak '
+        f'{seen["peak"] / 1e9:.3f} GB, {len(metrics)} steps in '
+        f'{seen["train_s"]:.2f} s; flash launches fwd {launches["fwd"]} '
+        f'(need {need["fwd"]}) bwd {launches["bwd"]} (need {need["bwd"]}); '
+        f'base bit-unchanged: {base_same}; adapters moved: {moved}; card '
+        f'{smi}')
+    if not (isinstance(leaf, kind) and not leaf.compute
+            and isinstance(trainer.base_params['lm_head'], kind)
+            and cfg.num_layers == 32 and shape == (2 * DPO_PAIRS, DPO_SEQ)):
+        raise AssertionError(f'{tag}: not the QLoRA configuration asked for')
+    if len(metrics) != steps or not all_finite(metrics):
+        raise AssertionError(f'{tag}: {len(metrics)} steps, or a non-finite '
+                             'metric')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'{tag}: step 1 loss {losses[0]} != ln 2')
+    if not base_same or not all(moved):
+        raise AssertionError(f'{tag}: the base moved or an adapter did not')
+    check_launches(tag, launches, need, exact=True)
+    for msg in merge_check(tag, trainer, batch):
+        log(msg)
+    out = {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+           'peak_gb': seen['peak'] / 1e9}
+    del trainer, batch, adapters
+    free_memory()
+    return out
+
+
+def int8_product_check(dev) -> None:
+    """The int8-COMPUTE product (``transformer.int8_product``, padded where
+    the card's ``torch._int_mm`` needs it) exactly against an fp64 product
+    (every sum below 2^53) at Llama-3-8B's shapes, decode rows included."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    for m, k, n in ((1, 4096, 6144), (16, 4096, 4096), (33, 14336, 4096),
+                    (4096, 4096, 14336)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        got = transformer.int8_product(a, b)
+        want = (a.double() @ b.double()).to(torch.int64)
+        if got.dtype != torch.int32 or not torch.equal(got.long(), want):
+            raise AssertionError(f'int8 product M {m} K {k} N {n} is not '
+                                 'exact')
+    log('phase23 int8 product exact at M 1 / 16 / 33 / 4096 against fp64')
+
+
+def lora_small(dev, smi, tmp: str, cost: str) -> dict:
+    """Phase 23 at bench.py's widths, 2 layers (phase 10's checkpoint and
+    rows, phase 13's cost model as the reward model): every trainer that
+    takes LoRA, with LoRA and DPO, RM and PPO also over int4 and int8
+    bases; the invariants, the base against a fresh quantization of the
+    checkpoint, the merged exports, a resume; and the trainers that refuse
+    LoRA, as JAX's fail."""
+    from align_anything_tpu_torch.models import lora as lora_lib  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import load_params  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text import (  # noqa: PLC0415
+        cost_model, dpo, kto, multi_ppo, orpo, ppo, ppo_remote_rm, ppo_vllm,
+        rm, saferlhf, sft, simpo)
+
+    t_phase, disk0 = time.perf_counter(), disk_written()
+    int8_product_check(dev)
+    ckpt = os.path.join(tmp, 'small')
+    pref = os.path.join(tmp, 'pref_small.jsonl')
+    sft_data = os.path.join(tmp, 'sft_small.jsonl')
+    prompts = os.path.join(tmp, 'prompts_small.jsonl')
+    loaded, _ = load_params(ckpt, device=dev)
+    loaded = tree_map(torch.Tensor.float, loaded)
+    with torch.no_grad():
+        fresh = {'lora': loaded,
+                 'int4': q.quantize_decoder_int4(loaded),
+                 'int8': q.quantize_decoder_int8(loaded)}
+
+    def argv(data, template, out, *extra):
+        return ['--model_name_or_path', ckpt, '--train_datasets', data,
+                '--train_template', template, '--epochs', '1',
+                '--per_device_train_batch_size', '2', '--save_checkpoint',
+                'False', *(('--output_dir', os.path.join(tmp, out))
+                           if out else ()), *extra]
+
+    ppo_common = ('--per_device_prompt_batch_size', '4',
+                  '--per_device_train_batch_size', '2', '--max_new_tokens',
+                  '32', '--padding_buckets', '[64]', '--train_size', '4')
+    rloo = {'ENV_PREFIX__TRAIN_CFGS__N_SAMPLES_PER_PROMPT': '2',
+            'ENV_PREFIX__TRAIN_CFGS__ADVANTAGE_ESTIMATOR': 'rloo'}
+    # (name, class, task, argv, environment, mode); an ``out`` directory
+    # exports the merged model, checked below
+    cases = [('sft', sft.SupervisedTrainer, 'text_to_text/sft',
+              argv(sft_data, 'Alpaca', 'lora_sft'), {}, 'lora')]
+    for mode in ('lora', 'int4', 'int8'):
+        cases.append((f'dpo {mode}', dpo.DPOTrainer, 'text_to_text/dpo',
+                      argv(pref, 'PKUSafeRLHF', None), {}, mode))
+    cases += [
+        ('orpo', orpo.ORPOTrainer, 'text_to_text/orpo',
+         argv(pref, 'PKUSafeRLHF', None, '--train_size', '4'), {}, 'lora'),
+        ('simpo', simpo.SimPOTrainer, 'text_to_text/simpo',
+         argv(pref, 'PKUSafeRLHF', None, '--train_size', '4'), {}, 'lora'),
+        # a KL batch larger than the rows: no KL estimate, which JAX's LoRA
+        # KTO cannot take (R18)
+        ('kto', kto.KTOTrainer, 'text_to_text/kto',
+         argv(pref, 'PKUSafeRLHF', None, '--per_device_kl_batch_size', '64'),
+         {}, 'lora')]
+    for mode in ('lora', 'int4', 'int8'):
+        cases.append((f'rm {mode}', rm.RMTrainer, 'text_to_text/rm',
+                      argv(pref, 'PKUSafeRLHF',
+                           'lora_rm' if mode == 'int4' else None), {}, mode))
+    cases.append(('cost model', cost_model.CostModelTrainer,
+                  'text_to_text/rm', argv(pref, 'PKUSafeRLHF', None), {},
+                  'lora'))
+    for mode in ('lora', 'int4', 'int8'):
+        cases.append((f'ppo batch {mode}', ppo.PPOTrainer, 'text_to_text/ppo',
+                      ppo_argv(ckpt, cost, prompts,
+                               os.path.join(tmp, 'lora_ppo')
+                               if mode == 'int4' else None, *ppo_common),
+                      {}, mode))
+    cases += [
+        ('ppo_vllm continuous', ppo_vllm.PPOVLLMTrainer, 'text_to_text/ppo',
+         ppo_argv(ckpt, cost, prompts, None, *ppo_common), {}, 'lora'),
+        ('multi_ppo rloo', multi_ppo.MultiPPOTrainer, 'text_to_text/ppo',
+         ppo_argv(ckpt, cost, prompts, None, *ppo_common), rloo, 'lora')]
+
+    total = {'fwd': 0, 'bwd': 0}
+    for name, cls, task, args, env, mode in cases:
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env):
+            trainer, steps, _ = run_trainer(cls, task,
+                                            args + list(LORA_FLAGS[mode]))
+        seconds = time.perf_counter() - t0
+        launches = flash_counts()
+        rl = 'actor_state' in vars(trainer)
+        state = trainer.actor_state if rl else trainer.state
+        adapters = state.params['lora'] if 'lora' in state.params \
+            else state.params
+        base = trainer.base_params
+        want = fresh[mode]
+        same = all(torch.equal(a, b) for k in ('layers', 'lm_head',
+                                               'embedding')
+                   for a, b in zip(base_tensors(base[k]),
+                                   base_tensors(want[k])))
+        b_moved = all(bool(adapters[m]['b'].detach().ne(0).any())
+                      for m in adapters)
+        rounds = [m for m in steps if 'train/actor_loss' in m]
+        first = (rounds or steps)[0]
+        loss_key = 'train/actor_loss' if rounds else 'train/loss'
+        log(f'phase23 {name}: {len(rounds or steps)} steps, {loss_key} '
+            f'{[m[loss_key] for m in (rounds or steps)]}'
+            + (f', round 1 kl {first["train/kl_divergence"]!r}' if rounds
+               else '')
+            + f'; base {type(base["layers"]["q"]["w"]).__name__}, equal to '
+            f'a fresh quantization of the checkpoint: {same}; every B moved: '
+            f'{b_moved}; flash fwd {launches["fwd"]} bwd {launches["bwd"]}; '
+            f'{seconds:.2f} s')
+        layers = trainer.model_cfg.num_layers
+        ok = (trainer.use_lora and steps and all_finite(steps) and same
+              and b_moved and launches['fwd'] >= layers * len(steps)
+              and launches['bwd'] >= layers * len(rounds or steps))
+        if name.startswith('dpo'):
+            ok = ok and abs(first['train/loss'] - math.log(2)) <= 1e-6
+        if rounds:
+            ok = ok and first['train/kl_divergence'] == 0.0
+        if not ok:
+            raise AssertionError(f'phase 23 {name} failed')
+        out = trainer.cfgs.logger_cfgs.output_dir
+        if out:
+            n = trainer.global_step
+            back, _ = load_params(os.path.join(out, f'slice_{n}'),
+                                  device=dev)
+            merged = trainer.merged_params(adapters)
+            got = leaves_by_path(back)
+            exp = leaves_by_path({k: v for k, v in merged.items()
+                                  if k != 'score_head'})
+            exported = set(got) == set(exp) and all(
+                torch.equal(got[p], exp[p]) for p in exp)
+            head = True
+            if 'score_head' in state.params:
+                head = np.array_equal(
+                    np.load(os.path.join(out, f'slice_{n}',
+                                         'score_head.npy')),
+                    state.params['score_head']['w'].detach().cpu().numpy())
+            log(f'phase23 {name}: slice_{n} read back bit-equal to '
+                f'merge_lora of the trained adapters: {exported}'
+                + ('' if head is True else f'; score_head.npy: {head}'))
+            if not (exported and head):
+                raise AssertionError(f'phase 23 {name}: the merged export '
+                                     'does not read back')
+            del back, merged, got, exp
+        for k in total:
+            total[k] += launches[k]
+        del trainer, state, adapters, base
+        free_memory()
+
+    # resume: QLoRA DPO saved at step 2, resumed for steps 3-4, against the
+    # uninterrupted run's metrics and adapters
+    full, full_steps, _ = run_trainer(
+        dpo.DPOTrainer, 'text_to_text/dpo',
+        argv(pref, 'PKUSafeRLHF', 'lora_full', '--save_checkpoint', 'True',
+             '--save_interval', '2', '--save_total_limit', '3',
+             *LORA_FLAGS['int4']))
+    os.makedirs(os.path.join(tmp, 'lora_resumed', 'checkpoints'))
+    shutil.copytree(os.path.join(tmp, 'lora_full', 'checkpoints', 'step_2'),
+                    os.path.join(tmp, 'lora_resumed', 'checkpoints',
+                                 'step_2'))
+    resumed, resumed_steps, _ = run_trainer(
+        dpo.DPOTrainer, 'text_to_text/dpo',
+        argv(pref, 'PKUSafeRLHF', 'lora_resumed', '--load_checkpoint',
+             'True', *LORA_FLAGS['int4']))
+    want = [(m['train/loss'], m['train/grad_norm']) for m in full_steps[2:]]
+    have = [(m['train/loss'], m['train/grad_norm']) for m in resumed_steps]
+    a, b = (leaves_by_path(t.state.params) for t in (full, resumed))
+    bit_equal = have == want and all(torch.equal(a[p], b[p]) for p in a)
+    rel = max((abs(h - w) / abs(w) for hw, ww in zip(have, want)
+               for h, w in zip(hw, ww)), default=math.inf)
+    log(f'phase23 resume (QLoRA int4 DPO, the adapter state of step 2): '
+        f'(loss, grad norm) of steps 3-4 {have} vs uninterrupted {want}; '
+        f'bit-equal (metrics and adapters): {bit_equal}; max rel diff '
+        f'{rel:.3e} (limit {DPO_SUM_TOL:g})')
+    if len(have) != 2 or not (bit_equal or rel <= DPO_SUM_TOL):
+        raise AssertionError('phase 23: the LoRA resume disagrees with the '
+                             'uninterrupted run')
+    del full, resumed, a, b
+    free_memory()
+
+    # where JAX's trainers fail with LoRA, the port's refuse the config
+    refused = []
+    for name, cls, task, args in (
+            ('kto with a KL batch', kto.KTOTrainer, 'text_to_text/kto',
+             argv(pref, 'PKUSafeRLHF', None, '--per_device_kl_batch_size',
+                  '2')),
+            ('saferlhf', saferlhf.SafeRLHFTrainer, 'text_to_text/saferlhf',
+             ppo_argv(ckpt, cost, prompts, None, '--cost_model_name_or_path',
+                      cost, *ppo_common)),
+            ('ppo_remote_rm', ppo_remote_rm.PPORemoteRMTrainer,
+             'text_to_text/ppo', ppo_argv(ckpt, cost, prompts, None,
+                                          *ppo_common))):
+        try:
+            run_trainer(cls, task, args + list(LORA_FLAGS['lora']))
+        except ValueError as e:
+            refused.append(f'{name}: {str(e)[:60]}...')
+        else:
+            raise AssertionError(f'phase 23 {name} ran with LoRA')
+        free_memory()
+    log(f'phase23 refused with LoRA, as JAX fails (ROADMAP R18): {refused}')
+    del fresh, loaded
+    free_memory()
+    log(f'phase23 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - disk0:.3f} GB written by the phase; card {smi}')
+    return {'launches': total}
+
+
 # --planted-faults: flash_attention.cu with 64 keys (or one 64-row query
 # tile) skipped for the second half of the rows, in the tensor-core
 # kernels (bf16, the main path).  (name, loop text, the broken loop,
@@ -3511,6 +3945,30 @@ def profile_ti2t(dev, smi, tmp: str) -> None:
     free_memory()
 
 
+def profile_qlora(dev, smi, tmp: str) -> None:
+    """``--profile``: one QLoRA DPO step of phase 22's config (Llama-3-8B, 32
+    layers, the int4 base) after a warm-up step, traced whole."""
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+
+    data = write_jsonl(os.path.join(tmp, 'pref_8b.jsonl'), preference_rows(
+        SEED + 51, DPO_STEPS * DPO_PAIRS, 400, (150, 601)))
+    with mock.patch.dict(os.environ, {'MESH_FILE': HARNESS_MESH}):
+        cfgs, pc = parse_cfgs('text_to_text/dpo', [
+            '--model_name_or_path', QLORA_PRESET, '--train_datasets', data,
+            '--train_template', 'PKUSafeRLHF', '--epochs', '1',
+            '--per_device_train_batch_size', str(DPO_PAIRS),
+            '--learning_rate', str(QLORA_LR), *LORA_FLAGS['int4']])
+    trainer = DPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    report_trace('qlora int4 step (32 layers)', prof, wall, smi)
+    del trainer, prof
+    free_memory()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on the GPU',
@@ -3531,12 +3989,16 @@ def main() -> int:
     log(f'phase0 Pillow (PIL) imports: {pillow_available()}')
 
     libs = build_kernels()
-    if '--profile' in sys.argv[1:]:
-        profile_dpo(dev, smi)
+    if sys.argv[1:2] == ['--profile']:
+        which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora']
+        if 'dpo' in which:
+            profile_dpo(dev, smi)
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
         try:
-            profile_ppo(dev, smi, tmp)
-            profile_ti2t(dev, smi, tmp)
+            for name, fn in (('ppo', profile_ppo), ('ti2t', profile_ti2t),
+                             ('qlora', profile_qlora)):
+                if name in which:
+                    fn(dev, smi, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         return 0
@@ -3659,6 +4121,9 @@ def main() -> int:
         ti2t_rm = ti2t_rm_full(dev, smi, tmp)
         ti2t_ppo = ti2t_ppo_full(dev, smi, tmp, ti2t_rm)
         ti2t_rl = ti2t_rl_small(dev, smi, tmp, ti2t_sft)
+        qlora4 = qlora_full(dev, smi, tmp, 4, QLORA_STEPS)
+        qlora8 = qlora_full(dev, smi, tmp, 8, QLORA_INT8_STEPS)
+        lora = lora_small(dev, smi, tmp, cost)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3667,7 +4132,7 @@ def main() -> int:
     vit = fstats['timed']['vit336']
     mm_ppo = fstats['timed']['ti2t_ppo']
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
-                 ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl)
+                 ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, qlora4, qlora8, lora)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -3692,7 +4157,10 @@ def main() -> int:
                              'prefill, 4 scoring passes, actor and critic '
                              'updates, towers trained) + phase 21 (TI2T cost '
                              'model, Safe-RLHF-V, GRPO, KTO, ORPO, SimPO, '
-                             'small)'}
+                             'small) + phase 22 (QLoRA DPO at Llama-3-8B\'s '
+                             'full 32 layers: 4 steps on the int4 base, 2 on '
+                             'the int8 base) + phase 23 (every LoRA trainer, '
+                             'LoRA and QLoRA, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',

@@ -137,7 +137,8 @@ def test_grpo_round_matches_jax(assets, tmp_path, monkeypatch, one_thread):
 def test_grpo_trainer_main(assets, tmp_path, monkeypatch):
     """``trainer_main(GRPOTrainer, ...)`` runs every round (24 prompts, 8 a
     round) and exports the actor's slice, which reads back equal to the
-    trained params; LoRA raises."""
+    trained params; with ``--use_lora`` it trains the full actor, as JAX's
+    GRPO does (ROADMAP R17)."""
     from align_anything_tpu_torch.models.hf_loader import load_params
 
     _fix_generate(monkeypatch)
@@ -147,9 +148,10 @@ def test_grpo_trainer_main(assets, tmp_path, monkeypatch):
     assert trainer.global_step == 3
     back, _ = load_params(str(tmp_path / 'slice_3'), device='cpu')
     _compare_trees(back, trainer.actor_state.params, 0)
-    with pytest.raises(NotImplementedError, match='LoRA'):
-        tcli.trainer_main(tgrpo.GRPOTrainer, 'text_to_text/grpo',
-                          argv + ['--use_lora', 'True'], device='cpu')
+    lora = tcli.trainer_main(tgrpo.GRPOTrainer, 'text_to_text/grpo',
+                             argv + ['--use_lora', 'True'], device='cpu')
+    assert lora.global_step == 3 and not lora.use_lora
+    _compare_trees(lora.actor_state.params, trainer.actor_state.params)
 
 
 def test_grpo_entry_point():

@@ -23,7 +23,8 @@ for name in names:
 # the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, the
 # trainer harness, the reward-model and PPO trainers, KTO, GRPO,
 # Safe-RLHF and the two PPO variants with the remote reward model, the
-# LLaVA image-text path and the image-text RL and preference trainers
+# LLaVA image-text path, the image-text RL and preference trainers and
+# LoRA
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
@@ -50,7 +51,7 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'trainers.text_image_to_text.saferlhf',
              'trainers.text_image_to_text.kto',
              'trainers.text_image_to_text.orpo',
-             'trainers.text_image_to_text.simpo'):
+             'trainers.text_image_to_text.simpo', 'models.lora'):
     assert 'align_anything_tpu_torch.' + name in names, name
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
@@ -67,7 +68,7 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slices was imported
-    assert int(n) >= 78
+    assert int(n) >= 79
 
 
 @pytest.mark.parametrize('module', [

@@ -511,7 +511,8 @@ def test_multi_ppo_rloo_matches_jax(assets, tmp_path, monkeypatch,
 def test_ppo_trainer_main_saves_the_actor(assets, tmp_path, monkeypatch):
     """``trainer_main(PPOTrainer, ...)`` runs the round (24 prompts, one
     round of 16) and exports the actor's slice, which reads back equal to
-    the trained params; LoRA raises."""
+    the trained params; with ``--use_lora`` it runs its round over the
+    adapters, as JAX does (``tests/test_torch_lora.py`` holds it to JAX)."""
     _fix_rollouts(monkeypatch)
     argv = _scaled(_ppo_argv(assets, tmp_path), PPO_SCALED)
     trainer = tcli.trainer_main(tppo.PPOTrainer, 'text_to_text/ppo', argv,
@@ -519,9 +520,10 @@ def test_ppo_trainer_main_saves_the_actor(assets, tmp_path, monkeypatch):
     assert trainer.global_step == 1
     back, _ = load_params(str(tmp_path / 'slice_1'), device='cpu')
     _compare_trees(back, trainer.actor_state.params, 0)
-    with pytest.raises(NotImplementedError, match='LoRA'):
-        tcli.trainer_main(tppo.PPOTrainer, 'text_to_text/ppo',
-                          argv + ['--use_lora', 'True'], device='cpu')
+    lora = tcli.trainer_main(tppo.PPOTrainer, 'text_to_text/ppo',
+                             argv + ['--use_lora', 'True'], device='cpu')
+    assert lora.global_step == 1
+    assert set(lora.actor_state.params) == {'q_proj', 'v_proj'}
 
 
 def test_ppo_config_checks(assets, tmp_path, monkeypatch):
