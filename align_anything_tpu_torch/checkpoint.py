@@ -10,8 +10,11 @@ trainers/base/supervised_trainer.py:404-450):
 - HF-format ``slice_{step}/`` exports (safetensors + config.json) so outputs
   remain loadable by the reference ecosystem.
 
-Saves are synchronous (the JAX module's orbax writes are asynchronous);
-``wait_for_saves`` is kept as a no-op so callers read the same.
+Train-state saves may be asynchronous, as the JAX module's orbax
+``AsyncCheckpointer`` writes are: with ``wait=False`` the state is copied
+to host memory before ``save_train_state`` returns and one background
+thread writes it.  Every save writes a temporary file and commits it with
+``os.replace``, so ``latest_checkpoint`` never sees a partial save.
 """
 
 from __future__ import annotations
@@ -19,38 +22,101 @@ from __future__ import annotations
 import os
 import re
 import shutil
+import threading
 from typing import Any
 
 import torch
 
-from align_anything_tpu_torch.utils.tools import tree_map
-
 _STATE_FILE = 'train_state.pt'
+# the save being written in the background: (thread, errors it hit)
+_IN_FLIGHT: list = [None]
+
+
+def _host_copy(tree: Any) -> Any:
+    """A copy of ``tree`` whose tensors live in host memory and share no
+    storage with the originals (the train step updates those in place).
+    A CUDA tensor is copied into pinned memory without blocking, and the
+    copies are waited for once: PyTorch's host allocator keeps the pinned
+    blocks of one save for the next."""
+    pending = []
+
+    def copy(t):
+        if isinstance(t, torch.Tensor):
+            if t.is_cuda:
+                out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                out.copy_(t.detach(), non_blocking=True)
+                pending.append(t.device)
+                return out
+            return t.detach().to('cpu', copy=True)
+        if isinstance(t, dict):
+            return {k: copy(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(copy(v) for v in t)
+        return t
+
+    out = copy(tree)
+    for device in set(pending):
+        torch.cuda.synchronize(device)
+    return out
+
+
+def _write(payload: dict, path: str) -> None:
+    tmp = os.path.join(path, _STATE_FILE + '.tmp')
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, _STATE_FILE))
+
+
+def _write_in_background(payload: dict, path: str, errors: list) -> None:
+    try:
+        _write(payload, path)
+    except BaseException as err:  # noqa: BLE001 -- re-raised by wait_for_saves
+        errors.append(err)
 
 
 def save_train_state(output_dir: str, step: int, state: Any,
                      keep: int | None = None, wait: bool = True) -> str:
     """Save the train state (a ``trainers.base.TrainState``) to
     ``output_dir/checkpoints/step_{step}``, keeping the newest ``keep``.
-    The write is synchronous whatever ``wait`` says."""
-    del wait
+
+    The save in flight, if any, is waited for first (orbax serializes
+    consecutive saves too), and its error re-raised.  Then the state is
+    copied to host memory; with ``wait=False`` one background thread writes
+    it and this returns at once: call :func:`wait_for_saves` before
+    exiting or restoring."""
+    wait_for_saves()
     path = os.path.abspath(os.path.join(output_dir, 'checkpoints',
                                         f'step_{step}'))
     os.makedirs(path, exist_ok=True)
-    payload = {'params': tree_map(lambda t: t.detach(), state.params),
-               'optimizer': state.optimizer.state_dict(),
-               'step': int(state.step)}
-    tmp = os.path.join(path, _STATE_FILE + '.tmp')
-    torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, _STATE_FILE))
+    payload = _host_copy({'params': state.params,
+                          'optimizer': state.optimizer.state_dict(),
+                          'step': int(state.step)})
+    if wait:
+        _write(payload, path)
+    else:
+        errors: list = []
+        thread = threading.Thread(target=_write_in_background,
+                                  args=(payload, path, errors),
+                                  name=f'checkpoint-step_{step}')
+        thread.start()
+        _IN_FLIGHT[0] = (thread, errors)
     if keep is not None:
+        # every earlier save has committed (waited for above); this one is
+        # spared even while it is in flight
         _prune_old(os.path.join(output_dir, 'checkpoints'), keep,
                    exclude=os.path.basename(path))
     return path
 
 
 def wait_for_saves() -> None:
-    """Saves are synchronous: nothing is ever in flight."""
+    """Block until the save in flight has committed; re-raise the error
+    its writer hit, if any."""
+    entry, _IN_FLIGHT[0] = _IN_FLIGHT[0], None
+    if entry is None:
+        return
+    thread, errors = entry
+    thread.join()
+    if errors:
+        raise errors[0]
 
 
 def latest_checkpoint(output_dir: str) -> tuple[str, int] | None:
@@ -69,7 +135,7 @@ def latest_checkpoint(output_dir: str) -> tuple[str, int] | None:
 
 
 def restore_train_state(path: str, target: Any) -> Any:
-    """Restore into ``target`` (a ``TrainState`` of the same tree): the
+    """Restore a committed save into ``target`` (a ``TrainState`` of the same tree): the
     params are copied into its leaves in place, on their devices, and the
     optimizer's state is loaded into its optimizer."""
     saved = torch.load(os.path.join(path, _STATE_FILE), map_location='cpu',

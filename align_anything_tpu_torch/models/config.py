@@ -2,13 +2,12 @@
 fields, same defaults), the OPT / Llama-3 / Qwen2 / tiny makers, the
 presets the port runs, and ``config_from_hf``.
 
-One generic decoder covers the Llama-class text families.  The port runs
-the dense, full-attention subset of the switches; ``models/transformer.py``
-``check_supported`` raises ``NotImplementedError`` for the rest (MoE,
-pipeline stages, five remat policies, m-rope, sliding-window layers), and
-``config_from_hf`` raises through it for a checkpoint the port cannot run
-(Gemma3's sliding layers, for one).  The JAX ``qwen3_moe_config`` and its
-MoE presets are left out with MoE.
+One generic decoder covers the Llama-class text families, Gemma3's
+interleaved sliding-window layers included.  ``models/transformer.py``
+``check_supported`` raises ``NotImplementedError`` for the switches the
+port does not run (MoE, pipeline stages, m-rope), and ``config_from_hf``
+raises through it for a checkpoint that needs one.  The JAX
+``qwen3_moe_config`` and its MoE presets are left out with MoE.
 """
 
 from __future__ import annotations
@@ -71,7 +70,7 @@ class ModelConfig:
     # runtime
     compute_dtype: str = 'bfloat16'
     attention_impl: str = 'auto'      # 'auto' | 'flash' | 'splash' | 'xla'
-    remat: str = 'none'               # 'none' | 'full' | 'dots_saveable'
+    remat: str = 'none'               # transformer.REMAT_POLICIES
     pp_stages: int = 1
     pp_microbatches: int = 0
 

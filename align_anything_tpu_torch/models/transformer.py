@@ -20,6 +20,12 @@ The cache is a plain (L, B, KH, S, D) tensor pair, updated IN PLACE (one
 ``index_put_`` per layer and step), unlike the JAX package's functional
 update.  The layer loop is a Python loop.  Prefill and decode attend
 with ``_masked_attention``, as the JAX package does.
+
+Gemma3's interleaved attention (``layer_is_sliding``): a sliding layer
+takes the rope table of ``rope_local_theta`` and sees keys fewer than
+``sliding_window`` positions back, through the kernel's window in training
+(``ops/attention.windowed_causal_attention``) and through the masks of the
+cache paths.
 """
 
 from __future__ import annotations
@@ -41,7 +47,10 @@ from align_anything_tpu_torch.models.quantization import (
     Int8Weight,
     dequantize_weight,
 )
-from align_anything_tpu_torch.ops.attention import causal_attention
+from align_anything_tpu_torch.ops.attention import (
+    causal_attention,
+    windowed_causal_attention,
+)
 # the module, not its function: ops/int4_matmul.py imports models/, so
 # either may be imported first
 from align_anything_tpu_torch.ops import int4_matmul as k2
@@ -50,10 +59,10 @@ from align_anything_tpu_torch.ops.rope import apply_rope, rope_table
 from align_anything_tpu_torch.utils.tools import default_device
 
 NEG_INF = -2.3819763e38  # close to bf16 -inf without overflow
-# remat policies of the JAX ``_remat_policy`` that the port runs; the others
-# ('dots_nb', 'dots_flash', 'dots_saveable_flash', 'dots_mlp_lean',
-# 'dots_mlp_lean_flash', 'save_attn') raise in ``check_supported``
-REMAT_POLICIES = ('none', 'full', 'dots_saveable', 'save_flash')
+# 'none' and the nine policies of the JAX ``_remat_policy``
+REMAT_POLICIES = ('none', 'full', 'dots_saveable', 'dots_nb', 'dots_flash',
+                  'save_flash', 'save_attn', 'dots_saveable_flash',
+                  'dots_mlp_lean', 'dots_mlp_lean_flash')
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -72,9 +81,6 @@ def check_supported(c: ModelConfig) -> None:
         missing.append(f'remat policy {c.remat!r}')
     if c.mrope_section is not None:
         missing.append('m-rope (mrope_section)')
-    if (c.sliding_window is not None or c.layer_is_sliding is not None
-            or c.rope_local_theta is not None):
-        missing.append('sliding-window layers')
     if missing:
         raise NotImplementedError('not ported yet: ' + ', '.join(missing))
 
@@ -367,11 +373,21 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
                    positions: torch.Tensor, sin: torch.Tensor,
                    cos: torch.Tensor, attention_mask: torch.Tensor | None,
                    layer_cache: tuple[torch.Tensor, torch.Tensor] | None,
-                   cache_offset) -> torch.Tensor:
+                   cache_offset, layer_flag: int = 0,
+                   rope_alt: tuple[torch.Tensor, torch.Tensor] | None = None
+                   ) -> torch.Tensor:
     """One pre-norm decoder block.  x: (B, L, E).  ``layer_cache`` is this
-    layer's (K, V) view (B, KH, S, D), written in place."""
+    layer's (K, V) view (B, KH, S, D), written in place.
+
+    ``layer_flag`` / ``rope_alt``: Gemma3-style interleaved attention, as in
+    JAX: 1 marks a sliding-window layer, which takes the local rope table
+    ``rope_alt`` and masks keys ``c.sliding_window`` or more positions
+    behind the query.  The flag is a Python int, so no branch is traced."""
     dtype = x.dtype
     b, l = x.shape[:2]
+    sliding = c.sliding_window is not None and layer_flag > 0
+    if rope_alt is not None and layer_flag > 0:
+        sin, cos = rope_alt
     h = _norm(c, lp['attn_norm'], x)
     if 'qkv' in lp:
         # fused q+k+v leaf (quantize_decoder_int4(fuse=True)): one call
@@ -413,7 +429,11 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
         ck[rows, :, off] = k[:, 0].to(ck.dtype)
         cv[rows, :, off] = v[:, 0].to(cv.dtype)
         slots = torch.arange(ck.shape[2], device=x.device)
-        mask = (slots[None, :] <= off[:, None])[:, None, None, :]
+        # slot space: each row's query sits at its slot ``off``
+        mask = slots[None, :] <= off[:, None]
+        if sliding:
+            mask = mask & ((off[:, None] - slots[None, :]) < c.sliding_window)
+        mask = mask[:, None, None, :]
         if attention_mask is not None:
             mask = mask & attention_mask[:, None, None, :].bool()
         attn = _masked_attention(q, ck.to(dtype), cv.to(dtype), mask)
@@ -424,11 +444,18 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
         ck[:, :, :l] = k.transpose(1, 2).to(ck.dtype)      # (B, KH, L, D)
         cv[:, :, :l] = v.transpose(1, 2).to(cv.dtype)
         idx = torch.arange(l, device=x.device)
-        mask = (idx[None, :] <= idx[:, None])[None, None]   # (1, 1, L, L)
+        mask = idx[None, :] <= idx[:, None]
+        if sliding:
+            mask = mask & ((idx[:, None] - idx[None, :]) < c.sliding_window)
+        mask = mask[None, None]                             # (1, 1, L, L)
         if attention_mask is not None:
             mask = mask & attention_mask[:, None, None, :l].bool()
         attn = _masked_attention(q, ck[:, :, :l].to(dtype),
                                  cv[:, :, :l].to(dtype), mask)
+    elif c.sliding_window is not None:
+        attn = windowed_causal_attention(q, k, v, attention_mask,
+                                         c.sliding_window, layer_flag,
+                                         impl=c.attention_impl)
     else:
         attn = causal_attention(q, k, v, attention_mask, causal=True,
                                 impl=c.attention_impl)
@@ -438,8 +465,9 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
         out = out + lp['o']['b'].to(dtype)
     if c.sandwich_norms:
         out = _norm(c, lp['post_attn_norm'], out)
-    if layer_cache is None and c.remat == 'save_flash':
-        # the JAX 'attn_out' name: 'save_flash' keeps the attention output
+    if layer_cache is None and c.remat in ('save_flash', 'save_attn'):
+        # the JAX 'attn_out' name, which these two policies keep; it is a
+        # copy here, so the other policies do not emit it
         out = torch.ops.aat_torch.checkpoint_name(out, 'attn_out')
     x = x + out
 
@@ -485,32 +513,63 @@ checkpoint_name.register_autograd(
     setup_context=lambda ctx, inputs, output: None)
 
 
-def _saved_ops(remat: str) -> frozenset:
-    """Ops whose outputs a remat policy keeps; the rest are recomputed in
-    the backward (the JAX ``_remat_policy``, ``transformer.py:624``)."""
-    aten = torch.ops.aten
-    if remat == 'dots_saveable':
-        # matmul outputs; the flash kernel's forward is recomputed, as in
-        # JAX where its residuals are anonymous to this policy
-        return frozenset({aten.mm.default, aten.bmm.default,
-                          aten.addmm.default, aten.baddbmm.default})
-    if remat == 'save_flash':
-        # the attention output and the kernel's (out, lse): the backward
-        # runs the backward kernels without re-running the forward kernel
-        return frozenset({torch.ops.aat_torch.checkpoint_name.default,
-                          torch.ops.aat_torch.flash_attention_fwd.default})
-    return frozenset()                    # 'full': nothing saved
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_MATMULS = (torch.ops.aten.bmm.default,
+                    torch.ops.aten.baddbmm.default)
+
+
+def _weight_operand(op, args) -> torch.Tensor:
+    """The right-hand operand of a matmul op (after ``addmm``'s and
+    ``baddbmm``'s added term)."""
+    return args[2] if op in (torch.ops.aten.addmm.default,
+                             torch.ops.aten.baddbmm.default) else args[1]
+
+
+def _no_batch_dims(op, args) -> bool:
+    """A matmul without batch dims (JAX ``dots_with_no_batch_dims``).
+    ``torch.einsum`` folds all of x's leading dims into M and runs a weight
+    matmul as ``bmm`` over a batch of one, so such a ``bmm`` counts as
+    unbatched; attention's einsums batch over B x heads."""
+    if op in _MATMULS:
+        return True
+    return op in _BATCHED_MATMULS and _weight_operand(op, args).shape[0] == 1
+
+
+def _policy_saves(remat: str, up_shape: tuple[int, int], op, args) -> bool:
+    """Whether the remat policy ``remat`` keeps the output of ``op`` called
+    on ``args``; what it does not keep is recomputed in the backward (the
+    JAX ``_remat_policy``, ``transformer.py:624``).  ``up_shape`` is
+    (hidden, mlp_dim): the weight of the up and gate projections."""
+    matmul = op in _MATMULS or op in _BATCHED_MATMULS
+    if op is torch.ops.aat_torch.flash_attention_fwd.default:
+        # the kernel's (out, lse): the JAX 'flash_out' / 'flash_lse' names
+        return remat in ('save_flash', 'dots_flash', 'dots_saveable_flash',
+                         'dots_mlp_lean_flash')
+    if op is torch.ops.aat_torch.checkpoint_name.default:
+        return remat in ('save_flash', 'save_attn')          # 'attn_out'
+    if remat in ('dots_saveable', 'dots_saveable_flash'):
+        # every matmul output; without the kernel's names the forward
+        # kernel re-runs in the backward
+        return matmul
+    if remat in ('dots_nb', 'dots_flash'):
+        return _no_batch_dims(op, args)
+    if remat in ('dots_mlp_lean', 'dots_mlp_lean_flash'):
+        # dots_saveable minus the (B, L, mlp_dim) outputs of the up and
+        # gate projections
+        return matmul and tuple(
+            _weight_operand(op, args).shape[-2:]) != up_shape
+    return False      # 'save_flash' and 'save_attn' keep no matmul output
 
 
 @functools.lru_cache(maxsize=None)
-def _remat_context(remat: str):
+def _remat_context(remat: str, up_shape: tuple[int, int]):
     """``context_fn`` for ``torch.utils.checkpoint`` under ``remat``."""
     if remat == 'full':
         return ckpt.noop_context_fn
-    saved = _saved_ops(remat)
 
     def policy(ctx, op, *args, **kwargs):
-        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+        return (ckpt.CheckpointPolicy.MUST_SAVE
+                if _policy_saves(remat, up_shape, op, args)
                 else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
     return functools.partial(ckpt.create_selective_checkpoint_contexts,
@@ -560,6 +619,12 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
             l, c.max_position_embeddings)
         sin, cos = rope_table(table_len, c.head_dim, theta=c.rope_theta,
                               llama3=c.rope_llama3, device=dev)
+    rope_alt = None
+    if c.positional != 'learned' and c.rope_local_theta is not None:
+        # the sliding layers' table (JAX builds it without llama3 scaling)
+        rope_alt = rope_table(table_len, c.head_dim,
+                              theta=c.rope_local_theta, device=dev)
+    flags = c.layer_is_sliding or (0,) * c.num_layers
 
     remat = (cache is None and c.remat != 'none'
              and torch.is_grad_enabled())
@@ -567,13 +632,14 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
         lp = layer_params(params['layers'], li)
         layer_cache = None if cache is None else (cache.k[li], cache.v[li])
         if remat:
-            x = ckpt.checkpoint(_decoder_layer, c, lp, x, positions, sin, cos,
-                                attention_mask, None, cache_offset,
-                                use_reentrant=False,
-                                context_fn=_remat_context(c.remat))
+            x = ckpt.checkpoint(
+                _decoder_layer, c, lp, x, positions, sin, cos, attention_mask,
+                None, cache_offset, flags[li], rope_alt, use_reentrant=False,
+                context_fn=_remat_context(c.remat,
+                                          (c.hidden_size, c.mlp_dim)))
         else:
             x = _decoder_layer(c, lp, x, positions, sin, cos, attention_mask,
-                               layer_cache, cache_offset)
+                               layer_cache, cache_offset, flags[li], rope_alt)
 
     x = _norm(c, params['final_norm'], x)
     if not need_logits:

@@ -3,7 +3,8 @@
 - ``xla_attention``: einsum attention with an explicit mask and fp32
   softmax, the plain reference (the JAX package's numerics reference).
 - ``splash_attention`` / the ``'flash'`` and ``'splash'`` paths of
-  ``causal_attention``: the hand-written kernel of ``ops/flash_attention.py``
+  ``causal_attention`` and ``windowed_causal_attention`` (Gemma3's
+  interleaved layers): the hand-written kernel of ``ops/flash_attention.py``
   (``csrc/flash_attention.cu``), which replaces both TPU kernels, K1a (the
   library Pallas flash kernel) and K1b (splash).  On a CPU tensor it runs
   the kernel's plain version.
@@ -90,20 +91,62 @@ def resolved_impl_name(impl: str, q_len: int, kv_len: int) -> str:
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      attention_mask: torch.Tensor | None = None,
-                     causal: bool = True, impl: str = 'auto') -> torch.Tensor:
+                     causal: bool = True, impl: str = 'auto',
+                     window: int | None = None) -> torch.Tensor:
     """Dispatching attention entry point used by the models.
 
     q: (B, L, H, D); k, v: (B, S, KH, D) with KH dividing H (GQA).
     ``attention_mask``: (B, S) over key positions (padding mask).
-    'auto', 'flash' and 'splash' run the kernel (its plain version on a CPU
-    tensor); 'xla' is the plain ``xla_attention``.  On a CUDA tensor a call
-    the kernel cannot take raises."""
+    ``window``: causal self-attention that also masks keys ``window`` or
+    more positions back.  'auto', 'flash' and 'splash' run the kernel (its
+    plain version on a CPU tensor); 'xla' is the plain ``xla_attention``,
+    or with a window JAX's masked fallback (``_windowed_masked``).  On a
+    CUDA tensor a call the kernel cannot take raises."""
     name = resolved_impl_name(impl, q.shape[1], k.shape[1])
     if name == 'ring':
         raise NotImplementedError("impl='ring' (sequence-parallel ring "
                                   'attention) is not ported yet')
+    if window is not None and not (causal and q.shape[1] == k.shape[1]):
+        raise ValueError('a window needs causal self-attention')
     if name == 'xla':
         # impl='xla', or cross-attention (L != S): the JAX dispatcher sends
         # L != S to XLA as well, and the kernel is self-attention only
+        if window is not None:
+            return _windowed_masked(q, k, v, attention_mask, window)
         return xla_attention(q, k, v, attention_mask, causal)
-    return flash_attention(q, k, v, attention_mask, causal=causal)
+    return flash_attention(q, k, v, attention_mask, causal=causal,
+                           window=window)
+
+
+def _windowed_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     attention_mask: torch.Tensor | None,
+                     window: int) -> torch.Tensor:
+    """JAX's masked fallback of ``windowed_causal_attention``
+    (``ops/attention.py:281-291``) for a sliding layer: causal, keys fewer
+    than ``window`` positions back, key padding, through the decoder's
+    ``_masked_attention``."""
+    # models/transformer.py imports this module
+    from align_anything_tpu_torch.models.transformer import (  # noqa: PLC0415
+        _masked_attention)
+
+    l = q.shape[1]
+    q_idx = torch.arange(l, device=q.device)[:, None]
+    k_idx = torch.arange(l, device=q.device)[None, :]
+    mask = ((k_idx <= q_idx) & ((q_idx - k_idx) < window))[None, None]
+    if attention_mask is not None:
+        mask = mask & attention_mask[:, None, None, :].to(torch.bool)
+    return _masked_attention(q, k.transpose(1, 2), v.transpose(1, 2), mask)
+
+
+def windowed_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              attention_mask: torch.Tensor | None,
+                              window: int, layer_flag: int,
+                              impl: str = 'auto') -> torch.Tensor:
+    """Gemma3-class interleaved attention: ``layer_flag`` (1 = sliding
+    layer, a Python int) selects windowed or full causal self-attention.
+    The kernel takes both, the window skipping the key tiles behind it
+    (JAX's two splash kernels under ``lax.cond``); with ``impl='xla'`` a
+    sliding layer takes JAX's masked fallback."""
+    return causal_attention(q, k, v, attention_mask, causal=True, impl=impl,
+                            window=window if layer_flag > 0 else None)

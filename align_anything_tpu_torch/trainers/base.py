@@ -658,8 +658,11 @@ class TrainerBase:
             return
         tag = tag if tag is not None else self.global_step
         if self.cfgs.train_cfgs.save_checkpoint:
+            # asynchronous, as JAX's: the write overlaps the next steps; the
+            # loop (and the preemption path) wait for it before returning
             ckpt_lib.save_train_state(
-                out, tag, state, keep=self.cfgs.logger_cfgs.save_total_limit)
+                out, tag, state, keep=self.cfgs.logger_cfgs.save_total_limit,
+                wait=False)
         if is_main_process():
             path = ckpt_lib.save_hf_slice(
                 out, tag, state.params if slice_params is None

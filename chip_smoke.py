@@ -42,7 +42,9 @@ Phases (any failure raises and the run exits non-zero):
      check that the backward repeats bit for bit, and time kernel, plain
      version and ``scaled_dot_product_attention`` (a yardstick only) at the
      two main shapes, at phase 16's (Qwen2.5-0.5B's heads), at phase 18's
-     tower (full attention at L 577) and at ``ti2t_ppo``;
+     tower (full attention at L 577), at ``ti2t_ppo`` and at Gemma-3-1B's
+     DPO micro-batch (L 2048, 4 / 1 heads of 256) with the window 512 and
+     without;
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -154,18 +156,41 @@ Phases (any failure raises and the run exits non-zero):
      moved, the base equal to a fresh quantization of the checkpoint, the
      merged exports read back as ``merge_lora`` of the trained adapters, a
      QLoRA resume against the uninterrupted run; KTO with a KL batch,
-     Safe-RLHF and remote-RM PPO refuse LoRA, as JAX's trainers fail.
+     Safe-RLHF and remote-RM PPO refuse LoRA, as JAX's trainers fail;
+ 24. DPO at Gemma-3-1B's full size (google/gemma-3-1b-pt's config.json,
+     26 layers, 22 of them sliding with the window 512) through
+     ``trainer_main(DPOTrainer, ...)``: a bf16 checkpoint from a seed under
+     HF's Gemma3 tensor names, 2 pairs in the 2048 bucket, 4 steps, remat
+     'dots_saveable'; the loaded tree bit-equal to the written one, step
+     1's loss ln 2, launches exact and split by window, step 1's log-prob
+     sums against a plain recompute; step time, tokens/s and peak memory;
+ 25. greedy generation from that checkpoint, 16 prompts of 600-900 tokens
+     and 64 new tokens, through ``generate`` and the continuous engine (8
+     slots, max_len 1024): the batch prefill's last logits against the
+     training forward through the kernel with the window, within the plain
+     pass's bf16 noise; both engines give the same tokens in fp32 compute;
+     generated tokens/s and peak memory (bf16);
+ 26. the ten remat policies at phase 7's shape, 1 warm-up and 2 timed steps
+     each: losses and grad norms within phase 7's limit of 'none''s,
+     launches exact (the policies that keep the kernel's (out, lse) re-run
+     no forward); step time and peak memory per policy;
+ 27. at phase 10's widths, DPO through the trainer's loop with the train
+     state (1.2 GB) saved at step 3 with ``wait=True`` and at step 6 with
+     ``wait=False``: the save call's time and the loop's step time with
+     each, and each save restored bit-equal to the state at its call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
-    python3 chip_smoke.py --profile [dpo ppo ti2t qlora]
+    python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3]
                                       # instead: trace one DPO step of the
                                       # phase 7 and phase 8 configs, one
                                       # PPO round of phase 12's, one TI2T
-                                      # DPO step of phase 18's and one
-                                      # QLoRA DPO step of phase 22's (the
+                                      # DPO step of phase 18's, one
+                                      # QLoRA DPO step of phase 22's and
+                                      # one Gemma-3-1B DPO step and
+                                      # generate call of phases 24-25's (the
                                       # ones named; all by default)
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
@@ -203,7 +228,7 @@ import sys
 import tempfile
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -279,6 +304,13 @@ FLASH_SHAPES = [
     # attention over 576 patches + the class token (not a multiple of the
     # kernels' tiles: only the kernels' key bounds hide the keys past L)
     ('vit336', 8, 577, 16, 16, 64, False, None, 0, None, torch.bfloat16,
+     True),
+    # phase 24's micro-batch: Gemma-3-1B's heads (one KV head for four
+    # query heads, D 256: the CUDA-core kernels), its 22 sliding layers'
+    # window 512 and its 4 full layers
+    ('gemma3_1b_w512', 4, 2048, 4, 1, 256, True, 512, 2, None,
+     torch.bfloat16, True),
+    ('gemma3_1b', 4, 2048, 4, 1, 256, True, None, 2, None, torch.bfloat16,
      True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
@@ -1374,10 +1406,13 @@ def harness_small(dev, smi, tmp: str) -> None:
         for _ in range(4)])
 
     def argv(data, template, out, *extra):
+        # out None: no output dir, so no export at the end (the SFT, ORPO
+        # and SimPO runs read none: 0.39 GB of disk writes each)
         return ['--model_name_or_path', ckpt, '--train_datasets', data,
                 '--train_template', template,
-                '--output_dir', os.path.join(tmp, out), '--epochs', '1',
-                '--per_device_train_batch_size', '2', *extra]
+                *(('--output_dir', os.path.join(tmp, out)) if out else ()),
+                '--epochs', '1', '--per_device_train_batch_size', '2',
+                *extra]
 
     # 4 uninterrupted steps, the train state saved at step 2 and 4
     full, full_steps, _ = run_trainer(
@@ -1424,7 +1459,7 @@ def harness_small(dev, smi, tmp: str) -> None:
     # SFT: step 1 against a plain recompute (plain attention, torch CE)
     trainer, steps, _ = run_trainer(
         SupervisedTrainer, 'text_to_text/sft',
-        argv(sft, 'Alpaca', 'sft', '--save_checkpoint', 'False'))
+        argv(sft, 'Alpaca', None, '--save_checkpoint', 'False'))
     batch = trainer.put_batch(next(trainer.train_iterator.epoch_batches(0)))
     params, _ = load_params(ckpt, device=dev)
     with torch.no_grad(), \
@@ -1451,7 +1486,7 @@ def harness_small(dev, smi, tmp: str) -> None:
     for cls, task in ((ORPOTrainer, 'orpo'), (SimPOTrainer, 'simpo')):
         _, steps, _ = run_trainer(
             cls, f'text_to_text/{task}',
-            argv(pref, 'PKUSafeRLHF', task, '--save_checkpoint', 'False',
+            argv(pref, 'PKUSafeRLHF', None, '--save_checkpoint', 'False',
                  '--train_size', '4'))
         losses = [m['train/loss'] for m in steps]
         log(f'phase10 {task}: losses {losses}')
@@ -3616,6 +3651,577 @@ def lora_small(dev, smi, tmp: str, cost: str) -> dict:
     return {'launches': total}
 
 
+# phases 24-25: Gemma-3-1B at its full published size (google/gemma-3-1b-pt's
+# config.json), random weights from a seed in a bf16 checkpoint under HF's
+# Gemma3 tensor names: DPO through ``trainer_main`` with 2 pairs in the 2048
+# bucket (the 22 sliding layers run K1 with the window 512, the 4 full ones
+# without), then greedy generation through both engines from the same
+# checkpoint.  The port's ``save_params`` writes Gemma3 as JAX's does, as
+# another model (ROADMAP R21), so the phase writes the tensors itself.
+GEMMA3_1B = {
+    'architectures': ['Gemma3ForCausalLM'], 'attention_bias': False,
+    'attention_dropout': 0.0, 'attn_logit_softcapping': None,
+    'bos_token_id': 2, 'cache_implementation': 'hybrid', 'eos_token_id': 1,
+    'final_logit_softcapping': None, 'head_dim': 256,
+    'hidden_activation': 'gelu_pytorch_tanh', 'hidden_size': 1152,
+    'initializer_range': 0.02, 'intermediate_size': 6912,
+    'max_position_embeddings': 32768, 'model_type': 'gemma3_text',
+    'num_attention_heads': 4, 'num_hidden_layers': 26,
+    'num_key_value_heads': 1, 'pad_token_id': 0,
+    'query_pre_attn_scalar': 256, 'rms_norm_eps': 1e-06,
+    'rope_local_base_freq': 10000, 'rope_scaling': None,
+    'rope_theta': 1000000, 'sliding_window': 512,
+    'sliding_window_pattern': 6, 'torch_dtype': 'bfloat16',
+    'use_cache': True, 'vocab_size': 262144}
+GEMMA_PAIRS, GEMMA_STEPS = 2, 4
+# prompt 800 words, responses 300-1200: 1105-2005 tokens, the 2048 bucket
+GEMMA_PROMPT, GEMMA_RESPONSES, GEMMA_SEQ = 800, (300, 1201), 2048
+GEN_REQUESTS, GEN_PROMPTS, GEN_NEW = 16, (600, 901), 64
+GEN_SLOTS, GEN_MAX_LEN = 8, 1024
+
+
+def gemma3_hf_tensors(p: dict, c) -> dict:
+    """A Gemma3 param tree under ``transformers``' Gemma3ForCausalLM
+    tensor names (the inverse of the port's loader; tied embeddings)."""
+    e, h, kh, d = c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim
+    lp = p['layers']
+    out = {'model.embed_tokens.weight': p['embedding'],
+           'model.norm.weight': p['final_norm']['w']}
+    for i in range(c.num_layers):
+        pre = f'model.layers.{i}.'
+        out.update({
+            pre + 'input_layernorm.weight': lp['attn_norm']['w'][i],
+            pre + 'self_attn.q_proj.weight': lp['q']['w'][i].reshape(
+                e, h * d).T,
+            pre + 'self_attn.k_proj.weight': lp['k']['w'][i].reshape(
+                e, kh * d).T,
+            pre + 'self_attn.v_proj.weight': lp['v']['w'][i].reshape(
+                e, kh * d).T,
+            pre + 'self_attn.o_proj.weight': lp['o']['w'][i].reshape(
+                h * d, e).T,
+            pre + 'self_attn.q_norm.weight': lp['q_norm']['w'][i],
+            pre + 'self_attn.k_norm.weight': lp['k_norm']['w'][i],
+            pre + 'post_attention_layernorm.weight':
+                lp['post_attn_norm']['w'][i],
+            pre + 'pre_feedforward_layernorm.weight': lp['mlp_norm']['w'][i],
+            pre + 'post_feedforward_layernorm.weight':
+                lp['post_mlp_norm']['w'][i],
+            pre + 'mlp.gate_proj.weight': lp['gate']['w'][i].T,
+            pre + 'mlp.up_proj.weight': lp['up']['w'][i].T,
+            pre + 'mlp.down_proj.weight': lp['down']['w'][i].T})
+    return out
+
+
+def write_gemma3(path: str, dev, seed: int) -> dict:
+    """``config.json`` and a bf16 ``model.safetensors`` drawn from
+    ``seed``; returns the written tree (bf16, on the card), the config, the
+    bytes and the seconds."""
+    from align_anything_tpu_torch.models.config import config_from_hf  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        write_safetensors)
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(GEMMA3_1B, f, indent=2)
+    cfg = config_from_hf(path)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    # Gemma's (1 + w) norms start at w = 0; small random w instead, so that
+    # every norm weight is read
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for name in ('attn_norm', 'mlp_norm', 'post_attn_norm', 'post_mlp_norm',
+                 'q_norm', 'k_norm'):
+        w = params['layers'][name]['w']
+        w.copy_(torch.randn(w.shape, generator=gen, device=dev) * 0.1)
+    params['final_norm']['w'].zero_()
+    src = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    t0 = time.perf_counter()
+    write_safetensors(os.path.join(path, 'model.safetensors'),
+                      gemma3_hf_tensors(src, cfg), metadata={'format': 'pt'})
+    return {'tree': src, 'config': cfg,
+            'bytes': os.path.getsize(os.path.join(path, 'model.safetensors')),
+            'write_s': time.perf_counter() - t0}
+
+
+class WindowSplit:
+    """A flash wrapper ``fn`` that records each call's window (its argument
+    ``at``).  ``fn`` counts its launches under its module name, which this
+    object takes while it is patched in, so ``launches`` reads and writes
+    ``fn``'s own count."""
+
+    def __init__(self, fn, at: int):
+        self.fn, self.at, self.windows = fn, at, []
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.windows.append(args[self.at])
+        return out
+
+
+def launches_by_window(fwd: list, bwd: list) -> dict:
+    return {f'{kind} {"window " + str(w) if w else "full"}': n
+            for kind, calls in (('fwd', fwd), ('bwd', bwd))
+            for w, n in sorted(Counter(calls).items(),
+                               key=lambda kv: kv[0] or 0)}
+
+
+def gemma3_dpo(dev, smi, tmp: str) -> dict:
+    """Phase 24: DPO at Gemma-3-1B's full size through
+    ``trainer_main(DPOTrainer, ...)``."""
+    from align_anything_tpu_torch.models.hf_loader import load_params  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.logprobs import token_logprobs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers import base  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+
+    t_phase, disk0 = time.perf_counter(), disk_written()
+    free_memory()
+    ckpt = os.path.join(tmp, 'gemma3_1b')
+    w = write_gemma3(ckpt, dev, SEED + 240)
+    cfg = w['config']
+    n_params = sum(t.numel() for t in param_leaves(w['tree']))
+    data = write_jsonl(os.path.join(tmp, 'pref_gemma3.jsonl'),
+                       preference_rows(SEED + 241, GEMMA_STEPS * GEMMA_PAIRS,
+                                       GEMMA_PROMPT, GEMMA_RESPONSES))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'PKUSafeRLHF', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(GEMMA_PAIRS)]
+    log(f'phase24 config: google/gemma-3-1b-pt\'s config.json (vocab '
+        f'{cfg.vocab_size}, hidden {cfg.hidden_size}, {cfg.num_layers} layers'
+        f' ({sum(cfg.layer_is_sliding)} sliding, window '
+        f'{cfg.sliding_window}, local rope theta {cfg.rope_local_theta}), '
+        f'{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, MLP '
+        f'{cfg.mlp_dim}, tied), not cut: {n_params / 1e9:.3f} B params; '
+        f'wrote {w["bytes"] / 1e9:.3f} GB of bf16 safetensors in '
+        f'{w["write_s"]:.2f} s; argv {" ".join(argv[2:])}; '
+        f'MESH_FILE={HARNESS_MESH}')
+    loaded: dict = {}
+    load = base.load_params
+
+    def checked_load(*args, **kwargs):
+        params, mcfg = load(*args, **kwargs)
+        got, want = leaves_by_path(params), leaves_by_path(w['tree'])
+        loaded['equal'] = set(got) == set(want) and all(
+            torch.equal(got[k].float(), want[k].float()) for k in want)
+        loaded['leaves'] = len(got)
+        return params, mcfg
+
+    first: dict = {}
+    preference_loss = DPOTrainer.preference_loss
+
+    def recording(self, logp, ref_logp, batch):
+        if not first:
+            m = batch['response_mask']
+            first.update(batch={k: batch[k].clone() for k in (
+                'input_ids', 'attention_mask', 'response_mask')},
+                sums=masked_sums(logp, m), ref_sums=masked_sums(ref_logp, m))
+        return preference_loss(self, logp, ref_logp, batch)
+
+    fwd = WindowSplit(fa.flash_attention_fwd_cuda, 5)
+    bwd = WindowSplit(fa.flash_attention_bwd_cuda, 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    with mock.patch.object(base, 'load_params', checked_load), \
+            mock.patch.object(DPOTrainer, 'preference_loss', recording), \
+            mock.patch.object(fa, 'flash_attention_fwd_cuda', fwd), \
+            mock.patch.object(fa, 'flash_attention_bwd_cuda', bwd):
+        trainer, steps, timing = run_trainer(DPOTrainer, 'text_to_text/dpo',
+                                             argv, HARNESS_MESH)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    del trainer
+    free_memory()
+    shape = tuple(first['batch']['input_ids'].shape)
+    losses = [m['train/loss'] for m in steps]
+    seconds = [m['perf/step_time_s'] for m in steps]
+    for i, m in enumerate(steps):
+        log(f'phase24 step {i + 1}: loss={losses[i]:.9f} grad_norm='
+            f'{m["train/grad_norm"]:.6e} reward_accuracy='
+            f'{m["train/reward_accuracy"]:.3f} seconds={seconds[i]:.4f}')
+    step_s = statistics.median(seconds[1:])
+    tps = shape[0] * shape[1] / step_s
+    layers, sliding = mcfg.num_layers, sum(mcfg.layer_is_sliding)
+    # every layer of the policy's forward, its recompute under
+    # 'dots_saveable' and the reference's forward; the backward once
+    need = {'fwd': 3 * GEMMA_STEPS * layers, 'bwd': GEMMA_STEPS * layers}
+    split = launches_by_window(fwd.windows, bwd.windows)
+    want_split = {
+        f'fwd window {mcfg.sliding_window}': 3 * GEMMA_STEPS * sliding,
+        'fwd full': 3 * GEMMA_STEPS * (layers - sliding),
+        f'bwd window {mcfg.sliding_window}': GEMMA_STEPS * sliding,
+        'bwd full': GEMMA_STEPS * (layers - sliding)}
+    log(f'phase24 Gemma-3-1B DPO: batch {shape}, remat {mcfg.remat}, '
+        f'compute {mcfg.compute_dtype}; the loaded tree ({loaded["leaves"]} '
+        f'leaves) bit-equal to the written one: {loaded["equal"]}; '
+        f'checkpoint load {timing["load_s"]:.2f} s; step time {step_s:.4f} s '
+        f'(median of steps 2-{len(steps)}, the loop\'s clock), {tps:.1f} '
+        f'tokens/s, peak memory {peak / 1e9:.3f} GB; flash launches fwd '
+        f'{launches["fwd"]} (need {need["fwd"]}) bwd {launches["bwd"]} (need '
+        f'{need["bwd"]}), by window {split}; card {smi}')
+    if shape != (2 * GEMMA_PAIRS, GEMMA_SEQ) or (
+            mcfg.remat, mcfg.compute_dtype) != ('dots_saveable', 'bfloat16'):
+        raise AssertionError(f'phase24: batch {shape}, {mcfg.remat}, '
+                             f'{mcfg.compute_dtype}')
+    if not loaded['equal']:
+        raise AssertionError('phase24: the loaded tree is not the written one')
+    if len(steps) != GEMMA_STEPS or not all_finite(steps):
+        raise AssertionError(f'phase24: {len(steps)} steps, or a non-finite '
+                             'metric')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'phase24: step 1 loss {losses[0]} != ln 2')
+    check_launches('phase24', launches, need, exact=True)
+    if split != want_split:
+        raise AssertionError(f'phase24: launches by window {split}, expected '
+                             f'{want_split}')
+
+    # step 1's policy forward recomputed from the checkpoint with the plain
+    # attention, in bf16 and in fp32
+    params, _ = load_params(ckpt, device=dev)
+    b = first['batch']
+    with torch.no_grad(), plain_flash():
+        plain = masked_sums(token_logprobs(
+            params, mcfg, b['input_ids'], attention_mask=b['attention_mask']),
+            b['response_mask'])
+        fp32 = masked_sums(token_logprobs(
+            params, mcfg.replace(compute_dtype='float32'), b['input_ids'],
+            attention_mask=b['attention_mask']), b['response_mask'])
+    del params
+    free_memory()
+    log('phase24 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'], plain, fp32)
+        + '; ' + check_sums('reference', first['ref_sums'], plain, fp32))
+    log(f'phase24 done in {time.perf_counter() - t_phase:.1f} s, '
+        f'{disk_written() - disk0:.3f} GB written by the phase')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'peak_gb': peak / 1e9, 'ckpt': ckpt}
+
+
+def gen_prompts(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, vocab, size=int(rng.integers(*GEN_PROMPTS)))
+            .tolist() for _ in range(GEN_REQUESTS)]
+
+
+def left_padded(prompts: list, pad: int, dev) -> tuple:
+    p = max(len(x) for x in prompts)
+    ids = torch.full((len(prompts), p), pad, dtype=torch.long)
+    mask = torch.zeros((len(prompts), p), dtype=torch.long)
+    for i, x in enumerate(prompts):
+        ids[i, p - len(x):] = torch.as_tensor(x)
+        mask[i, p - len(x):] = 1
+    return ids.to(dev), mask.to(dev)
+
+
+def last_logits(params, cfg, ids, mask) -> torch.Tensor:
+    """The training forward (no cache): the last position's fp32 logits."""
+    out = transformer.forward(params, cfg, ids, attention_mask=mask,
+                              need_logits=False)
+    return transformer._head_logits(cfg, params,
+                                    out.last_hidden_state[:, -1:])[:, 0]
+
+
+def run_engines(params, cfg, prompts, dev) -> dict:
+    """``generate`` over all prompts at once, left-padded, and the
+    continuous engine; greedy, ``GEN_NEW`` tokens each.  Wall clock, peak
+    memory, tokens, and the batch prefill's last logits."""
+    from align_anything_tpu_torch.generation.engine import generate  # noqa: PLC0415
+
+    gen_cfg = GenerationConfig(max_new_tokens=GEN_NEW, greedy=True,
+                               eos_token_id=-1, pad_token_id=cfg.pad_token_id)
+    ids, mask = left_padded(prompts, cfg.pad_token_id, dev)
+    prefill: dict = {}
+
+    def recording(*args, **kwargs):
+        out = transformer.forward(*args, **kwargs)
+        if 'logits' not in prefill:
+            prefill['logits'] = out.logits[:, -1].clone()
+        return out
+
+    out = {}
+    for name in ('generate', 'continuous'):
+        free_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == 'generate':
+            toks = generate(params, cfg, gen_cfg, ids, mask,
+                            prefill_forward=recording)['completions'].tolist()
+        else:
+            engine = ContinuousBatchingEngine(cfg, num_slots=GEN_SLOTS,
+                                              max_len=GEN_MAX_LEN)
+            toks = engine.generate(params, prompts, gen_cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[name] = {'tokens': toks, 's': dt,
+                     'tokens_per_s': GEN_REQUESTS * GEN_NEW / dt,
+                     'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+    out['prefill_logits'] = prefill['logits']
+    out['ids'], out['mask'] = ids, mask
+    return out
+
+
+def gemma3_generation(dev, smi, ckpt: str) -> dict:
+    """Phase 25: greedy generation at Gemma-3-1B's full size through both
+    engines, prompts longer than the window."""
+    from align_anything_tpu_torch.models.hf_loader import load_params  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    free_memory()
+    params, cfg = load_params(ckpt, device=dev)
+    prompts = gen_prompts(cfg.vocab_size, SEED + 250)
+    lens = [len(x) for x in prompts]
+    bf16 = run_engines(params, cfg, prompts, dev)
+    same = [a == b for a, b in zip(bf16['generate']['tokens'],
+                                   bf16['continuous']['tokens'])]
+    for name in ('generate', 'continuous'):
+        r = bf16[name]
+        log(f'phase25 {name} (bf16): {GEN_REQUESTS} requests x {GEN_NEW} '
+            f'tokens in {r["s"]:.3f} s = {r["tokens_per_s"]:.1f} generated '
+            f'tokens/s, peak memory {r["peak_gb"]:.3f} GB')
+    log(f'phase25 prompts {min(lens)}-{max(lens)} tokens (window '
+        f'{cfg.sliding_window}); continuous engine {GEN_SLOTS} slots, '
+        f'max_len {GEN_MAX_LEN}; bf16 requests with equal tokens in both '
+        f'engines: {sum(same)} of {len(same)}')
+
+    # the prefill's last logits against the training forward (K1 with the
+    # window), within the plain pass's own bf16 noise (against fp32)
+    ids, mask = bf16['ids'], bf16['mask']
+    reset_flash_counts()
+    with torch.no_grad():
+        kernel = last_logits(params, cfg, ids, mask)
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        with plain_flash():
+            plain = last_logits(params, cfg, ids, mask)
+            fp32 = last_logits(params, cfg.replace(compute_dtype='float32'),
+                               ids, mask)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    noise = rel(plain, fp32)
+    limit = max(RL_TOL, SCORE_NOISE * noise)
+    err, kerr = rel(bf16['prefill_logits'], kernel), rel(kernel, fp32)
+    need = {'fwd': cfg.num_layers, 'bwd': 0}
+    log(f'phase25 the batch prefill\'s last logits against the training '
+        f'forward through K1: max|diff| / max|logit| {err:.3e} (limit '
+        f'{limit:.3e}: {SCORE_NOISE:g} x the plain bf16 pass against fp32, '
+        f'{noise:.3e}; K1 against fp32 {kerr:.3e}); flash launches fwd '
+        f'{launches["fwd"]} (need {need["fwd"]})')
+    if not (bool(torch.isfinite(bf16['prefill_logits']).all())
+            and err <= limit):
+        raise AssertionError('phase25: the prefill disagrees with the '
+                             'training forward')
+    check_launches('phase25', launches, need, exact=True)
+    del bf16, kernel, plain, fp32
+
+    # fp32: the two engines give the same greedy tokens
+    fp = run_engines(params, cfg.replace(compute_dtype='float32'), prompts,
+                     dev)
+    same32 = fp['generate']['tokens'] == fp['continuous']['tokens']
+    log(f'phase25 fp32: generate {fp["generate"]["tokens_per_s"]:.1f} and '
+        f'continuous {fp["continuous"]["tokens_per_s"]:.1f} generated '
+        f'tokens/s; the same tokens from both engines: {same32}; card {smi}')
+    toks = fp['generate']['tokens']
+    if not (same32 and all(len(t) == GEN_NEW for t in toks)
+            and all(0 <= x < cfg.vocab_size for t in toks for x in t)):
+        raise AssertionError('phase25: the engines disagree in fp32')
+    del params, fp
+    free_memory()
+    log(f'phase25 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches}
+
+
+def remat_sweep(dev, smi) -> dict:
+    """Phase 26: the ten remat policies at phase 7's shape: 1 warm-up and 2
+    timed steps each, from the same weights and batch."""
+    t_phase = time.perf_counter()
+    total = {'fwd': 0, 'bwd': 0}
+    rows, base = {}, None
+    for policy in transformer.REMAT_POLICIES:
+        free_memory()
+        cfg = llama_config(layers=DPO_LAYERS).replace(
+            compute_dtype='bfloat16', remat=policy)
+        trainer, state, ref = dpo_setup(cfg, dev, SEED + 10)
+        batch = dpo_batch(cfg, DPO_PAIRS, DPO_SEQ, dev, SEED + 11, pad=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        losses, norms, seconds = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, ref, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(float(m['train/loss']))
+            norms.append(float(m['train/grad_norm']))
+        peak = torch.cuda.max_memory_allocated()
+        # what the policy keeps for the backward: the memory that one more
+        # forward (policy and reference) leaves held by its graph; the
+        # steps' peak is AdamW's, the same for every policy
+        before = torch.cuda.memory_allocated()
+        loss, _ = trainer.loss_fn(state.params, ref, batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        del loss
+        launches = flash_counts()
+        keeps = policy in ('none', 'save_flash', 'dots_flash',
+                           'dots_saveable_flash', 'dots_mlp_lean_flash')
+        need = {'fwd': (3 * (2 if keeps else 3) + 2) * cfg.num_layers,
+                'bwd': 3 * cfg.num_layers}
+        check_launches(f'phase26 {policy}', launches, need, exact=True)
+        for k in total:
+            total[k] += launches[k]
+        if base is None:
+            base = (losses, norms)
+        gap = max(max(abs(a - b) / abs(b) for a, b in zip(losses, base[0])),
+                  max(abs(a - b) / abs(b) for a, b in zip(norms, base[1])))
+        rows[policy] = {'step_s': statistics.mean(seconds[1:]),
+                        'peak_gb': peak / 1e9, 'held_gb': held / 1e9}
+        log(f'phase26 remat {policy:20s} step time {rows[policy]["step_s"]:.4f}'
+            f' s (mean of steps 2-3; warm-up {seconds[0]:.4f}), peak memory '
+            f'{peak / 1e9:.3f} GB, held by a forward for its backward '
+            f'{held / 1e9:.3f} GB, losses {losses}, grad norms {norms}; max '
+            f'relative gap to none {gap:.3e} (limit {DPO_NORM_TOL:g}); flash '
+            f'launches {launches}')
+        if not (all(math.isfinite(x) for x in losses + norms)
+                and gap <= DPO_NORM_TOL):
+            raise AssertionError(f'phase26: remat {policy} disagrees with '
+                                 'none')
+        del trainer, state, ref, batch
+    log(f'phase26 done in {time.perf_counter() - t_phase:.1f} s; card {smi}')
+    return {'launches': total, 'rows': rows}
+
+
+SAVE_STEPS, SAVE_EVERY = 8, 3
+
+
+def async_save(dev, smi, tmp: str) -> dict:
+    """Phase 27: DPO at phase 10's widths (``small``) through the trainer's
+    loop, 8 steps, the train state saved at step 3 with ``wait=True`` and at
+    step 6 with ``wait=False``; each save restored against the state at its
+    call, bit for bit."""
+    from align_anything_tpu_torch import checkpoint as ckpt_lib  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers import cli  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+    from align_anything_tpu_torch.utils.logger import Logger  # noqa: PLC0415
+
+    t_phase, disk0 = time.perf_counter(), disk_written()
+    free_memory()
+    out = os.path.join(tmp, 'save27')
+    data = write_jsonl(os.path.join(tmp, 'pref_save.jsonl'), preference_rows(
+        SEED + 270, 2 * SAVE_STEPS, 60, (20, 121)))
+    cfgs, pc = cli.parse_cfgs('text_to_text/dpo', [
+        '--model_name_or_path', os.path.join(tmp, 'small'),
+        '--train_datasets', data, '--train_template', 'PKUSafeRLHF',
+        '--output_dir', out, '--epochs', '1',
+        '--per_device_train_batch_size', '2', '--save_checkpoint', 'True',
+        '--save_interval', str(SAVE_EVERY), '--save_total_limit', '3'])
+    saves: list = []
+    save, host_copy = ckpt_lib.save_train_state, ckpt_lib._host_copy
+    copies: list = []
+
+    def timed_copy(tree):
+        t0 = time.perf_counter()
+        out = host_copy(tree)
+        copies.append(time.perf_counter() - t0)
+        return out
+
+    def measured(output_dir, step, state, keep=None, wait=True):
+        # the state at the call, on the card; the first save waits, the
+        # second is the loop's own (wait=False)
+        snap = ([t.detach().clone() for t in param_leaves(state.params)],
+                state.optimizer.state_dict()['state'])
+        snap = (snap[0], {i: {k: v.clone() for k, v in s.items()}
+                          for i, s in snap[1].items()})
+        wait = not saves
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(output_dir, step, state, keep=keep, wait=wait)
+        saves.append({'step': step, 'wait': wait, 'path': path, 'snap': snap,
+                      'call_s': time.perf_counter() - t0})
+        return path
+
+    steps: list = []
+    # the HF slice export that goes with each save is synchronous with or
+    # without wait and 0.39 GB of disk writes a save: left out
+    with mock.patch.object(ckpt_lib, 'save_train_state', measured), \
+            mock.patch.object(ckpt_lib, '_host_copy', timed_copy), \
+            mock.patch.object(ckpt_lib, 'save_hf_slice',
+                              lambda out_dir, tag, *a, **k: out_dir), \
+            mock.patch.object(Logger, 'log', lambda self, metrics, step:
+                              steps.append(dict(metrics))):
+        trainer = DPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+        reset_flash_counts()
+        trainer.train()                   # waits for the save in flight
+        torch.cuda.synchronize()
+        launches = flash_counts()
+    seconds = [m['perf/step_time_s'] for m in steps]
+    state_bytes = sum(os.path.getsize(os.path.join(s['path'],
+                                                   ckpt_lib._STATE_FILE))
+                      for s in saves) / len(saves)
+    plain = statistics.median(s for i, s in enumerate(seconds)
+                              if i % SAVE_EVERY != 0)
+    for i, s in enumerate(seconds):
+        log(f'phase27 step {i + 1}: the loop\'s step time {s:.4f} s'
+            + (f' (holds the step-{i} save)' if i and i % SAVE_EVERY == 0
+               else ''))
+    equal = []
+    for s in saves:
+        ckpt_lib.restore_train_state(s['path'], trainer.state)
+        params, moments = s['snap']
+        now = trainer.state.optimizer.state_dict()['state']
+        equal.append(
+            all(torch.equal(a, b) for a, b in zip(
+                param_leaves(trainer.state.params), params))
+            and now.keys() == moments.keys()
+            and all(torch.equal(now[i][k].to(moments[i][k].device),
+                                moments[i][k])
+                    for i in moments for k in moments[i])
+            and trainer.state.step == s['step'])
+    stalls = {s['wait']: seconds[s['step']] - plain for s in saves}
+    log(f'phase27 async save: train state {state_bytes / 1e9:.3f} GB a save '
+        f'(params and AdamW moments, fp32); the save call '
+        + ', '.join(f'{"wait=True" if s["wait"] else "wait=False"} at step '
+                    f'{s["step"]} {s["call_s"]:.4f} s (of it the host copy '
+                    f'{c:.4f} s)' for s, c in zip(saves, copies))
+        + ' (the first save of the process allocates the pinned host '
+        'buffers, which the second reuses)'
+        + f'; the loop\'s step with the save {stalls[True] + plain:.4f} s '
+        f'(wait=True) and {stalls[False] + plain:.4f} s (wait=False) against '
+        f'{plain:.4f} s without (median): stall {stalls[True]:.4f} s and '
+        f'{stalls[False]:.4f} s; the steps after the async save '
+        f'{[round(x, 4) for x in seconds[2 * SAVE_EVERY + 1:]]}; restored '
+        f'bit-equal to the state at each call: {equal}; '
+        f'{disk_written() - disk0:.3f} GB written by the phase; card {smi}')
+    if [s['wait'] for s in saves] != [True, False] or len(steps) != \
+            SAVE_STEPS:
+        raise AssertionError(f'phase27: saves {[s["wait"] for s in saves]}, '
+                             f'{len(steps)} steps')
+    if not all(equal):
+        raise AssertionError('phase27: a save does not restore to the state '
+                             'at its call')
+    del trainer, saves
+    shutil.rmtree(out, ignore_errors=True)
+    free_memory()
+    log(f'phase27 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'stalls': stalls, 'plain_s': plain}
+
+
 # --planted-faults: flash_attention.cu with 64 keys (or one 64-row query
 # tile) skipped for the second half of the rows, in the tensor-core
 # kernels (bf16, the main path).  (name, loop text, the broken loop,
@@ -3969,6 +4575,48 @@ def profile_qlora(dev, smi, tmp: str) -> None:
     free_memory()
 
 
+def profile_gemma3(dev, smi, tmp: str) -> None:
+    """``--profile``: one DPO step of phase 24's config (Gemma-3-1B) after a
+    warm-up step, traced whole; then phase 25's ``generate`` (bf16, its
+    prompts, 8 new tokens) after a warm-up call."""
+    from align_anything_tpu_torch.generation.engine import generate  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+
+    ckpt = os.path.join(tmp, 'gemma3_1b')
+    cfg = write_gemma3(ckpt, dev, SEED + 240)['config']
+    free_memory()
+    data = write_jsonl(os.path.join(tmp, 'pref_gemma3.jsonl'),
+                       preference_rows(SEED + 241, GEMMA_STEPS * GEMMA_PAIRS,
+                                       GEMMA_PROMPT, GEMMA_RESPONSES))
+    with mock.patch.dict(os.environ, {'MESH_FILE': HARNESS_MESH}):
+        cfgs, pc = parse_cfgs('text_to_text/dpo', [
+            '--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'PKUSafeRLHF', '--epochs', '1',
+            '--per_device_train_batch_size', str(GEMMA_PAIRS)])
+    trainer = DPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    report_trace('gemma3_1b DPO step', prof, wall, smi)
+    params = trainer.state.params
+    del trainer, prof
+    free_memory()
+    ids, mask = left_padded(gen_prompts(cfg.vocab_size, SEED + 250),
+                            cfg.pad_token_id, dev)
+    gen_cfg = GenerationConfig(max_new_tokens=8, greedy=True,
+                               eos_token_id=-1, pad_token_id=cfg.pad_token_id)
+    with torch.no_grad():
+        generate(params, cfg, gen_cfg, ids, mask)
+        _, prof, wall = traced(lambda: generate(params, cfg, gen_cfg, ids,
+                                                mask))
+    report_trace('gemma3_1b generate (16 prompts, prefill + 8 decode steps)',
+                 prof, wall, smi)
+    del params, prof
+    free_memory()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on the GPU',
@@ -3990,13 +4638,14 @@ def main() -> int:
 
     libs = build_kernels()
     if sys.argv[1:2] == ['--profile']:
-        which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora']
+        which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora', 'gemma3']
         if 'dpo' in which:
             profile_dpo(dev, smi)
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
         try:
             for name, fn in (('ppo', profile_ppo), ('ti2t', profile_ti2t),
-                             ('qlora', profile_qlora)):
+                             ('qlora', profile_qlora),
+                             ('gemma3', profile_gemma3)):
                 if name in which:
                     fn(dev, smi, tmp)
         finally:
@@ -4124,6 +4773,11 @@ def main() -> int:
         qlora4 = qlora_full(dev, smi, tmp, 4, QLORA_STEPS)
         qlora8 = qlora_full(dev, smi, tmp, 8, QLORA_INT8_STEPS)
         lora = lora_small(dev, smi, tmp, cost)
+        gemma = gemma3_dpo(dev, smi, tmp)
+        gemma_gen = gemma3_generation(dev, smi, gemma['ckpt'])
+        shutil.rmtree(gemma['ckpt'], ignore_errors=True)
+        remat = remat_sweep(dev, smi)
+        saves = async_save(dev, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4131,8 +4785,11 @@ def main() -> int:
     t8 = fstats['timed']['llama8b']
     vit = fstats['timed']['vit336']
     mm_ppo = fstats['timed']['ti2t_ppo']
+    g3 = {name: fstats['timed'][name]
+          for name in ('gemma3_1b', 'gemma3_1b_w512')}
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
-                 ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, qlora4, qlora8, lora)
+                 ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, qlora4, qlora8, lora,
+                 gemma, gemma_gen, remat, saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -4141,7 +4798,11 @@ def main() -> int:
                       'vit336: B8 L577 H16 KH16 D64 full (the CLIP '
                       'ViT-L/14-336 tower), SDPA full; ti2t_ppo: B8 L1152 '
                       'H32 KH32 D128 causal with leading and trailing pads '
-                      '(phase 20\'s scoring pass), SDPA causal, no padding',
+                      '(phase 20\'s scoring pass), SDPA causal, no padding; '
+                      'gemma3_1b: B4 L2048 H4 KH1 D256 causal, 2 rows padded '
+                      '(Gemma-3-1B\'s full layers), gemma3_1b_w512 the same '
+                      'with the window 512 (its sliding layers), SDPA over '
+                      'the whole causal square, no window',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
@@ -4160,7 +4821,12 @@ def main() -> int:
                              'small) + phase 22 (QLoRA DPO at Llama-3-8B\'s '
                              'full 32 layers: 4 steps on the int4 base, 2 on '
                              'the int8 base) + phase 23 (every LoRA trainer, '
-                             'LoRA and QLoRA, small)'}
+                             'LoRA and QLoRA, small) + phase 24 (4 DPO steps '
+                             'at Gemma-3-1B\'s full size) + phase 25 (its '
+                             'training forward beside the generation, which '
+                             'runs no kernel) + phase 26 (3 DPO steps under '
+                             'each of the ten remat policies) + phase 27 (8 '
+                             'DPO steps around two saves, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -4199,7 +4865,10 @@ def main() -> int:
         'vit336': {k: vit[k] for k in ('ms', 'plain_ms', 'library_ms',
                                        'bound_ms', 'bound_by')},
         'ti2t_ppo': {k: mm_ppo[k] for k in ('ms', 'plain_ms', 'library_ms',
-                                            'bound_ms', 'bound_by')}}, {
+                                            'bound_ms', 'bound_by')},
+        **{name: {k: t[k] for k in ('ms', 'plain_ms', 'library_ms',
+                                    'bound_ms', 'bound_by')}
+           for name, t in g3.items()}}, {
         'name': 'flash_attention_bwd', **flash,
         'replaces': 'align_anything_tpu/ops/attention.py:99',
         'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
@@ -4217,7 +4886,12 @@ def main() -> int:
                      'plain_ms': mm_ppo['plain_bwd_ms'],
                      'library_ms': mm_ppo['library_bwd_ms'],
                      'bound_ms': mm_ppo['bwd_bound_ms'],
-                     'bound_by': mm_ppo['bwd_bound_by']}}]}))
+                     'bound_by': mm_ppo['bwd_bound_by']},
+        **{name: {'ms': t['bwd_ms'], 'plain_ms': t['plain_bwd_ms'],
+                  'library_ms': t['library_bwd_ms'],
+                  'bound_ms': t['bwd_bound_ms'],
+                  'bound_by': t['bwd_bound_by']}
+           for name, t in g3.items()}}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -7,8 +7,8 @@ under ``jax.value_and_grad``, as the JAX ``DPOTrainer``'s step; the port's
 ``DPOStep`` gets the same weights through ``models/bridge.py``.
 Tolerances: 1e-5 for losses, metrics and the params after three updates
 (fp32 math summed in another order; lr 1e-4 keeps Adam's normalized steps
-from amplifying that), and 1e-6 relative between remat policies (the same
-ops, recomputed).
+from amplifying that), and 1e-6 relative between the ten remat policies (the
+same ops, recomputed).
 """
 
 import copy
@@ -209,28 +209,95 @@ def _loss_and_grads(remat, monkeypatch):
             with_ref, calls['fwd'] - with_ref)
 
 
-@pytest.mark.parametrize('remat', ['full', 'dots_saveable', 'save_flash'])
+# the remat policies that keep the kernel's (out, lse): the others re-run
+# the attention forward in the backward
+KEEP_FLASH = ('save_flash', 'dots_flash', 'dots_saveable_flash',
+              'dots_mlp_lean_flash')
+
+
+@pytest.mark.parametrize('remat', ['none', 'full', 'dots_saveable',
+                                   'dots_nb', 'dots_flash', 'save_flash',
+                                   'save_attn', 'dots_saveable_flash',
+                                   'dots_mlp_lean', 'dots_mlp_lean_flash'])
 def test_remat_policies_keep_the_numbers(remat, monkeypatch):
-    """Remat changes memory and time, never the numbers; 'full' and
-    'dots_saveable' re-run the attention forward in the backward (as in JAX,
-    where the flash residuals are anonymous to dots_saveable), 'save_flash'
-    keeps its (out, lse)."""
+    """Remat changes memory and time, never the numbers; 'full',
+    'dots_saveable' and the other policies without the kernel's names
+    re-run the attention forward in the backward (as in JAX, where the
+    flash residuals are anonymous to dots_saveable), those with them keep
+    its (out, lse)."""
     base_loss, base_grads, base_fwd, base_re = _loss_and_grads('none',
                                                                monkeypatch)
     loss, grads, fwd, re = _loss_and_grads(remat, monkeypatch)
     layers = CFG['layers']
     assert (base_fwd, base_re) == (2 * layers, 0)     # policy + reference
     assert fwd == 2 * layers
-    assert re == (0 if remat == 'save_flash' else layers)
+    assert re == (0 if remat in KEEP_FLASH + ('none',) else layers)
     assert abs(loss - base_loss) <= 1e-6 * abs(base_loss)
     for g, b in zip(grads, base_grads):
         assert float((g - b).abs().max()) <= 1e-6 * max(
             float(b.abs().max()), 1e-12)
 
 
-@pytest.mark.parametrize('remat', ['dots_nb', 'dots_flash',
-                                   'dots_saveable_flash', 'dots_mlp_lean',
-                                   'dots_mlp_lean_flash', 'save_attn'])
-def test_unported_remat_policies_raise(remat):
-    with pytest.raises(NotImplementedError, match='remat'):
-        tt.check_supported(tiny_config(**CFG).replace(remat=remat))
+def _saved_ops(remat, impl, monkeypatch):
+    """What ``remat`` keeps in one forward of the policy under remat, by
+    kind, per layer: the policy's own decisions (``_policy_saves``), read
+    as the forward runs.  Under a non-reentrant checkpoint the saved
+    outputs live in the checkpoint's cache, where saved-tensor hooks do not
+    reach (they see the checkpoint's inputs only)."""
+    kinds = {'matmul_nb': 0, 'matmul_batched': 0, 'flash': 0, 'attn_out': 0}
+    decide = tt._policy_saves
+
+    def counted(remat_, up_shape, op, args):
+        saves = decide(remat_, up_shape, op, args)
+        if saves:
+            if op is torch.ops.aat_torch.flash_attention_fwd.default:
+                kinds['flash'] += 1
+            elif op is torch.ops.aat_torch.checkpoint_name.default:
+                kinds['attn_out'] += 1
+            elif tt._no_batch_dims(op, args):
+                kinds['matmul_nb'] += 1
+            else:
+                kinds['matmul_batched'] += 1
+        return saves
+
+    monkeypatch.setattr(tt, '_policy_saves', counted)
+    cfg = tiny_config(**CFG).replace(compute_dtype='float32', remat=remat,
+                                     attention_impl=impl)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device='cpu')
+    for leaf in param_leaves(params):
+        leaf.requires_grad_(True)
+    tt.forward(params, cfg, torch.from_numpy(_batch(0)['input_ids']))
+    return {k: v // CFG['layers'] for k, v in kinds.items() if v}
+
+
+# per layer: the seven weight matmuls (q, k, v, o, gate, up, down) run as
+# ``bmm`` over a batch of one; the plain attention's two (impl 'xla')
+# batch over B x heads; the kernel's forward is one custom op
+SAVES = {
+    'none': ({}, {}),
+    'full': ({}, {}),
+    'dots_saveable': ({'matmul_nb': 7}, {'matmul_nb': 7,
+                                         'matmul_batched': 2}),
+    'dots_nb': ({'matmul_nb': 7}, {'matmul_nb': 7}),
+    'dots_flash': ({'matmul_nb': 7, 'flash': 1}, {'matmul_nb': 7}),
+    'save_flash': ({'flash': 1, 'attn_out': 1}, {'attn_out': 1}),
+    'save_attn': ({'attn_out': 1}, {'attn_out': 1}),
+    'dots_saveable_flash': ({'matmul_nb': 7, 'flash': 1},
+                            {'matmul_nb': 7, 'matmul_batched': 2}),
+    # minus the up and gate projections, whose weight is (hidden, mlp_dim)
+    'dots_mlp_lean': ({'matmul_nb': 5}, {'matmul_nb': 5,
+                                         'matmul_batched': 2}),
+    'dots_mlp_lean_flash': ({'matmul_nb': 5, 'flash': 1},
+                            {'matmul_nb': 5, 'matmul_batched': 2}),
+}
+
+
+@pytest.mark.parametrize('remat', sorted(SAVES))
+def test_remat_policy_saves(remat, monkeypatch):
+    """Each policy keeps what JAX's keeps: through the kernel and through
+    the plain attention."""
+    assert set(SAVES) == set(tt.REMAT_POLICIES)
+    kernel, plain = SAVES[remat]
+    assert _saved_ops(remat, 'auto', monkeypatch) == kernel
+    assert _saved_ops(remat, 'xla', monkeypatch) == plain

@@ -85,16 +85,26 @@ def test_config_from_hf_matches_jax(checkpoint):
 
 
 def test_config_from_hf_raises_for_what_the_port_cannot_run(tmp_path):
-    """Gemma3's sliding layers map (as in JAX) and then raise."""
+    """Gemma3's sliding layers map as in JAX and run (since the port runs
+    them); a family the port leaves out (MoE) raises."""
+    from align_anything_tpu.models import config as jc
+
     cfg = transformers.Gemma3TextConfig(
         vocab_size=99, hidden_size=32, intermediate_size=64,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
         head_dim=16, max_position_embeddings=64, sliding_window=8,
         layer_types=['sliding_attention', 'full_attention'])
     transformers.Gemma3ForCausalLM(cfg).save_pretrained(
-        tmp_path, safe_serialization=True)
-    with pytest.raises(NotImplementedError, match='sliding-window'):
-        tconfig.config_from_hf(str(tmp_path))
+        tmp_path / 'gemma3', safe_serialization=True)
+    got = tconfig.config_from_hf(str(tmp_path / 'gemma3'))
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        jc.config_from_hf(str(tmp_path / 'gemma3')))
+    assert (got.sliding_window, got.layer_is_sliding) == (8, (1, 0))
+    os.makedirs(tmp_path / 'moe')
+    with open(tmp_path / 'moe' / 'config.json', 'w') as f:
+        json.dump({'architectures': ['Qwen3MoeForCausalLM']}, f)
+    with pytest.raises(ValueError, match='unsupported HF architecture'):
+        tconfig.config_from_hf(str(tmp_path / 'moe'))
 
 
 @pytest.mark.parametrize('padded', [False, True])

@@ -219,8 +219,8 @@ def test_per_row_decode_offsets_match_uniform(jx, model):
 
 
 @pytest.mark.parametrize('option', [
-    dict(num_experts=4), dict(pp_stages=2), dict(remat='dots_nb'),
-    dict(mrope_section=(8, 12, 12)), dict(sliding_window=8),
+    dict(num_experts=4), dict(pp_stages=2), dict(remat='no_such_policy'),
+    dict(mrope_section=(8, 12, 12)), dict(num_experts=8, moe_impl='sparse'),
 ])
 def test_unported_options_raise(option):
     cfg = tiny_config().replace(**option)

@@ -57,7 +57,13 @@ DATA = {'dpo': ('pref', 'PKUSafeRLHF'), 'sft': ('sft', 'Alpaca'),
 
 @pytest.fixture(scope='module')
 def assets(tmp_path_factory):
-    d = tmp_path_factory.mktemp('trainer_assets')
+    return make_assets(tmp_path_factory.mktemp('trainer_assets'))
+
+
+def make_assets(d):
+    """A tiny Llama checkpoint (``d/model``), preference rows
+    (``d/pref.jsonl``) and SFT rows (``d/sft.jsonl``)."""
+    os.makedirs(d, exist_ok=True)
     torch.manual_seed(0)
     cfg = transformers.LlamaConfig(
         vocab_size=256, hidden_size=64, intermediate_size=128,
