@@ -1,5 +1,5 @@
 """Tokenizer loading + a hermetic test tokenizer: the port of
-``align_anything_tpu/data/tokenizer.py``, unchanged.
+``align_anything_tpu/data/tokenizer.py``, plus ``has_tokenizer_files``.
 
 ``transformers`` is imported only inside ``load_tokenizer``.
 
@@ -13,6 +13,7 @@ tokenizer so dataset/collator/trainer tests never need downloaded assets.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Protocol
 
@@ -24,6 +25,21 @@ class Tokenizer(Protocol):
 
     def encode(self, text: str, add_special_tokens: bool = True) -> list[int]: ...
     def decode(self, ids: list[int], skip_special_tokens: bool = True) -> str: ...
+
+
+TOKENIZER_FILES = ('tokenizer.json', 'tokenizer_config.json', 'tokenizer.model',
+                   'vocab.json', 'vocab.txt', 'spiece.model')
+
+
+def has_tokenizer_files(model_name_or_path: str) -> bool:
+    """Whether a checkpoint directory holds a tokenizer (any path that is
+    not a local directory is left to ``load_tokenizer``).  Without one,
+    some transformers versions build a tokenizer that encodes every prompt
+    to a single token instead of raising."""
+    if not os.path.isdir(model_name_or_path):
+        return True
+    return any(os.path.exists(os.path.join(model_name_or_path, name))
+               for name in TOKENIZER_FILES)
 
 
 def load_tokenizer(model_name_or_path: str, model_max_length: int | None = None,

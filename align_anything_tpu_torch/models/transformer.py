@@ -5,16 +5,25 @@ tree (see ``models/bridge.py``): layer leaves stacked on a leading
 ``num_layers`` axis, einsum weight layouts (E, H, D), (H, D, E), (E, F),
 compute in ``config.compute_dtype`` with fp32 softmax, norms and logits.
 
-``forward`` covers three paths:
+``forward`` covers four paths:
 - no cache (training and scoring): ``ops/attention.causal_attention`` over
   the inputs (the flash-attention kernel on the card), each layer under
   ``torch.utils.checkpoint`` with the config's remat policy when gradients
   are being recorded;
 - prefill: a cache and ``cache_offset == 0``; K/V are written at [0, L)
   and attention runs over the fresh K/V;
+- a multi-token write at a static offset ``cache_offset > 0`` (the prefix
+  cache's tail): K/V are written at [off, off + L) and attention runs over
+  the whole cache with a slot-space causal mask, the query of row i at
+  slot off + i;
 - decode: one token per row written at ``cache_offset``, a Python int, a
   scalar tensor, or a (B,) tensor of per-row offsets (the continuous
   engine's per-slot lengths); attention over the cache with a slot mask.
+
+A cache is any object with ``max_len`` and ``layer(li)``.  ``KVCache``'s
+layers are (K, V) views; a layer object with an ``attend(q, k, v,
+window)`` method writes and attends itself (the continuous engine's page
+pool, ``generation/continuous.py`` ``PagedCache``).
 
 The cache is a plain (L, B, KH, S, D) tensor pair, updated IN PLACE (one
 ``index_put_`` per layer and step), unlike the JAX package's functional
@@ -95,6 +104,10 @@ class KVCache:
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
+
+    def layer(self, li: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``li``'s (K, V) views (B, KH, max_len, D)."""
+        return self.k[li], self.v[li]
 
 
 @dataclasses.dataclass
@@ -415,11 +428,36 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
         q = apply_rope(q, positions, sin, cos)
         k = apply_rope(k, positions, sin, cos)
 
-    prefill = isinstance(cache_offset, int) and cache_offset == 0
-    if layer_cache is not None and not prefill:
+    static = isinstance(cache_offset, int)
+    if layer_cache is not None and hasattr(layer_cache, 'attend'):
+        # a cache object that writes and attends itself (the continuous
+        # engine's page pool)
+        attn = layer_cache.attend(q, k, v,
+                                  c.sliding_window if sliding else None)
+    elif layer_cache is not None and static and cache_offset > 0 and l > 1:
+        # multi-token write at a static offset (the prefix cache's tail):
+        # write [off, off + L), then attend over the whole cache in slot
+        # space, the query of row i at slot off + i
+        ck, cv = layer_cache
+        s, end = ck.shape[2], cache_offset + l
+        if end > s:
+            raise ValueError(f'cache write [{cache_offset}, {end}) past the '
+                             f'cache ({s})')
+        ck[:, :, cache_offset:end] = k.transpose(1, 2).to(ck.dtype)
+        cv[:, :, cache_offset:end] = v.transpose(1, 2).to(cv.dtype)
+        k_slots = torch.arange(s, device=x.device)[None, :]
+        q_slots = cache_offset + torch.arange(l, device=x.device)[:, None]
+        mask = k_slots <= q_slots
+        if sliding:
+            mask = mask & ((q_slots - k_slots) < c.sliding_window)
+        mask = mask[None, None]                             # (1, 1, L, S)
+        if attention_mask is not None:
+            mask = mask & attention_mask[:, None, None, :].bool()
+        attn = _masked_attention(q, ck.to(dtype), cv.to(dtype), mask)
+    elif layer_cache is not None and not (static and cache_offset == 0):
         if l != 1:
-            raise ValueError('multi-token cache writes need offset 0 '
-                             '(prefill); decode writes one token at a time')
+            raise ValueError('multi-token cache writes need a static offset; '
+                             'decode writes one token at a time')
         # decode: each row writes its token at its own slot and attends
         # over the slots up to it
         ck, cv = layer_cache
@@ -630,7 +668,7 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
              and torch.is_grad_enabled())
     for li in range(c.num_layers):
         lp = layer_params(params['layers'], li)
-        layer_cache = None if cache is None else (cache.k[li], cache.v[li])
+        layer_cache = None if cache is None else cache.layer(li)
         if remat:
             x = ckpt.checkpoint(
                 _decoder_layer, c, lp, x, positions, sin, cos, attention_mask,

@@ -5,7 +5,8 @@ Hopper counterpart of ``scripts/bench/timing_utils.py``).
 the median; ``bound`` is the least time the card could take for given
 operations and bytes, from the H100 SXM's published peaks;
 ``int4_library_ms`` times PyTorch's own int4-weight GEMM, the yardstick of
-the int4 matmul kernels (the port never calls it).
+the int4 matmul kernels (the port never calls it); ``kv_gb`` is a dense
+KV cache's size.
 """
 
 from __future__ import annotations
@@ -59,6 +60,12 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def kv_gb(cfg, lanes: int, max_len: int, dtype_bytes: int = 2) -> float:
+    """KV-cache residency (GiB) for ``lanes`` decode slots at ``max_len``."""
+    return round(2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim
+                 * max_len * lanes * dtype_bytes / 2**30, 2)
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:

@@ -178,6 +178,33 @@ Phases (any failure raises and the run exits non-zero):
      state (1.2 GB) saved at step 3 with ``wait=True`` and at step 6 with
      ``wait=False``: the save call's time and the loop's step time with
      each, and each save restored bit-equal to the state at its call.
+ 28. (beside phase 4, on phase 3's params) phase 4's 48 requests through
+     the paged pool (page size 16): (a) the full pool, ``1 + 32 x 16``
+     pages, (b) half of it, where every request still finishes with fewer
+     than 32 live at once, then bench.py's prefix pattern (a 48-token shared
+     prefix, each prompt cut to keep its length) (c) dense and (d) paged;
+     every request's budget, K2's launches per decode step as phase 4's,
+     one paged decode step against the plain int4 path, and each
+     prefix-cached request's first next-token logits against its uncached
+     prefill, both in fp32 on the dequantized weights (1e-4 x
+     max|logit|, the same greedy token; the bf16 distance logged);
+     tokens/s, peak memory, the prefill seconds the prefix saves and time
+     to first token (p50 / max);
+ 29. ``scripts/bench/bench_int4_7b.py``'s ``run`` at Llama-3-8B's 32
+     layers: int4 (128 slots, ``o`` flattened, an int8-COMPUTE head) and
+     int8-COMPUTE (64 slots), each dense and paged; every request's 64
+     tokens, K2's launches (those on ``o`` apart), resident and peak GB;
+ 30. (after phase 25, on phase 24's checkpoint) the OpenAI-compatible HTTP
+     server (``serve/api_server.py``, ``make_stdlib_server`` on a free port
+     of 127.0.0.1), dense, then paged with a 48-word system text as its
+     cached prefix: 16 concurrent clients mixing ``/health``,
+     ``/v1/models``, completions and chat, plain and streamed (SSE), with
+     prompts of 520-550 tokens (longer than the window 512); every reply
+     200 and every stream ending in ``[DONE]``; in fp32 the server's greedy
+     ids equal a direct ``engine.generate`` of the same prompts and a
+     streamed completion joins into the non-streamed text; bf16 timed:
+     generated tokens/s, time to first token from the streams, peak
+     memory, and how many greedy ids equal the engine's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
@@ -244,6 +271,7 @@ from align_anything_tpu_torch.models import quantization as q
 from align_anything_tpu_torch.ops import flash_attention as fa
 from align_anything_tpu_torch.ops import int4_matmul as k2
 from align_anything_tpu_torch.scripts.bench import bench_int4_kernel_ab as ab
+from align_anything_tpu_torch.serve import api_server
 from align_anything_tpu_torch.scripts.bench.timing_utils import (
     PEAK_FLOPS, bound, gpu_name_and_power, int4_library_ms, l2_flush_buffer,
     time_ms)
@@ -717,6 +745,372 @@ def recompute_step(params, cfg, prompt, out, dev):
         plain = step()
     torch.cuda.synchronize()
     return kern.float(), plain.float(), out[j + 1]
+
+
+# phases 28-29: the paged pool, the prefix cache and the 8B int4 / int8
+# serving bench.  Phase 28 serves phase 4's 48 requests on phase 3's params
+# (32 slots, max_len 256) through the paged pool, full and halved, and
+# bench.py's prefix pattern (``bench_continuous``: a 48-token shared prefix,
+# each prompt cut so its length stays) dense and paged.  Time to first token
+# is the host clock from the call's start to the chunk boundary where a
+# request's first token reaches ``on_tokens``: the engine streams per chunk.
+PREFIX_LEN = 48
+PREFIX_BUCKETS = (64, 96, 128)
+HALF_POOL = 1 + 16 * (MAX_LEN // 16)
+# prefix-cached against uncached first logits in fp32: max|diff| /
+# max|logit|; fp32 rounding over 32 layers sits orders of magnitude below
+PREFIX_TOL = 1e-4
+PREFILLS = ('_prefill_dense', '_prefill_paged')
+
+
+def live_at_once(stats: dict) -> int:
+    """The most requests live in one decode step, from the engine's
+    admission and finish steps."""
+    spans = [(stats['admit_step'][r], stats['finish_step'][r])
+             for r in stats['admit_step']]
+    return max(sum(a <= s < f for a, f in spans)
+               for s in range(stats['total_steps']))
+
+
+def quantiles(xs: list) -> str:
+    return (f'p50 {statistics.median(xs):.3f} s, max {max(xs):.3f} s '
+            f'over {len(xs)}')
+
+
+def serve_timed(engine, params, requests: list, gen_cfg, dev,
+                seed: int) -> dict:
+    """One ``generate`` call over every request at once: wall clock, peak
+    memory, K2's launches, each request's time to first token, and the
+    seconds its prefills took on the stream (CUDA events around each
+    prefill call, read after the run: no host synchronization in the
+    timed window, so the engine runs as it does untimed)."""
+    marks: list = []
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn(*args, **kwargs)
+            end.record()
+            marks.append((start, end))
+        return call
+
+    for name in PREFILLS:
+        setattr(engine, name, timed(getattr(engine, name)))
+    first: dict = {}
+    free_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k2.int4_matmul_cuda.launches = 0
+    try:
+        t0 = time.perf_counter()
+        outs = engine.generate(
+            params, requests, gen_cfg,
+            torch.Generator(device=dev).manual_seed(seed),
+            chunk_steps=CHUNK_STEPS,
+            on_tokens=lambda rid, toks: first.setdefault(
+                rid, time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for name in PREFILLS:
+            delattr(engine, name)
+    return {'outputs': outs, 'seconds': seconds,
+            'tokens': sum(len(o) for o in outs),
+            'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+            'launches': k2.int4_matmul_cuda.launches,
+            'ttft': [first[r] for r in range(len(requests))],
+            'prefill_s': sum(a.elapsed_time(b) for a, b in marks) / 1e3,
+            'steps': engine.stats['total_steps'],
+            'live': live_at_once(engine.stats)}
+
+
+def recompute_paged_step(params, cfg, prompt, out, dev):
+    """One decode step of one request through the page pool, through the
+    kernel and through the plain int4 path, from the same pool."""
+    eng = ContinuousBatchingEngine(cfg, num_slots=1, max_len=MAX_LEN,
+                                   cache_mode='paged')
+    st = eng._init_state(dev)
+    j = len(out) // 2
+    ids = prompt + out[:j]
+    eng._prefill_paged(params, st, 0, ids,
+                       list(range(1, eng.max_pages_per_slot + 1)), 0.0,
+                       len(ids), cfg.pad_token_id)
+    lengths, live = st.lengths.clone(), ~st.done
+    tok = torch.tensor([[out[j]]], device=dev)
+    k0, v0 = st.cache.k.clone(), st.cache.v.clone()
+
+    def step():
+        st.cache.k.copy_(k0)
+        st.cache.v.copy_(v0)
+        return transformer.forward(
+            params, cfg, tok, positions=lengths[:, None],
+            cache=st.cache.step(lengths, live),
+            cache_offset=lengths).logits[0, 0]
+
+    kern = step()
+    with mock.patch.object(k2, 'int4_matmul_cuda', k2.int4_matmul_reference):
+        plain = step()
+    torch.cuda.synchronize()
+    return kern.float(), plain.float(), out[j + 1]
+
+
+def check_decode_step(tag: str, kern, plain, next_tok) -> None:
+    """Phase 4's limit: 2e-2 x max|logit|, the same greedy token."""
+    err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    same = int(kern.argmax()) == int(plain.argmax())
+    log(f'{tag} recomputed decode step: max|kernel-plain|={err:.4e} '
+        f'max|logit|={scale:.4e} greedy kernel={int(kern.argmax())} '
+        f'plain={int(plain.argmax())} engine={next_tok}')
+    if not (torch.isfinite(kern).all() and err <= 2e-2 * scale and same):
+        raise AssertionError(f'{tag}: decode step disagrees with the plain '
+                             'int4 path')
+
+
+def wave_logits(engine, params, rows: list, cached: bool, pad: int,
+                dev) -> torch.Tensor:
+    """The first next-token logits of one wave of prompts (at most the
+    engine's slots) through the engine's prefill: over ``rows``' tails
+    after the cached prefix when ``cached``, else over them whole."""
+    from align_anything_tpu_torch.utils.tools import bucket_length  # noqa: PLC0415
+
+    st = engine._init_state(dev)
+    n = engine._prefix['len'] if cached else 0
+    rows = [r[n:] for r in rows]
+    if engine.cache_mode == 'paged':
+        pages = list(range(1, engine.max_pages_per_slot + 1))
+        for slot, toks in enumerate(rows):
+            engine._prefill_paged(
+                params, st, slot, toks, pages, 0.0,
+                bucket_length(len(toks), engine.prompt_buckets), pad, n)
+    else:
+        by_bucket: dict = {}
+        for slot, toks in enumerate(rows):
+            by_bucket.setdefault(bucket_length(
+                len(toks), engine.prompt_buckets), []).append(slot)
+        for bucket, slots in by_bucket.items():
+            engine._prefill_dense(params, st, slots, [rows[s] for s in slots],
+                                  [0.0] * len(slots), bucket, pad, n)
+    return st.next_logits[:len(rows)].float()
+
+
+def prefix_logits(engine, params, cfg, prefix: list, requests: list,
+                  dev) -> dict:
+    """Every request's first next-token logits through the engine's prefix
+    prefill against its uncached prefill, in waves of the engine's slots.
+
+    The check runs in fp32 compute on an engine of the same cache mode and
+    prefix, every int4 product on the dequantized weight (K2 takes bf16
+    activations, and the two paths' products differ in size, so in bf16
+    they round along different routes): a wrong rope offset or stale prefix
+    K/V shows far above fp32's rounding.  The bf16 engine's two paths are
+    timed (synchronized host clock) and their distance logged."""
+    fp32 = ContinuousBatchingEngine(
+        cfg.replace(compute_dtype='float32'), num_slots=engine.num_slots,
+        max_len=engine.max_len, prompt_buckets=engine.prompt_buckets,
+        cache_mode=engine.cache_mode, num_pages=engine.num_pages)
+    with mock.patch.object(k2, 'KERNEL_MAX_ROWS', 0):
+        fp32.register_prefix(params, prefix)
+    pad = cfg.pad_token_id
+    worst, worst_bf16, same, same_bf16 = 0.0, 0.0, 0, 0
+    secs = {True: 0.0, False: 0.0}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for start in range(0, len(requests), engine.num_slots):
+        rows = [r['input_ids'] for r in requests[start:start
+                                                 + engine.num_slots]]
+        bf16 = {}
+        for cached in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bf16[cached] = wave_logits(engine, params, rows, cached, pad, dev)
+            torch.cuda.synchronize()
+            secs[cached] += time.perf_counter() - t0
+        with mock.patch.object(k2, 'KERNEL_MAX_ROWS', 0):
+            exact = {cached: wave_logits(fp32, params, rows, cached, pad, dev)
+                     for cached in (True, False)}
+        for got, want in zip(exact[True], exact[False]):
+            if not torch.isfinite(got).all():
+                raise AssertionError('phase28: non-finite prefix logits')
+            worst = max(worst, rel(got, want))
+            same += int(got.argmax()) == int(want.argmax())
+        for got, want in zip(bf16[True], bf16[False]):
+            worst_bf16 = max(worst_bf16, rel(got, want))
+            same_bf16 += int(got.argmax()) == int(want.argmax())
+    return {'worst': worst, 'limit': PREFIX_TOL, 'same_argmax': same,
+            'worst_bf16': worst_bf16, 'same_argmax_bf16': same_bf16,
+            'cached_s': secs[True], 'plain_s': secs[False]}
+
+
+def page_ops_ms(cfg, dev) -> dict:
+    """Device time of one decode step's page operations at 32 slots and
+    max_len 256 (CUDA events, L2 flushed): each layer gathers its K and V
+    pages into (S, KH, T, D) and scatters one token into them; times the
+    layers.  The dense cache reads its rows in place, so this is what the
+    pool adds to a step's device time."""
+    from align_anything_tpu_torch.generation import continuous  # noqa: PLC0415
+
+    mp = MAX_LEN // 16
+    pages = torch.randn((cfg.num_kv_heads, 1 + DECODE_SLOTS * mp, 16,
+                         cfg.head_dim), device=dev, dtype=torch.bfloat16)
+    tables = (1 + torch.randperm(DECODE_SLOTS * mp, device=dev)).reshape(
+        DECODE_SLOTS, mp)
+    lengths = torch.randint(112, 192, (DECODE_SLOTS,), device=dev)
+    new = torch.randn((DECODE_SLOTS, cfg.num_kv_heads, cfg.head_dim),
+                      device=dev, dtype=torch.bfloat16)
+    live = torch.ones(DECODE_SLOTS, dtype=torch.bool, device=dev)
+    flush = l2_flush_buffer(dev)
+    gather = time_ms(lambda: continuous._gather_pages(pages, tables), 10,
+                     flush)
+    scatter = time_ms(lambda: continuous._scatter_token(
+        pages, tables, lengths, new, live), 10, flush)
+    per_step = 2 * cfg.num_layers
+    return {'gather_ms': per_step * gather, 'scatter_ms': per_step * scatter}
+
+
+def paged_serving(params, cfg, requests: dict, dev, smi) -> dict:
+    """Phase 28: phase 4's requests through (a) the paged pool, (b) half of
+    it, (c) dense and (d) paged with a 48-token shared prefix."""
+    t_phase = time.perf_counter()
+    reqs = [requests[rid] for rid in sorted(requests)]
+    prefix = np.random.default_rng(SEED + 280).integers(
+        5, cfg.vocab_size - 1, size=PREFIX_LEN).tolist()
+    pre_reqs = [dict(r, input_ids=prefix + r['input_ids'][
+        :len(r['input_ids']) - PREFIX_LEN]) for r in reqs]
+    gen_cfg = GenerationConfig(max_new_tokens=NEW_TOKENS, temperature=1.0,
+                               eos_token_id=-1)
+    need_per_step = 4 * cfg.num_layers + 1
+    runs = {
+        'a_paged': (dict(cache_mode='paged', prompt_buckets=(128,)), reqs),
+        'b_paged_half': (dict(cache_mode='paged', num_pages=HALF_POOL,
+                              prompt_buckets=(128,)), reqs),
+        'c_dense_prefix': (dict(cache_mode='dense',
+                                prompt_buckets=PREFIX_BUCKETS), pre_reqs),
+        'd_paged_prefix': (dict(cache_mode='paged',
+                                prompt_buckets=PREFIX_BUCKETS), pre_reqs)}
+    rows, launches = {}, 0
+    for i, (name, (kw, rq)) in enumerate(runs.items()):
+        engine = ContinuousBatchingEngine(cfg, num_slots=DECODE_SLOTS,
+                                          max_len=MAX_LEN, **kw)
+        if name.endswith('prefix'):
+            engine.register_prefix(params, prefix)
+        r = serve_timed(engine, params, rq, gen_cfg, dev, SEED + 281 + i)
+        launches += r['launches']
+        need = r['steps'] * need_per_step
+        log(f'phase28 {name}: {len(rq)} requests, {r["tokens"]} tokens in '
+            f'{r["seconds"]:.3f} s = {r["tokens"] / r["seconds"]:.1f} '
+            f'tokens/s; decode steps {r["steps"]}; most live at once '
+            f'{r["live"]}; '
+            + (f'pages {engine.num_pages}' if kw['cache_mode'] == 'paged'
+               else 'dense cache') + '; time to '
+            f'first token {quantiles(r["ttft"])}; prefill {r["prefill_s"]:.3f}'
+            f' s; peak memory {r["peak_gb"]:.3f} GB; int4 launches '
+            f'{r["launches"]} (need >= {need}); card {smi}')
+        if not all(len(o) == NEW_TOKENS for o in r['outputs']):
+            raise AssertionError(f'phase28 {name}: a request fell short of '
+                                 'its budget')
+        if not all(0 <= t < cfg.vocab_size for o in r['outputs'] for t in o):
+            raise AssertionError(f'phase28 {name}: token out of vocab')
+        if r['launches'] < need:
+            raise AssertionError(f'phase28 {name}: int4 kernel launched '
+                                 f'{r["launches"]} times, expected >= {need}')
+        if name.endswith('prefix'):
+            chk = prefix_logits(engine, params, cfg, prefix, rq, dev)
+            r['prefix'] = chk
+            log(f'phase28 {name}: prefix {engine._prefix["len"]} tokens '
+                f'cached; first next-token logits against the uncached '
+                f'prefill in fp32: worst max|diff| / max|logit| '
+                f'{chk["worst"]:.3e} (limit {chk["limit"]:.0e}), same greedy '
+                f'token {chk["same_argmax"]}/{len(rq)}; in bf16 (logged '
+                f'only) {chk["worst_bf16"]:.3e}, same greedy token '
+                f'{chk["same_argmax_bf16"]}/{len(rq)}; bf16 prefill '
+                f'{chk["cached_s"]:.3f} s with the prefix, '
+                f'{chk["plain_s"]:.3f} s without: '
+                f'{chk["plain_s"] - chk["cached_s"]:.3f} s saved')
+            if not (chk['worst'] <= chk['limit']
+                    and chk['same_argmax'] == len(rq)):
+                raise AssertionError(f'phase28 {name}: prefix-cached logits '
+                                     'disagree with the uncached prefill')
+        rows[name] = r
+        del engine
+    if not rows['b_paged_half']['live'] < DECODE_SLOTS:
+        raise AssertionError('phase28: the half pool ran every slot at once')
+    half, full = rows['b_paged_half'], rows['a_paged']
+    log(f'phase28 half pool against full: peak {half["peak_gb"]:.3f} / '
+        f'{full["peak_gb"]:.3f} GB, tokens/s '
+        f'{half["tokens"] / half["seconds"]:.1f} / '
+        f'{full["tokens"] / full["seconds"]:.1f}')
+    ops = page_ops_ms(cfg, dev)
+    step_ms = 1e3 * (full['seconds'] - full['prefill_s']) / full['steps']
+    log(f'phase28 page operations of one decode step at {DECODE_SLOTS} '
+        f'slots ({cfg.num_layers} layers x K and V, device time): gather '
+        f'{ops["gather_ms"]:.3f} ms, token scatter {ops["scatter_ms"]:.3f} '
+        f'ms; run (a)\'s decode step {step_ms:.2f} ms of wall clock')
+    kern, plain, next_tok = recompute_paged_step(
+        params, cfg, reqs[0]['input_ids'], rows['a_paged']['outputs'][0], dev)
+    check_decode_step('phase28 paged', kern, plain, next_tok)
+    log(f'phase28 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'rows': rows, 'page_ops': ops}
+
+
+def bench_int4_8b(dev, smi) -> dict:
+    """Phase 29: ``scripts/bench/bench_int4_7b.py``'s ``run`` at Llama-3-8B's
+    32 layers, int4 (128 slots) and int8 (64, as its ``main`` caps them),
+    each dense and paged; K2's launches counted, those on ``o`` apart."""
+    from align_anything_tpu_torch.scripts.bench import bench_int4_7b  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    cfg = llama_config()
+    o_shape = (cfg.num_heads * cfg.head_dim, cfg.hidden_size)
+    launches, rows = 0, {}
+    for mode, slots in (('int4', 128), ('int8', 64)):
+        for cache_mode in ('dense', 'paged'):
+            free_memory()
+            on_o = [0]
+            real = k2.int4_matmul
+
+            def counting(x, w, dtype=torch.bfloat16, real=real, on_o=on_o):
+                # a call on o: K2 launched on a (H * D, E) layer weight
+                before = k2.int4_matmul_cuda.launches
+                out = real(x, w, dtype)
+                g, half = w.values.shape[:2]
+                if (k2.int4_matmul_cuda.launches > before
+                        and (g * 2 * half, math.prod(w.values.shape[2:]))
+                        == o_shape):
+                    on_o[0] += 1
+                return out
+
+            k2.int4_matmul_cuda.launches = 0
+            with mock.patch.object(k2, 'int4_matmul', counting):
+                r = bench_int4_7b.run(mode, slots=slots,
+                                      cache_mode=cache_mode, device=dev)
+            n = k2.int4_matmul_cuda.launches
+            launches += n
+            outs = r.pop('outputs')
+            rows[f'{mode}_{cache_mode}'] = dict(r, k2_launches=n,
+                                                k2_launches_o=on_o[0])
+            log(f'phase29 {mode} {cache_mode}: {r["requests"]} requests, '
+                f'{r["tokens"]} tokens in {r["decode_s"]} s = '
+                f'{r["tokens_per_sec"]} tokens/s at {r["lanes"]} slots '
+                f'(first call {r["first_call_s"]} s, init {r["init_s"]} s); '
+                f'weights {r["weights_gb"]} GiB + KV {r["kv_gb"]} GiB = '
+                f'resident {r["hbm_resident_gb"]} GiB, peak '
+                f'{r["peak_bytes_gb"]} GiB; K2 launches {n} (on o {on_o[0]}); '
+                f'card {smi}')
+            if not (len(outs) == r['requests']
+                    and all(len(o) == r['new_tokens'] for o in outs)):
+                raise AssertionError(f'phase29 {mode} {cache_mode}: a request '
+                                     'fell short of its 64 tokens')
+            if mode == 'int4' and not (n > 0 and on_o[0] > 0):
+                raise AssertionError(f'phase29 int4 {cache_mode}: K2 was not '
+                                     'launched on o')
+            del outs, r
+    log(f'phase29 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'rows': rows}
 
 
 def build_kernels() -> dict:
@@ -4045,6 +4439,236 @@ def gemma3_generation(dev, smi, ckpt: str) -> dict:
     return {'launches': launches}
 
 
+# phase 30: the OpenAI-compatible HTTP server at Gemma-3-1B's full size, on
+# phase 24's checkpoint (no tokenizer files: the hash tokenizer, one token a
+# word).  Every prompt starts with the same 48-word system text and runs
+# 470-500 words more: 520-550 tokens, longer than the window 512, and a
+# tail in the 512 bucket, so the cached prefix and the tail fit max_len
+# 1024 (the engine's match rule).
+HTTP_CLIENTS, HTTP_SLOTS, HTTP_NEW = 16, 8, 64
+HTTP_SYSTEM_WORDS, HTTP_WORDS = 48, (470, 501)
+
+
+class CountingServer(api_server.InferenceServer):
+    """An ``InferenceServer`` that also counts the tokens it generates."""
+
+    def __init__(self, *args, **kwargs):
+        self.generated = 0
+        super().__init__(*args, **kwargs)
+
+    def _finish(self, rid, tokens):
+        self.generated += len(tokens)
+        super()._finish(rid, tokens)
+
+
+def http_texts(seed: int) -> tuple[str, list]:
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return ' '.join(f'w{int(x)}' for x in rng.integers(0, 50000, size=n))
+
+    system = text(HTTP_SYSTEM_WORDS)
+    return system, [f'{system} {text(int(rng.integers(*HTTP_WORDS)))}'
+                    for _ in range(HTTP_CLIENTS)]
+
+
+def http_call(base: str, path: str, payload: dict | None = None) -> dict:
+    """One request; for a stream, the events, whether it ended in [DONE]
+    and the time to its first event (its first text, or the closing event
+    of a completion that ended at once)."""
+    import urllib.error  # noqa: PLC0415
+    import urllib.request  # noqa: PLC0415
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={'Content-Type': 'application/json'})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if not (payload or {}).get('stream'):
+                return {'status': r.status, 'body': json.loads(r.read())}
+            events, done, ttft = [], False, None
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith('data: '):
+                    continue
+                if line == 'data: [DONE]':
+                    done = True
+                    break
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                events.append(json.loads(line[len('data: '):]))
+            return {'status': r.status, 'events': events, 'done': done,
+                    'ttft': ttft}
+    except urllib.error.HTTPError as err:
+        return {'status': err.code, 'body': err.read()}
+
+
+def streamed_text(events: list) -> str:
+    return ''.join(e['choices'][0].get('text')
+                   or e['choices'][0].get('delta', {}).get('content', '')
+                   for e in events)
+
+
+def start_http(ckpt: str, mode: str, system: str, dtype: str):
+    """A server on phase 24's checkpoint behind ``make_stdlib_server`` on a
+    free port of 127.0.0.1, serving in a daemon thread.  The checkpoint has
+    no tokenizer files, so the server serves the hash tokenizer.  The
+    checkpoint's config computes in bf16; for ``dtype`` float32 the
+    server's ``load_params`` hands back that config in fp32 compute."""
+    real = api_server.load_params
+
+    def load(path, **kw):
+        params, cfg = real(path, **kw)
+        return params, cfg.replace(compute_dtype=dtype)
+
+    with mock.patch.object(api_server, 'load_params', load):
+        server = CountingServer(
+            ckpt, num_slots=HTTP_SLOTS, max_len=GEN_MAX_LEN,
+            max_new_tokens=HTTP_NEW, cache_mode=mode,
+            prefix_cache_text=system if mode == 'paged' else None,
+            device=torch.device('cuda', 0))
+    if not isinstance(server.tokenizer, api_server.HashTokenizer):
+        raise AssertionError('phase30: the server did not take the hash '
+                             'tokenizer for a checkpoint without one')
+    httpd = api_server.make_stdlib_server(server, '127.0.0.1', 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return server, httpd, thread, f'http://127.0.0.1:{httpd.server_address[1]}'
+
+
+def stop_http(server, httpd, thread) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=30)
+    server.shutdown(timeout=60)
+    if server._worker.is_alive() or thread.is_alive():
+        raise AssertionError('phase30: the server did not stop')
+
+
+def client_mix(base: str, prompts: list) -> tuple[list, float]:
+    """16 concurrent clients, each a GET of /health and /v1/models and one
+    greedy POST: completions, chat, and both streamed, in turn."""
+    kinds = ('completion', 'chat', 'stream_completion', 'stream_chat')
+    replies: list = [None] * len(prompts)
+
+    def client(i):
+        kind = kinds[i % len(kinds)]
+        path = '/v1/chat/completions' if 'chat' in kind else '/v1/completions'
+        body = ({'messages': [{'role': 'user', 'content': prompts[i]}]}
+                if 'chat' in kind else {'prompt': prompts[i]})
+        body.update(max_tokens=HTTP_NEW, temperature=0.0,
+                    stream=kind.startswith('stream'))
+        replies[i] = [http_call(base, '/health'),
+                      http_call(base, '/v1/models'),
+                      dict(http_call(base, path, body), kind=kind)]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        for fut in [pool.submit(client, i) for i in range(len(prompts))]:
+            fut.result()
+    return replies, time.perf_counter() - t0
+
+
+def greedy_ids_against_direct(server, prompts: list) -> tuple[int, list]:
+    """Greedy ids from ``submit`` / ``wait`` (all submitted at once); after
+    the worker stopped, a direct ``engine.generate`` of the same prompt ids
+    on the server's engine.  -> (how many are equal, the ids)."""
+    ids = [server.tokenizer.encode(p) for p in prompts]
+    rids = [server.submit(x, temperature=0.0) for x in ids]
+    got = [server.wait(r)[0] for r in rids]
+    server.shutdown(timeout=60)
+    direct = server.engine.generate(
+        server.params, ids, GenerationConfig(
+            max_new_tokens=HTTP_NEW, greedy=True,
+            eos_token_id=server.tokenizer.eos_token_id))
+    return sum(a == b for a, b in zip(got, direct)), got
+
+
+def http_serving(dev, smi, ckpt: str) -> dict:
+    """Phase 30: phase 24's Gemma-3-1B checkpoint served over HTTP, dense
+    then paged with the system text as its cached prefix; bf16 timed,
+    fp32 held to the engine."""
+    t_phase = time.perf_counter()
+    system, prompts = http_texts(SEED + 300)
+    rows = {}
+    for mode in ('dense', 'paged'):
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        server, httpd, thread, base = start_http(ckpt, mode, system,
+                                                 'bfloat16')
+        try:
+            lens = [len(server.tokenizer.encode(p)) for p in prompts]
+            replies, seconds = client_mix(base, prompts)
+            generated = server.generated
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            statuses = [r['status'] for rs in replies for r in rs]
+            ttft = [rs[2]['ttft'] for rs in replies
+                    if rs[2]['kind'].startswith('stream')]
+            done = all(rs[2]['done'] for rs in replies
+                       if rs[2]['kind'].startswith('stream'))
+            reasons = Counter(
+                (rs[2]['events'][-1] if 'events' in rs[2] else rs[2]['body'])
+                ['choices'][0]['finish_reason'] for rs in replies
+                if rs[2]['status'] == 200)
+            if mode == 'paged':
+                cached = server.engine._prefix['len']
+            same, ids = greedy_ids_against_direct(server, prompts)
+        finally:
+            stop_http(server, httpd, thread)
+        log(f'phase30 {mode} bf16: {HTTP_CLIENTS} clients ({len(statuses)} '
+            f'requests: /health, /v1/models and a completion, chat or '
+            f'stream each), prompts {min(lens)}-{max(lens)} tokens (window '
+            f'{server.model_cfg.sliding_window}), {generated} tokens '
+            f'generated in {seconds:.3f} s = {generated / seconds:.1f} '
+            f'tokens/s; time to first token (SSE) {quantiles(ttft)}; peak '
+            f'memory {peak:.3f} GB; statuses '
+            f'{sorted(Counter(statuses).items())}'
+            + (f'; prefix {cached} tokens cached' if mode == 'paged' else '')
+            + f'; finish reasons {sorted(reasons.items())}; greedy ids equal '
+            f'to a direct engine.generate: {same}/{len(ids)} (tokens a '
+            f'request {min(map(len, ids))}-{max(map(len, ids))}); card {smi}')
+        if set(statuses) != {200} or not done or None in ttft:
+            raise AssertionError(f'phase30 {mode}: a request failed')
+        if min(lens) <= server.model_cfg.sliding_window:
+            raise AssertionError('phase30: a prompt within the window')
+        rows[mode] = {'tokens_per_s': generated / seconds, 'ttft': ttft,
+                      'peak_gb': peak, 'same': same}
+        # the stdlib server's handler holds the server: drop both
+        del server, httpd, thread
+
+        # fp32: the server's greedy ids are the engine's, and a stream
+        # joins into the non-streamed text
+        free_memory()
+        server, httpd, thread, base = start_http(ckpt, mode, system,
+                                                 'float32')
+        try:
+            body = {'prompt': prompts[0], 'max_tokens': HTTP_NEW,
+                    'temperature': 0.0}
+            stream = http_call(base, '/v1/completions',
+                               dict(body, stream=True))
+            whole = http_call(base, '/v1/completions', body)
+            text = whole['body']['choices'][0]['text']
+            joined = (stream['status'] == whole['status'] == 200
+                      and stream['done'] and bool(text)
+                      and streamed_text(stream['events']) == text)
+            same32, ids = greedy_ids_against_direct(server, prompts)
+        finally:
+            stop_http(server, httpd, thread)
+        log(f'phase30 {mode} fp32: streamed deltas join into the '
+            f'non-streamed text: {joined} ({len(text)} characters); greedy '
+            f'ids equal to a direct engine.generate: '
+            f'{same32}/{len(ids)}')
+        if not (joined and same32 == len(ids)):
+            raise AssertionError(f'phase30 {mode}: the server disagrees with '
+                                 'the engine in fp32')
+        # the stdlib server's handler holds the server: drop both
+        del server, httpd, thread
+    free_memory()
+    log(f'phase30 done in {time.perf_counter() - t_phase:.1f} s')
+    return rows
+
+
 def remat_sweep(dev, smi) -> dict:
     """Phase 26: the ten remat policies at phase 7's shape: 1 warm-up and 2
     timed steps each, from the same weights and batch."""
@@ -4618,6 +5242,9 @@ def profile_gemma3(dev, smi, tmp: str) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] in (['--help'], ['-h']):
+        print(__doc__)
+        return 0
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on the GPU',
               file=sys.stderr)
@@ -4723,8 +5350,11 @@ def main() -> int:
     if not (torch.isfinite(kern).all() and err <= 2e-2 * scale and same):
         raise AssertionError('decode step disagrees with the plain int4 path')
 
+    paged = paged_serving(params, cfg, requests, dev, smi)
     del params, engine, served
-    torch.cuda.empty_cache()
+    free_memory()
+    int4_8b = bench_int4_8b(dev, smi)
+    free_memory()
 
     for line in ptxas_lines(libs['flash_attention'].build_log):
         log(f'phase5 flash_attention ptxas: {line}')
@@ -4775,6 +5405,7 @@ def main() -> int:
         lora = lora_small(dev, smi, tmp, cost)
         gemma = gemma3_dpo(dev, smi, tmp)
         gemma_gen = gemma3_generation(dev, smi, gemma['ckpt'])
+        http_serving(dev, smi, gemma['ckpt'])
         shutil.rmtree(gemma['ckpt'], ignore_errors=True)
         remat = remat_sweep(dev, smi)
         saves = async_save(dev, smi, tmp)
@@ -4832,12 +5463,18 @@ def main() -> int:
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
         'replaces': 'align_anything_tpu/ops/int4_matmul.py:124',
         'also_replaces': 'align_anything_tpu/ops/int4_matmul.py:153',
-        'launches': launches, 'max_abs_err': kstats['max_abs_err'],
+        'launches': launches + paged['launches'] + int4_8b['launches'],
+        'max_abs_err': kstats['max_abs_err'],
         'ms': kstats['ms'], 'plain_ms': kstats['plain_ms'],
         'bound_ms': kstats['bound_ms'], 'bound_by': kstats['bound_by'],
         'library_ms': kstats['library_ms'],
         'ms_is': 'one decode step at 32 slots: 4x32 layer matmuls + head; '
-                 'library_ms: torch._weight_int4pack_mm'}, *({
+                 'library_ms: torch._weight_int4pack_mm',
+        'launches_are': 'phase 4 (48 requests served, dense) + phase 28 '
+                        '(the same requests paged, on half the pool, and '
+                        'with a shared prefix dense and paged) + phase 29 '
+                        '(bench_int4_7b run, int4 dense and paged at 128 '
+                        'slots, o flattened; int8 runs no K2)'}, *({
         'name': f'int4_matmul_{tag}', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
         'replaces': f'scripts/bench/bench_int4_kernel_ab.py:{line}',

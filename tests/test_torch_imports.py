@@ -23,8 +23,8 @@ for name in names:
 # the A/B bench, the port of scripts/bench/bench_int4_kernel_ab.py, the
 # trainer harness, the reward-model and PPO trainers, KTO, GRPO,
 # Safe-RLHF and the two PPO variants with the remote reward model, the
-# LLaVA image-text path, the image-text RL and preference trainers and
-# LoRA
+# LLaVA image-text path, the image-text RL and preference trainers, LoRA,
+# the HTTP server and the 8B int4 / int8 serving bench
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
@@ -51,7 +51,8 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'trainers.text_image_to_text.saferlhf',
              'trainers.text_image_to_text.kto',
              'trainers.text_image_to_text.orpo',
-             'trainers.text_image_to_text.simpo', 'models.lora'):
+             'trainers.text_image_to_text.simpo', 'models.lora', 'serve',
+             'serve.api_server', 'scripts.bench.bench_int4_7b'):
     assert 'align_anything_tpu_torch.' + name in names, name
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
@@ -68,7 +69,7 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slices was imported
-    assert int(n) >= 79
+    assert int(n) >= 82
 
 
 @pytest.mark.parametrize('module', [
@@ -83,6 +84,8 @@ def test_port_imports_no_jax():
     'align_anything_tpu_torch.trainers.text_image_to_text.dpo',
     'align_anything_tpu_torch.trainers.text_image_to_text.ppo',
     'align_anything_tpu_torch.trainers.text_image_to_text.saferlhf',
+    'align_anything_tpu_torch.serve.api_server',
+    'align_anything_tpu_torch.scripts.bench.bench_int4_7b',
 ])
 def test_kernel_module_imports_first(module):
     """A module that holds a kernel, or a trainer's entry point, imports on
