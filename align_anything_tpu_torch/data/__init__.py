@@ -1,9 +1,10 @@
 """The data layer: the port of ``align_anything_tpu/data`` (templates,
 chat formatting, tokenizers, datasets, collators, the iterator), with the
-image-text templates (``multimodal_formatters.py``) and datasets
-(``image.py``: the supervised, preference and prompt-only sets).  The
-audio and video templates and the other multimodal processors are not
-ported yet (ROADMAP §1 item 12)."""
+image-text and video templates (``multimodal_formatters.py``), the image
+datasets (``image.py``: the supervised, preference and prompt-only sets,
+AnyRes tiling) and the video ones (``video.py``).  The audio templates and
+the other multimodal processors are not ported yet (ROADMAP §1 item
+12)."""
 
 from align_anything_tpu_torch.data import formatters  # noqa: F401  (registers templates)
 from align_anything_tpu_torch.data import multimodal_formatters  # noqa: F401
@@ -22,6 +23,7 @@ from align_anything_tpu_torch.data.datasets import (
     load_raw_dataset,
 )
 from align_anything_tpu_torch.data.image import (
+    AnyResProcessor,
     ImageProcessor,
     ImageProcessorConfig,
     TI2TPreferenceDataset,
@@ -34,6 +36,12 @@ from align_anything_tpu_torch.data.template_registry import (
     register_template,
 )
 from align_anything_tpu_torch.data.tokenizer import HashTokenizer, load_tokenizer
+from align_anything_tpu_torch.data.video import (
+    TV2TPreferenceDataset,
+    TV2TPromptOnlyDataset,
+    TV2TSupervisedDataset,
+    sample_frames,
+)
 
 __all__ = [
     'ChatTemplate',
@@ -49,6 +57,7 @@ __all__ = [
     'SupervisedDataset',
     'UnmatchedSupervisedDataset',
     'load_raw_dataset',
+    'AnyResProcessor',
     'ImageProcessor',
     'ImageProcessorConfig',
     'TI2TPreferenceDataset',
@@ -59,4 +68,8 @@ __all__ = [
     'register_template',
     'HashTokenizer',
     'load_tokenizer',
+    'TV2TPreferenceDataset',
+    'TV2TPromptOnlyDataset',
+    'TV2TSupervisedDataset',
+    'sample_frames',
 ]

@@ -11,15 +11,21 @@ is fixed per (text bucket, number of images).
 the prompt with its image expanded, and the image's pixels in ``meta``;
 the text ``PromptOnlyCollator`` left-pads the rows.
 
+``AnyResProcessor`` is LLaVA-Next's tiling: an image becomes its base crop
+and the tiles of the best pinpoint resolution, padded to a fixed crop
+count, with ``select_idx``, the gather that packs their features in HF's
+order, and ``num_tokens``, the image's <image> expansion.
+
 Not ported yet, with the models and trainers that use them (ROADMAP §1 item
-12): ``AnyResProcessor``, ``MiniCPMVSliceProcessor``,
-``Idefics2NaViTProcessor`` and ``MllamaTileProcessor``.
+12): ``MiniCPMVSliceProcessor``, ``Idefics2NaViTProcessor`` and
+``MllamaTileProcessor``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import math
 from typing import Any, Sequence
 
 import numpy as np
@@ -106,6 +112,119 @@ class ImageProcessor:
             top, left = (h - size) // 2, (w - size) // 2
             arr = arr[top:top + size, left:left + size]
         return arr
+
+
+def select_best_resolution(original_size: tuple[int, int],
+                           possible: Sequence[tuple[int, int]]
+                           ) -> tuple[int, int]:
+    """HF select_best_resolution (image_processing_utils.py:262): the
+    (h, w) of ``possible`` with the largest effective resolution, ties
+    broken by the least waste."""
+    oh, ow = original_size
+    best, best_eff, best_waste = None, 0, float('inf')
+    for h, w in possible:
+        scale = min(w / ow, h / oh)
+        eff = min(int(ow * scale) * int(oh * scale), ow * oh)
+        waste = h * w - eff
+        if eff > best_eff or (eff == best_eff and waste < best_waste):
+            best, best_eff, best_waste = (h, w), eff, waste
+    return best
+
+
+class AnyResProcessor:
+    """LLaVA-Next AnyRes tiling and packing geometry, on the host.
+
+    An image -> ``{'pixel_values': (1 + max_tiles, 3, S, S) float32,
+    'select_idx': (max_tokens,) int32, 'num_tokens': int}``: the base crop
+    (the whole image resized to S x S) and the tiles of the image resized
+    into the best pinpoint resolution and centered on it, zero crops after
+    them; ``select_idx`` is HF's pack_image_features (the base crop's
+    patches, then the tiles' grid in row-major order with the padding rows
+    or columns cut away and ``image_newline`` after each row) as indices
+    into the flattened crop features, ``num_crops * P`` selecting the
+    newline, zeros after ``num_tokens``.  Every image gives the same
+    shapes; ``num_tokens`` is how many <image> tokens its text holds."""
+
+    dynamic = True
+
+    def __init__(self, vcfg, grid_pinpoints: Sequence[tuple[int, int]]):
+        self.size = vcfg.image_size                     # crop side (336)
+        self.ph = vcfg.image_size // vcfg.patch_size    # feature side (24)
+        self.pinpoints = [tuple(p) for p in grid_pinpoints]
+        self.max_tiles = max((h // self.size) * (w // self.size)
+                             for h, w in self.pinpoints)
+        self.num_crops = 1 + self.max_tiles
+        ph = self.ph
+        self.max_tokens = ph * ph + max(
+            (h // self.size) * ph * ((w // self.size) * ph + 1)
+            for h, w in self.pinpoints)
+        self.mean = np.asarray(CLIP_MEAN, np.float32)
+        self.std = np.asarray(CLIP_STD, np.float32)
+
+    @property
+    def num_patches(self) -> int:
+        """The most <image> tokens an image can take (bucket sizing)."""
+        return self.max_tokens
+
+    def _normalize(self, arr: np.ndarray) -> np.ndarray:
+        x = arr.astype(np.float32) / 255.0
+        return ((x - self.mean) / self.std).transpose(2, 0, 1)
+
+    def __call__(self, image: Any) -> dict[str, Any]:
+        from PIL import Image as PILImage  # noqa: PLC0415
+
+        s, ph = self.size, self.ph
+        arr = ImageProcessor._to_array(image)
+        h, w = arr.shape[:2]
+        bh, bw = select_best_resolution((h, w), self.pinpoints)
+        # resize for patching (HF get_patch_output_size: ceil, clipped)
+        scale_w, scale_h = bw / w, bh / h
+        if scale_w < scale_h:
+            nw, nh = bw, min(math.ceil(h * scale_w), bh)
+        else:
+            nh, nw = bh, min(math.ceil(w * scale_h), bw)
+        resized = np.asarray(PILImage.fromarray(arr).resize(
+            (nw, nh), PILImage.BICUBIC))
+        # centered pad (divmod: the larger half goes after)
+        py = (bh - nh) // 2
+        px = (bw - nw) // 2
+        canvas = np.zeros((bh, bw, 3), arr.dtype)
+        canvas[py:py + nh, px:px + nw] = resized
+        gh, gw = bh // s, bw // s
+        tiles = canvas.reshape(gh, s, gw, s, 3).transpose(0, 2, 1, 3, 4)
+        tiles = tiles.reshape(gh * gw, s, s, 3)
+        base = np.asarray(PILImage.fromarray(arr).resize(
+            (s, s), PILImage.BICUBIC))
+        crops = np.zeros((self.num_crops, 3, s, s), np.float32)
+        crops[0] = self._normalize(base)
+        for i in range(gh * gw):
+            crops[1 + i] = self._normalize(tiles[i])
+
+        # packing geometry: the feature grid (R, C) with its padding rows
+        # or columns cut away, centered (modeling_llava_next.py
+        # unpad_image), row-major with a newline after each row
+        r_all, c_all = gh * ph, gw * ph
+        if w / h > c_all / r_all:
+            new_r = int(round(h * (c_all / w), 7))
+            pad = (r_all - new_r) // 2
+            rows, cols = range(pad, r_all - pad), range(c_all)
+        else:
+            new_c = int(round(w * (r_all / h), 7))
+            pad = (c_all - new_c) // 2
+            rows, cols = range(r_all), range(pad, c_all - pad)
+        p_per = ph * ph
+        select = list(range(p_per))                     # the base crop
+        newline_idx = self.num_crops * p_per
+        for r in rows:
+            for c in cols:
+                tile = 1 + (r // ph) * gw + (c // ph)
+                select.append(tile * p_per + (r % ph) * ph + (c % ph))
+            select.append(newline_idx)
+        num_tokens = len(select)
+        out_sel = np.zeros((self.max_tokens,), np.int32)
+        out_sel[:num_tokens] = select
+        return {'pixel_values': crops, 'select_idx': out_sel,
+                'num_tokens': num_tokens}
 
 
 def expand_image_tokens(text: str, tokenizer, image_token_id: int,

@@ -1,12 +1,12 @@
-"""Multimodal dataset formatters: the port of the image-text templates of
-``align_anything_tpu/data/multimodal_formatters.py`` (AA_TI2T,
-LLaVA_Instruct, RLAIFV, SPA_VL, SafeRLHF_V), unchanged.
+"""Multimodal dataset formatters: the port of the image-text and video
+templates of ``align_anything_tpu/data/multimodal_formatters.py``
+(AA_TI2T, LLaVA_Instruct, RLAIFV, SPA_VL, SafeRLHF_V, AA_TV2T), unchanged.
 
 Rebuilds the reference's multimodal registrations
-(configs/format_dataset.py).  Conversations carry an ``<image>``
-placeholder in the text; the raw image rides in the mm-info dict for the
-collator.  The audio and video templates wait for their models (ROADMAP
-§1 item 12).
+(configs/format_dataset.py).  Conversations carry an ``<image>`` or
+``<video>`` placeholder in the text; the raw media rides in the mm-info
+dict for the collator.  The audio templates and the text-to-video
+diffusion ones wait for their models (ROADMAP §1 items 12 and 15).
 """
 
 from __future__ import annotations
@@ -93,3 +93,25 @@ class SafeRLHFV(BaseFormatter):
         return (_chat(prompt, raw_sample[f'response_{better_id}']),
                 _chat(prompt, raw_sample[f'response_{1 - better_id}']),
                 {'image': raw_sample['image']})
+
+
+@register_template('AA_TV2T')
+class AA_TV2T(BaseFormatter):
+    """align-anything text-video-to-text (format_dataset.py AA_TV2T)."""
+
+    def format_supervised_sample(self, raw_sample: dict):
+        prompt = f"<video>\n{raw_sample['question']}"
+        return _chat(prompt, raw_sample['response']), {'video': raw_sample['video']}
+
+    def format_prompt_only_sample(self, raw_sample: dict):
+        return (_chat(f"<video>\n{raw_sample['question']}"),
+                {'video': raw_sample['video']})
+
+    def format_preference_sample(self, raw_sample: dict):
+        overall = int(raw_sample['overall_response'])
+        better = raw_sample[f'response_{overall}']
+        worse = raw_sample[f'response_{3 - overall}' if overall in (1, 2)
+                           else 'response_1']
+        prompt = f"<video>\n{raw_sample['question']}"
+        return (_chat(prompt, better), _chat(prompt, worse),
+                {'video': raw_sample['video']})

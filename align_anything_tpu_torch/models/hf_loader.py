@@ -16,11 +16,14 @@ package.  Tensors are moved to the requested device one at a time and
 laid out there.
 
 ``load_multimodal_params`` / ``save_multimodal_params`` do the same for a
-LLaVA-1.5 checkpoint (``LlavaForConditionalGeneration``: a Llama-layout
-language model, a CLIP vision tower and the projector).  Not ported yet
-(ROADMAP §1 item 12): LLaVA-Next and LLaVA-Next-Video checkpoints, and the
-other multimodal families (Qwen2-VL, audio, MLlama, MiniCPM, Emu3's fused
-codec layout).
+LLaVA-class checkpoint: LLaVA-1.5 (``LlavaForConditionalGeneration``: a
+Llama-layout language model, a CLIP vision tower and the projector),
+LLaVA-Next (``LlavaNextForConditionalGeneration``: AnyRes pinpoints and
+``image_newline``) and LLaVA-NeXT-Video
+(``LlavaNextVideoForConditionalGeneration``: the video token and the
+average-pool stride too).  Not ported yet (ROADMAP §1 item 12): the other
+multimodal families (Qwen2-VL, audio, MLlama, MiniCPM, Emu3's fused codec
+layout).
 """
 
 from __future__ import annotations
@@ -287,14 +290,21 @@ def _load_llama_like(t: _OnDevice, c: ModelConfig) -> dict:
     return params
 
 
+LLAVA_MODEL_TYPES = ('llava', 'llava_next', 'llava_next_video')
+
+
 def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
                            device: torch.device | str | None = None):
-    """Load an HF LLaVA-layout checkpoint into (params, MultimodalConfig),
-    every leaf on ``device`` (default: the first CUDA device) in ``dtype``.
+    """Load an HF LLaVA-layout checkpoint (``model_type`` one of
+    ``LLAVA_MODEL_TYPES``) into (params, MultimodalConfig), every leaf on
+    ``device`` (default: the first CUDA device) in ``dtype``.
 
     Handles both the ``model.language_model.*`` (transformers >= 4.52) and
     the ``language_model.model.*`` (older) prefixes; the vision tower is
-    CLIP-style."""
+    CLIP-style.  With ``image_grid_pinpoints`` (LLaVA-Next) the tree holds
+    ``image_newline``; a ``llava_next_video`` config brings its
+    ``video_token_index`` and ``spatial_pool_stride`` (average pooling
+    only)."""
     from align_anything_tpu_torch.models.multimodal import (  # noqa: PLC0415
         MultimodalConfig,
     )
@@ -303,10 +313,19 @@ def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
     device = default_device(device)
     with open(os.path.join(path, 'config.json')) as f:
         hf = json.load(f)
-    if hf.get('model_type') in ('llava_next', 'llava_next_video'):
+    model_type = hf.get('model_type')
+    if model_type not in LLAVA_MODEL_TYPES:
         raise NotImplementedError(
-            f"{hf['model_type']} checkpoints are not ported yet (ROADMAP §1 "
-            'item 12: LLaVA-Next AnyRes and video)')
+            f'{model_type!r} checkpoints are not ported yet (ROADMAP §1 item '
+            f'12); the port loads the LLaVA family {LLAVA_MODEL_TYPES}')
+    pinpoints = (tuple(tuple(p) for p in hf['image_grid_pinpoints'])
+                 if hf.get('image_grid_pinpoints') else None)
+    pool_stride = None
+    if model_type == 'llava_next_video':
+        if hf.get('spatial_pool_mode', 'average') != 'average':
+            raise ValueError('only average spatial pooling is supported '
+                             f"(got {hf.get('spatial_pool_mode')!r})")
+        pool_stride = int(hf.get('spatial_pool_stride', 2))
     tc, vc = hf['text_config'], hf['vision_config']
     text_cfg = ModelConfig(
         vocab_size=tc['vocab_size'], hidden_size=tc['hidden_size'],
@@ -408,9 +427,15 @@ def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
         i += 1
     cfg = MultimodalConfig(text=text_cfg, vision=vision_cfg,
                            image_token_id=hf.get('image_token_index', 32000),
-                           projector_layers=max(i, 1))
-    return ({'language_model': lm_params, 'vision_tower': tower,
-             'projector': proj}, cfg)
+                           projector_layers=max(i, 1),
+                           image_grid_pinpoints=pinpoints,
+                           video_token_id=hf.get('video_token_index'),
+                           spatial_pool_stride=pool_stride)
+    params = {'language_model': lm_params, 'vision_tower': tower,
+              'projector': proj}
+    if pinpoints is not None:
+        params['image_newline'] = pt['image_newline']
+    return params, cfg
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +471,9 @@ def save_multimodal_params(path: str, params: dict, cfg,
     """Write a LLaVA-layout multimodal checkpoint in HF format, every tensor
     in ``dtype``: the inverse of ``load_multimodal_params``, with the tensor
     names of transformers' ``LlavaForConditionalGeneration`` (the older
-    ``language_model.model.*`` prefix, as the JAX module writes)."""
+    ``language_model.model.*`` prefix, as the JAX module writes), or of
+    ``LlavaNextForConditionalGeneration`` (pinpoints: ``image_newline``
+    too) or ``LlavaNextVideoForConditionalGeneration`` (a pool stride)."""
     from align_anything_tpu_torch.models.multimodal import check_supported  # noqa: PLC0415
 
     check_supported(cfg)
@@ -502,15 +529,26 @@ def save_multimodal_params(path: str, params: dict, cfg,
         lin = params['projector'][f'linear_{i}']
         out[f'multi_modal_projector.linear_{i + 1}.weight'] = lin['w'].T
         out[f'multi_modal_projector.linear_{i + 1}.bias'] = lin['b']
+    anyres = cfg.image_grid_pinpoints is not None
+    if anyres:
+        out['image_newline'] = params['image_newline']
     write_safetensors(os.path.join(path, 'model.safetensors'), out,
                       metadata={'format': 'pt'}, dtype=dtype)
 
     torch_dtype = str(dtype).removeprefix('torch.')
     text_hf = _to_hf_config(tc)
     text_hf['torch_dtype'] = torch_dtype
+    video = cfg.spatial_pool_stride is not None
+    if video:
+        arch, model_type = ('LlavaNextVideoForConditionalGeneration',
+                            'llava_next_video')
+    elif anyres:
+        arch, model_type = 'LlavaNextForConditionalGeneration', 'llava_next'
+    else:
+        arch, model_type = 'LlavaForConditionalGeneration', 'llava'
     hf_cfg = {
-        'architectures': ['LlavaForConditionalGeneration'],
-        'model_type': 'llava',
+        'architectures': [arch],
+        'model_type': model_type,
         'image_token_index': cfg.image_token_id,
         'vision_feature_layer': vc.feature_layer,
         'vision_feature_select_strategy':
@@ -528,6 +566,13 @@ def save_multimodal_params(path: str, params: dict, cfg,
             'hidden_act': vc.activation,
         },
     }
+    if anyres:
+        hf_cfg['image_grid_pinpoints'] = [
+            list(p) for p in cfg.image_grid_pinpoints]
+    if video:
+        hf_cfg['video_token_index'] = cfg.video_token_id
+        hf_cfg['spatial_pool_mode'] = 'average'
+        hf_cfg['spatial_pool_stride'] = cfg.spatial_pool_stride
     with open(os.path.join(path, 'config.json'), 'w') as f:
         json.dump(hf_cfg, f, indent=2)
 

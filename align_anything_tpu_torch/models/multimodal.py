@@ -8,10 +8,14 @@ loss and trainer works unchanged on multimodal batches.  The param tree
 keeps the JAX package's keys: ``language_model``, ``vision_tower``,
 ``projector``.
 
-Not ported yet (ROADMAP §1 item 12, LLaVA-Next and video): the AnyRes
-branch (``image_grid_pinpoints``, ``select_idx``, ``image_newline``) and
-both video branches (5-D ``pixel_values``).  Their config fields are kept;
-the calls that would need them raise ``NotImplementedError``.
+LLaVA-Next AnyRes (``image_grid_pinpoints``): the ``[base + tiles]``
+crops of each image are encoded, the ``image_newline`` row is appended,
+and the host-computed ``select_idx`` (``data/image.py``
+``AnyResProcessor``) gathers HF's packed feature order before the merge.
+LLaVA-NeXT-Video (``spatial_pool_stride``): 5-D ``pixel_values`` (B, T,
+C, H, W) go through the tower as B x T images, are average-pooled stride x
+stride over the feature grid, projected and merged over ``video_token_id``; without a
+stride every frame's full patch grid merges over ``image_token_id``.
 """
 
 from __future__ import annotations
@@ -30,9 +34,6 @@ from align_anything_tpu_torch.models.vision import ViTConfig
 from align_anything_tpu_torch.ops.logprobs import hidden_to_token_logprobs
 from align_anything_tpu_torch.utils.tools import default_device
 
-_LATER = ('is not ported yet (ROADMAP §1 item 12: LLaVA-Next AnyRes and '
-          'video)')
-
 
 @dataclasses.dataclass(frozen=True)
 class MultimodalConfig:
@@ -40,9 +41,15 @@ class MultimodalConfig:
     vision: ViTConfig
     image_token_id: int = 32000
     projector_layers: int = 2           # LLaVA-1.5 uses a 2-layer GELU MLP
-    # LLaVA-Next AnyRes candidate resolutions ((h, w), ...): not ported
+    # LLaVA-Next AnyRes: ((h, w), ...) candidate resolutions.  When set,
+    # pixel_values carry [base + tiles] crops and the host-computed
+    # ``select_idx`` gathers the packed (unpadded + newline) feature
+    # sequence: HF pack_image_features (modeling_llava_next.py:282-348)
+    # with shapes that do not depend on the image
     image_grid_pinpoints: tuple | None = None
-    # LLaVA-Next-Video pooled frames over the <video> token: not ported
+    # LLaVA-Next-Video: frames are average-pooled stride x stride in
+    # feature space before projection (HF LlavaNextVideoPooler) and merged
+    # over the <video> token
     video_token_id: int | None = None
     spatial_pool_stride: int | None = None
 
@@ -92,11 +99,8 @@ class MultimodalConfig:
 
 
 def check_supported(cfg: MultimodalConfig) -> None:
-    """Raise for the config options the port does not run yet."""
-    if cfg.image_grid_pinpoints is not None:
-        raise NotImplementedError(f'image_grid_pinpoints {_LATER}')
-    if cfg.spatial_pool_stride is not None:
-        raise NotImplementedError(f'spatial_pool_stride {_LATER}')
+    """Raise for the config options the port does not run yet (those of
+    the text decoder)."""
     transformer.check_supported(cfg.text)
 
 
@@ -117,14 +121,16 @@ def init_params(cfg: MultimodalConfig, generator: torch.Generator,
                              device=device) / math.sqrt(dims[i]),
             'b': torch.zeros((dims[i + 1],), device=device),
         }
-    return {'language_model': lm, 'vision_tower': tower, 'projector': proj}
+    out = {'language_model': lm, 'vision_tower': tower, 'projector': proj}
+    if cfg.image_grid_pinpoints is not None:
+        out['image_newline'] = torch.randn(
+            (d_text,), generator=generator, device=device) / math.sqrt(d_text)
+    return out
 
 
-def project_image_features(params: dict, cfg: MultimodalConfig,
-                           pixel_values: torch.Tensor) -> torch.Tensor:
-    """(B_img, C, H, W) -> (B_img, N_patches, E_text)."""
-    x = vision.forward(params['vision_tower'], cfg.vision, pixel_values,
-                       compute_dtype=cfg.text.compute_dtype)
+def _project(params: dict, cfg: MultimodalConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    """The projector MLP: tower features (B, N, D_vis) -> (B, N, E_text)."""
     for i in range(cfg.projector_layers):
         lp = params['projector'][f'linear_{i}']
         x = torch.einsum('bnd,de->bne', x, lp['w'].to(x.dtype))
@@ -132,6 +138,53 @@ def project_image_features(params: dict, cfg: MultimodalConfig,
         if i + 1 < cfg.projector_layers:
             x = F.gelu(x)
     return x
+
+
+def project_image_features(params: dict, cfg: MultimodalConfig,
+                           pixel_values: torch.Tensor) -> torch.Tensor:
+    """(B_img, C, H, W) -> (B_img, N_patches, E_text)."""
+    return _project(params, cfg, vision.forward(
+        params['vision_tower'], cfg.vision, pixel_values,
+        compute_dtype=cfg.text.compute_dtype))
+
+
+def project_video_features(params: dict, cfg: MultimodalConfig,
+                           pixel_values: torch.Tensor) -> torch.Tensor:
+    """(B, T_frames, C, H, W) -> (B, T * pooled_patches, E_text): the
+    tower's features of every frame, average-pooled stride x stride
+    over the feature grid (HF LlavaNextVideoPooler 'average'; a grid side
+    that is not a multiple of the stride drops its last rows and columns),
+    then projected."""
+    b, t = pixel_values.shape[:2]
+    feats = vision.forward(params['vision_tower'], cfg.vision,
+                           pixel_values.flatten(0, 1),
+                           compute_dtype=cfg.text.compute_dtype)
+    s = cfg.spatial_pool_stride
+    bt, p, d = feats.shape
+    ph = math.isqrt(p)
+    side = (ph // s) * s
+    feats = feats.reshape(bt, ph, ph, d)[:, :side, :side]
+    feats = feats.reshape(bt, side // s, s, side // s, s, d).mean((2, 4))
+    x = _project(params, cfg, feats.reshape(bt, (side // s) ** 2, d))
+    return x.reshape(b, t * x.shape[1], x.shape[2])
+
+
+def anyres_image_embeds(params: dict, cfg: MultimodalConfig,
+                        pixel_values: torch.Tensor,
+                        select_idx: torch.Tensor) -> torch.Tensor:
+    """LLaVA-Next AnyRes: ``pixel_values`` (B, T, C, H, W) the ``[base +
+    tiles]`` crops of each row's image, ``select_idx`` (B, N) the packed
+    order (grid flatten, centered unpad, a newline after each feature
+    row); index ``T * P`` selects ``image_newline``, appended as the last
+    feature row -> (B, N, E_text)."""
+    b, t = pixel_values.shape[:2]
+    feats = project_image_features(params, cfg, pixel_values.flatten(0, 1))
+    p, e = feats.shape[1], feats.shape[2]
+    feats = feats.reshape(b, t * p, e)
+    newline = params['image_newline'].to(feats.dtype).expand(b, 1, e)
+    feats = torch.cat([feats, newline], dim=1)
+    return torch.gather(
+        feats, 1, select_idx.long()[:, :, None].expand(-1, -1, e))
 
 
 def merge_image_embeds(text_embeds: torch.Tensor, image_embeds: torch.Tensor,
@@ -163,19 +216,35 @@ def forward(params: dict, cfg: MultimodalConfig, input_ids: torch.Tensor,
             need_logits: bool = True,
             select_idx: torch.Tensor | None = None) -> ModelOutput:
     """The decoder over the text embeddings with the projected image
-    features merged in (``pixel_values`` (B, C, H, W), one image a row);
-    text-only without ``pixel_values``."""
+    features merged in; text-only without ``pixel_values``.
+
+    ``pixel_values``: (B, C, H, W), one image a row; with ``select_idx``
+    (B, N), the AnyRes crops (B, T, C, H, W); otherwise 5-D is a video
+    (B, T_frames, C, H, W): pooled over ``video_token_id`` when the config
+    has a ``spatial_pool_stride``, else every frame's patches over
+    ``image_token_id`` (the dataset expands <video> to T_frames x
+    num_patches image tokens)."""
     lm = params['language_model']
     dtype = transformer.torch_dtype(cfg.text.compute_dtype)
     embeds = lm['embedding'][input_ids].to(dtype)
     if pixel_values is not None:
+        merge_token = cfg.image_token_id
         if select_idx is not None:
-            raise NotImplementedError(f'select_idx (AnyRes) {_LATER}')
-        if pixel_values.ndim == 5:
-            raise NotImplementedError(f'5-D pixel_values (video) {_LATER}')
-        image_embeds = project_image_features(params, cfg, pixel_values)
+            image_embeds = anyres_image_embeds(params, cfg, pixel_values,
+                                               select_idx)
+        elif pixel_values.ndim == 5 and cfg.spatial_pool_stride is not None:
+            image_embeds = project_video_features(params, cfg, pixel_values)
+            merge_token = cfg.video_token_id or cfg.image_token_id
+        elif pixel_values.ndim == 5:
+            b, t = pixel_values.shape[:2]
+            feats = project_image_features(params, cfg,
+                                           pixel_values.flatten(0, 1))
+            image_embeds = feats.reshape(b, t * feats.shape[1],
+                                         feats.shape[2])
+        else:
+            image_embeds = project_image_features(params, cfg, pixel_values)
         embeds = merge_image_embeds(embeds, image_embeds, input_ids,
-                                    cfg.image_token_id)
+                                    merge_token)
     return transformer.forward(lm, cfg.text, input_ids,
                                attention_mask=attention_mask,
                                positions=positions, cache=cache,

@@ -91,18 +91,24 @@ class TI2TRLMixin:
             path, cfg.hidden_size, self.next_rng(), device=self.device)}
         return params, cfg
 
-    def init_datasets(self) -> None:
-        dc = self.cfgs.data_cfgs
-        template = self.make_chat_template(dc.train_template, self.tokenizer)
-        max_len = int(self.cfgs.model_cfgs.model_max_length or 2048)
-        dataset = TI2TPromptOnlyDataset(
-            dc.train_datasets, template, self.tokenizer,
+    def make_prompt_dataset(self, path: str, template, max_len: int, **kw):
+        """The prompt set: image prompts at the tower's fixed resolution
+        (JAX builds the plain processor, even for a LLaVA-Next actor)."""
+        return TI2TPromptOnlyDataset(
+            path, template, self.tokenizer,
             image_token_id=self.model_cfg.image_token_id,
             num_patches=self.model_cfg.vision.num_patches,
             image_processor=ImageProcessor(ImageProcessorConfig(
                 size=self.model_cfg.vision.image_size)),
-            max_length=max_len, split=dc.train_split, size=dc.train_size,
-            data_files=dc.train_data_files)
+            max_length=max_len, **kw)
+
+    def init_datasets(self) -> None:
+        dc = self.cfgs.data_cfgs
+        template = self.make_chat_template(dc.train_template, self.tokenizer)
+        max_len = int(self.cfgs.model_cfgs.model_max_length or 2048)
+        dataset = self.make_prompt_dataset(
+            dc.train_datasets, template, max_len, split=dc.train_split,
+            size=dc.train_size, data_files=dc.train_data_files)
         # one device: every global batch is the per-device batch
         prompt_bs = int(self.cfgs.train_cfgs.per_device_prompt_batch_size
                         or 1)
@@ -135,7 +141,8 @@ class TI2TRLMixin:
             pixel_values=batch.get('pixel_values'))
 
     def prompt_pixels(self, prompt_batch: dict) -> torch.Tensor:
-        """(B, C, H, W) fp32 pixels of a prompt batch, on the device."""
+        """(B, C, H, W) fp32 pixels of a prompt batch, on the device
+        ((B, T, C, H, W) for video prompts)."""
         pixels = np.stack([m.get('pixel_values')
                            for m in prompt_batch['meta']]).astype(np.float32)
         return self.put_batch({'pixel_values': pixels})['pixel_values']

@@ -14,7 +14,9 @@ label the loaded tree, as JAX's ``build_optimizer`` labels ``self.params``.
 The config takes the run's compute dtype and no remat, as in JAX.  ``save``
 is the text trainer's: the LLaVA-layout slice of the trunk and
 ``score_head.npy`` beside it, which the TI2T PPO, GRPO and Safe-RLHF-V
-trainers read.
+trainers read.  Its images go through the fixed-resolution processor
+whatever the checkpoint, as JAX's do (``rm.py:70``): a LLaVA-Next reward
+model sees one crop an image, with no AnyRes tiles.
 """
 
 from __future__ import annotations
@@ -23,7 +25,11 @@ import sys
 
 import torch
 
-from align_anything_tpu_torch.data.image import TI2TPreferenceDataset
+from align_anything_tpu_torch.data.image import (
+    ImageProcessor,
+    ImageProcessorConfig,
+    TI2TPreferenceDataset,
+)
 from align_anything_tpu_torch.models import multimodal, score_model
 from align_anything_tpu_torch.trainers.cli import trainer_main
 from align_anything_tpu_torch.trainers.text_image_to_text.sft import (
@@ -67,6 +73,10 @@ class TI2TRMTrainer(TI2TTrainerMixin, RMTrainer):
             None, self.model_cfg.hidden_size, self.next_rng(),
             device=self.device)}
         self.params = self.trainable(params)
+
+    def make_image_processor(self) -> ImageProcessor:
+        return ImageProcessor(ImageProcessorConfig(
+            size=self.model_cfg.vision.image_size))
 
     def end_scores(self, params: dict, batch: dict
                    ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,10 +12,12 @@ same cross-entropy as text SFT; the modality lives in the data and model
 layers.  The freeze flags of the config (``freeze_vision_tower`` by
 default) leave their modules out of the optimizer and out of the backward.
 
-Only LLaVA-1.5 checkpoints (``model_type`` 'llava') load; the JAX
-package's other vision-LM families (Qwen2-VL, Qwen2.5-VL, MLlama, MiniCPM-V,
-Idefics2, LLaVA-Next) and their image processors are not ported yet
-(ROADMAP §1 item 12).
+The LLaVA family loads: LLaVA-1.5 (``model_type`` 'llava'), LLaVA-Next
+('llava_next', whose images go through ``AnyResProcessor``: crops, the
+packing gather ``select_idx`` and a token count per image) and
+LLaVA-NeXT-Video ('llava_next_video').  The JAX package's other vision-LM
+families (Qwen2-VL, Qwen2.5-VL, MLlama, MiniCPM-V, Idefics2) and their
+image processors are not ported yet (ROADMAP §1 item 12).
 """
 
 from __future__ import annotations
@@ -27,13 +29,17 @@ import sys
 import torch
 
 from align_anything_tpu_torch.data.image import (
+    AnyResProcessor,
     ImageProcessor,
     ImageProcessorConfig,
     TI2TSupervisedDataset,
 )
 from align_anything_tpu_torch.losses import cross_entropy_loss
 from align_anything_tpu_torch.models import multimodal
-from align_anything_tpu_torch.models.hf_loader import load_multimodal_params
+from align_anything_tpu_torch.models.hf_loader import (
+    LLAVA_MODEL_TYPES,
+    load_multimodal_params,
+)
 from align_anything_tpu_torch.trainers.cli import trainer_main
 from align_anything_tpu_torch.trainers.text_to_text.sft import SupervisedTrainer
 
@@ -42,21 +48,23 @@ MM_BATCH_KEYS = ('image_grid_thw', 'aspect_ratio_ids', 'aspect_ratio_mask',
 
 
 def mm_kwargs(batch: dict) -> dict:
-    """Extra multimodal forward kwargs present in the batch (dynamic-
-    resolution grids, MLlama tile metadata)."""
+    """Extra multimodal forward kwargs present in the batch (AnyRes's
+    ``select_idx``; the dynamic-resolution grids and tile metadata of the
+    families not ported yet)."""
     return {k: batch[k] for k in MM_BATCH_KEYS if batch.get(k) is not None}
 
 
 def load_vision_lm(path: str, device: torch.device | str | None = None):
     """(params, cfg, model module) for a vision-LM checkpoint directory on
-    ``device`` (default: the first CUDA device).  LLaVA-1.5 only: another
-    ``model_type`` raises."""
+    ``device`` (default: the first CUDA device).  The LLaVA family only
+    (``LLAVA_MODEL_TYPES``): another ``model_type`` raises."""
     with open(os.path.join(path, 'config.json')) as f:
         model_type = json.load(f).get('model_type')
-    if model_type != 'llava':
+    if model_type not in LLAVA_MODEL_TYPES:
         raise NotImplementedError(
             f'vision-LM model_type {model_type!r} is not ported yet (ROADMAP '
-            '§1 item 12); the port loads LLaVA-1.5 (model_type llava)')
+            f'§1 item 12); the port loads the LLaVA family '
+            f'{LLAVA_MODEL_TYPES}')
     params, cfg = load_multimodal_params(path, device=device)
     return params, cfg, multimodal
 
@@ -96,7 +104,12 @@ class TI2TTrainerMixin:
         self.tokenizer = self.load_tokenizer_for(path, self.model_cfg)
         self.params = self.trainable(params)
 
-    def make_image_processor(self) -> ImageProcessor:
+    def make_image_processor(self) -> ImageProcessor | AnyResProcessor:
+        """AnyRes tiling for a LLaVA-Next config (pinpoints), else the
+        fixed-resolution CLIP processor."""
+        if self.model_cfg.image_grid_pinpoints is not None:
+            return AnyResProcessor(self.model_cfg.vision,
+                                   self.model_cfg.image_grid_pinpoints)
         return ImageProcessor(ImageProcessorConfig(
             size=self.model_cfg.vision.image_size))
 

@@ -44,7 +44,8 @@ Phases (any failure raises and the run exits non-zero):
      two main shapes, at phase 16's (Qwen2.5-0.5B's heads), at phase 18's
      tower (full attention at L 577), at ``ti2t_ppo`` and at Gemma-3-1B's
      DPO micro-batch (L 2048, 4 / 1 heads of 256) with the window 512 and
-     without;
+     without, and at phase 31's decoder (``llava_next``: L 4096 at
+     LLaVA's heads);
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -205,6 +206,31 @@ Phases (any failure raises and the run exits non-zero):
      streamed completion joins into the non-streamed text; bf16 timed:
      generated tokens/s, time to first token from the streams, peak
      memory, and how many greedy ids equal the engine's.
+ 31. (after phase 21) TI2T DPO through ``trainer_main(TI2TDPOTrainer,
+     ...)`` on LLaVA-Next AnyRes at llava-v1.6-vicuna-7b widths (phase
+     18's tensors hard-linked, text 4 layers, the 24-layer tower frozen,
+     ``image_newline`` and the pinpoints; the geometry held against
+     transformers' ``LlavaNextConfig()``): 8 AA_TI2T pairs over 672 x 672,
+     336 x 1008 and 1008 x 336 PNGs (five crops, up to 2928 image tokens a
+     row), 2 pairs a step in the 4096 bucket, 4 steps: step 1's loss ln 2,
+     each row's image tokens equal to its ``num_tokens``, the tower
+     bit-equal while the language model, projector and newline move,
+     launches exact, step 1's log-prob sums against a plain recompute;
+     step time, tokens/s and peak memory;
+ 32. TV2T SFT and DPO through their entry points on LLaVA-NeXT-Video at
+     LLaVA-NeXT-Video-7B widths (the same tensors hard-linked; video token
+     32000, image token 32001, stride 2, a pad that is neither; the
+     geometry held against ``LlavaNextVideoConfig()``), ``.npy`` videos:
+     SFT 8 frames a row (1152 pooled video tokens) in the 2048 bucket, DPO
+     as JAX's (ROADMAP R26: 4 frames x 576 image tokens, the frames merged
+     nowhere) in the 4096 bucket; each row's token counts, launches exact,
+     step 1 against a plain recompute, the modules that move;
+ 33. at phase 10's text widths (1 layer) under a 2-layer tower: AnyRes
+     TI2T SFT and its bf16 export read back (LLaVA-Next tensor names), the
+     TV2T reward model and its export (LLaVA-NeXT-Video) read back, TV2T
+     PPO from that export (5-D frames through ``generate``'s prefill) and
+     TV2T GRPO; every metric finite, launches exact, the RL trainers'
+     round-1 KL 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
@@ -340,6 +366,11 @@ FLASH_SHAPES = [
      torch.bfloat16, True),
     ('gemma3_1b', 4, 2048, 4, 1, 256, True, None, 2, None, torch.bfloat16,
      True),
+    # phase 31's decoder: LLaVA-Next AnyRes DPO rows (up to 2928 image
+    # tokens) in the 4096 bucket at llava-v1.6-vicuna-7b's heads, trailing
+    # pads on two rows
+    ('llava_next', 4, 4096, 32, 32, 128, True, None, 2, None,
+     torch.bfloat16, True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
 # version round P (and dS) to bf16 at K1a's places, but the forward kernel
@@ -2895,14 +2926,19 @@ def pillow_available() -> bool:
 def ti2t_images(tmp: str, n: int, size: int, seed: int) -> list:
     """``n`` random RGB images at the tower's size, written as PNG files
     (the data layer opens an image file with Pillow, which must import)."""
+    return png_images(tmp, ((size, size),) * n, seed)
+
+
+def png_images(tmp: str, sizes: tuple, seed: int) -> list:
+    """Random RGB PNG files of the given (h, w), drawn from ``seed``."""
     from PIL import Image  # noqa: PLC0415
 
     rng = np.random.default_rng(seed)
     paths = []
-    for i in range(n):
-        arr = rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
-        path = os.path.join(tmp, f'ti2t_{seed}_{i}.png')
-        Image.fromarray(arr).save(path)
+    for i, (h, w) in enumerate(sizes):
+        path = os.path.join(tmp, f'image_{seed}_{i}.png')
+        Image.fromarray(rng.integers(0, 256, size=(h, w, 3),
+                                     dtype=np.uint8)).save(path)
         paths.append(path)
     return paths
 
@@ -2946,6 +2982,25 @@ def run_ti2t(trainer_cls, task: str, argv: list,
     with mock.patch.object(ti2t_sft, 'load_multimodal_params', timed_load):
         trainer, steps, _ = run_trainer(trainer_cls, task, argv, mesh_file)
     return trainer, steps, timing
+
+
+def recording_loss(cls, name: str, first: dict, keys: tuple):
+    """A patch of ``cls.name`` (a loss taking (self, ..., batch)) that keeps
+    step 1's batch entries ``keys`` and, for DPO, its response log-prob
+    sums."""
+    original = getattr(cls, name)
+
+    def recording(self, *args):
+        batch = args[-1]
+        if not first:
+            first['batch'] = {k: batch[k].clone() for k in keys if k in batch}
+            if name == 'preference_loss':
+                m = batch['response_mask']
+                first['sums'] = masked_sums(args[0], m)
+                first['ref_sums'] = masked_sums(args[1], m)
+        return original(self, *args)
+
+    return mock.patch.object(cls, name, recording)
 
 
 def write_llava(cfg, path: str, seed: int, dev) -> dict:
@@ -3018,23 +3073,13 @@ def ti2t_full(dev, smi, tmp: str) -> dict:
         f'PNG files; argv '
         f'{" ".join(argv[2:])}; MESH_FILE={HARNESS_MESH}')
     first: dict = {}
-    preference_loss = TI2TDPOTrainer.preference_loss
-
-    def recording(self, logp, ref_logp, batch):
-        if not first:
-            m = batch['response_mask']
-            first.update(batch={k: batch[k].clone() for k in (
-                'input_ids', 'attention_mask', 'response_mask',
-                'pixel_values')},
-                sums=masked_sums(logp, m), ref_sums=masked_sums(ref_logp, m))
-        return preference_loss(self, logp, ref_logp, batch)
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     reset_flash_counts()
     t0 = time.perf_counter()
-    with mock.patch.object(TI2TDPOTrainer, 'preference_loss', recording):
+    with recording_loss(TI2TDPOTrainer, 'preference_loss', first, (
+            'input_ids', 'attention_mask', 'response_mask', 'pixel_values')):
         trainer, steps, timing = run_ti2t(
             TI2TDPOTrainer, 'text_image_to_text/dpo', argv, HARNESS_MESH)
     torch.cuda.synchronize()
@@ -3107,7 +3152,7 @@ def ti2t_full(dev, smi, tmp: str) -> dict:
                             sums['float32']))
     log(f'phase18 done in {time.perf_counter() - t_phase:.1f} s')
     return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
-            'peak_gb': peak / 1e9}
+            'peak_gb': peak / 1e9, 'ckpt': ckpt}
 
 
 def ti2t_small(dev, smi, tmp: str) -> dict:
@@ -3632,6 +3677,636 @@ def ti2t_rl_small(dev, smi, tmp: str, small: dict) -> dict:
             total[k] += launches[k]
     log(f'phase21 done in {time.perf_counter() - t_phase:.1f} s; '
         f'{disk_written():.3f} GB written by the run so far')
+    return {'launches': total}
+
+
+# phases 31-33: LLaVA-Next AnyRes and LLaVA-NeXT-Video.  Phases 31-32 run
+# the published widths of llava-hf/llava-v1.6-vicuna-7b-hf and
+# llava-hf/LLaVA-NeXT-Video-7B-hf: phase 18's LLaVA-1.5-7B geometry (the
+# text cut to 4 layers, the 24-layer tower frozen) plus ``image_newline``,
+# the AnyRes pinpoints and, for video, the token ids and the pool stride
+# (transformers' LlavaNextConfig / LlavaNextVideoConfig defaults, checked
+# at run time).  No 7B-width checkpoint is written again: each phase's
+# directory hard-links phase 18's ``model.safetensors`` (``os.link`` writes
+# nothing) beside its own ``config.json`` and a small safetensors file with
+# ``image_newline``; the loader reads every ``.safetensors`` file of a
+# directory without an index.  Phase 33 runs the rest at phase 10's text
+# widths (1 layer) under the CLIP ViT-L/14-336 tower cut to 2 layers, so
+# that its checkpoint and two exports stay within the disk budget (the run
+# writes 47 GB of the card machine's 48.3).
+ANYRES_PINPOINTS = ((336, 672), (672, 336), (672, 672), (1008, 336),
+                    (336, 1008))
+# (h, w) of phase 31's images: 672 x 672 takes all five crops and 2928
+# image tokens; 336 x 1008 and 1008 x 336 take four crops, 2328 and 2376
+ANYRES_SIZES = ((672, 672), (336, 1008), (672, 672), (1008, 336))
+ANYRES_PAIRS, ANYRES_STEPS, ANYRES_BUCKET = 2, 4, 4096
+# LLaVA-NeXT-Video-7B: video token 32000, image token 32001; phase 18's pad
+# (32001) would merge pads as image slots, so the text takes another
+VIDEO_TOKEN, VIDEO_IMAGE_TOKEN, VIDEO_PAD, VIDEO_STRIDE = (32000, 32001,
+                                                           32002, 2)
+TV2T_SFT_FRAMES, TV2T_DPO_FRAMES, TV2T_FRAMES_STORED = 8, 4, 12
+TV2T_ROWS, TV2T_BATCH, TV2T_SFT_BUCKET = 4, 2, 2048
+LNEXT_SMALL_TEXT_LAYERS, LNEXT_SMALL_TOWER_LAYERS = 1, 2
+LNEXT_SMALL_FRAMES, LNEXT_SMALL_BUCKET, LNEXT_SMALL_NEW = 2, 2048, 16
+
+
+def llava_next_hf_config(base: dict, video: bool) -> dict:
+    """Phase 18's ``config.json`` (``base``, model_type 'llava') as a
+    LLaVA-Next one: the pinpoints, and for video the token ids, the pool
+    stride and a pad that is neither token."""
+    hf = json.loads(json.dumps(base))
+    hf['image_grid_pinpoints'] = [list(p) for p in ANYRES_PINPOINTS]
+    if video:
+        hf.update(architectures=['LlavaNextVideoForConditionalGeneration'],
+                  model_type='llava_next_video',
+                  image_token_index=VIDEO_IMAGE_TOKEN,
+                  video_token_index=VIDEO_TOKEN, spatial_pool_mode='average',
+                  spatial_pool_stride=VIDEO_STRIDE)
+        hf['text_config']['pad_token_id'] = VIDEO_PAD
+    else:
+        hf.update(architectures=['LlavaNextForConditionalGeneration'],
+                  model_type='llava_next')
+    return hf
+
+
+def link_llava_next(base: str, path: str, video: bool,
+                    newline: str | None = None, seed: int = 0) -> str:
+    """A LLaVA-Next (or -Video) checkpoint directory over ``base``'s
+    tensors: ``model.safetensors`` hard-linked, the config of
+    ``llava_next_hf_config``, and ``image_newline`` (bf16, drawn from
+    ``seed``, or hard-linked from ``newline``'s file)."""
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        write_safetensors)
+
+    os.makedirs(path)
+    os.link(os.path.join(base, 'model.safetensors'),
+            os.path.join(path, 'model.safetensors'))
+    with open(os.path.join(base, 'config.json')) as f:
+        hf = llava_next_hf_config(json.load(f), video)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf, f, indent=2)
+    target = os.path.join(path, 'image_newline.safetensors')
+    if newline is not None:
+        os.link(newline, target)
+    else:
+        e = hf['text_config']['hidden_size']
+        t = torch.randn((e,), generator=torch.Generator().manual_seed(seed))
+        write_safetensors(target, {'image_newline': t / math.sqrt(e)},
+                          metadata={'format': 'pt'}, dtype=torch.bfloat16)
+    return target
+
+
+def check_published_geometry(cfg, video: bool) -> str:
+    """``cfg`` (the loaded config) against transformers' LlavaNextConfig /
+    LlavaNextVideoConfig defaults, the published 7B geometry: the
+    pinpoints, token ids, stride, feature layer and the tower's and text's
+    widths (the vocab is the published 32064, not the Llama default)."""
+    import transformers  # noqa: PLC0415
+
+    hf = (transformers.LlavaNextVideoConfig() if video
+          else transformers.LlavaNextConfig())
+    vc, tc = hf.vision_config, hf.text_config
+    want = {
+        'pinpoints': tuple(tuple(p) for p in hf.image_grid_pinpoints),
+        'image_token': hf.image_token_index,
+        'video_token': getattr(hf, 'video_token_index', None),
+        'stride': getattr(hf, 'spatial_pool_stride', None),
+        'feature_layer': hf.vision_feature_layer,
+        'tower': (vc.image_size, vc.patch_size, vc.hidden_size,
+                  vc.num_hidden_layers, vc.num_attention_heads,
+                  vc.intermediate_size),
+        'text': (tc.hidden_size, tc.num_attention_heads,
+                 tc.intermediate_size),
+    }
+    v, t = cfg.vision, cfg.text
+    got = {
+        'pinpoints': cfg.image_grid_pinpoints,
+        'image_token': cfg.image_token_id,
+        'video_token': cfg.video_token_id,
+        'stride': cfg.spatial_pool_stride,
+        'feature_layer': v.feature_layer,
+        'tower': (v.image_size, v.patch_size, v.hidden_size, v.num_layers,
+                  v.num_heads, v.mlp_dim),
+        'text': (t.hidden_size, t.num_heads, t.mlp_dim),
+    }
+    if got != want:
+        raise AssertionError(f'geometry {got} is not transformers\' '
+                             f'{type(hf).__name__}() {want}')
+    return (f'the geometry equals transformers {transformers.__version__} '
+            f'{type(hf).__name__}()\'s defaults {want}')
+
+
+def tv2t_videos(tmp: str, n: int, frames: int, size: int, seed: int) -> list:
+    """``n`` random videos of ``frames`` RGB frames, ``.npy`` files."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        path = os.path.join(tmp, f'video_{seed}_{i}.npy')
+        np.save(path, rng.integers(0, 256, size=(frames, size, size, 3),
+                                   dtype=np.uint8))
+        paths.append(path)
+    return paths
+
+
+def tv2t_rows(videos: list, seed: int, words_range: tuple = (100, 151),
+              response_range: tuple = (50, 251)) -> list:
+    """AA_TV2T rows of random words over ``videos`` with the supervised,
+    preference and prompt-only fields."""
+    rng = np.random.default_rng(seed)
+    return [{'question': words(rng, int(rng.integers(*words_range))),
+             'response': words(rng, int(rng.integers(*response_range))),
+             'response_1': words(rng, int(rng.integers(*response_range))),
+             'response_2': words(rng, int(rng.integers(*response_range))),
+             'overall_response': int(rng.integers(1, 3)), 'video': video}
+            for video in videos]
+
+
+def anyres_token_counts(batch: dict, image_token: int) -> tuple:
+    """(image tokens per row, ``num_tokens`` per row from ``select_idx``:
+    its nonzero entries and the base crop's index 0)."""
+    n_image = (batch['input_ids'] == image_token).sum(-1).tolist()
+    n_sel = ((batch['select_idx'] != 0).sum(-1) + 1).tolist()
+    return n_image, n_sel
+
+
+def step_report(tag: str, steps: list, shape: tuple, loss_key: str) -> tuple:
+    """Log each step and return (median step time of steps 2+, tokens/s)."""
+    seconds = [m['perf/step_time_s'] for m in steps]
+    for i, m in enumerate(steps):
+        log(f'{tag} step {i + 1}: {loss_key}={m[loss_key]!r} grad_norm='
+            f'{m.get("train/grad_norm", math.nan):.6e} '
+            f'seconds={seconds[i]:.4f}')
+    step_s = statistics.median(seconds[1:] or seconds)
+    return step_s, shape[0] * shape[1] / step_s
+
+
+def anyres_full(dev, smi, tmp: str, base: str) -> dict:
+    """Phase 31: TI2T DPO through ``trainer_main(TI2TDPOTrainer, ...)`` on
+    LLaVA-Next AnyRes at llava-v1.6-vicuna-7b widths (text 4 layers, the
+    24-layer tower frozen), phase 18's tensors hard-linked: 8 AA_TI2T
+    preference rows over 672 x 672, 336 x 1008 and 1008 x 336 PNGs, 2
+    pairs a step in the 4096 bucket, 4 steps."""
+    from align_anything_tpu_torch.data.image import AnyResProcessor  # noqa: PLC0415
+    from align_anything_tpu_torch.models import multimodal  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_multimodal_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    written0 = disk_written()
+    ckpt = os.path.join(tmp, 'llava_next7b')
+    newline = link_llava_next(base, ckpt, video=False, seed=SEED + 130)
+    images = png_images(tmp, ANYRES_SIZES * 2, SEED + 131)
+    data = write_jsonl(os.path.join(tmp, 'pref_anyres.jsonl'),
+                       ti2t_rows(images, SEED + 132, preference=True))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(ANYRES_PAIRS), '--padding_buckets', f'[{ANYRES_BUCKET}]']
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with recording_loss(TI2TDPOTrainer, 'preference_loss', first, (
+            'input_ids', 'attention_mask', 'response_mask', 'pixel_values',
+            'select_idx')):
+        trainer, steps, timing = run_ti2t(
+            TI2TDPOTrainer, 'text_image_to_text/dpo', argv, HARNESS_MESH)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    geometry = check_published_geometry(mcfg, video=False)
+    start, _ = load_multimodal_params(ckpt, device=dev)
+    moved = changed_modules(trainer.state.params,
+                            {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    n_image, n_sel = anyres_token_counts(b, mcfg.image_token_id)
+    most = AnyResProcessor(mcfg.vision, ANYRES_PINPOINTS).max_tokens
+    losses = [m['train/loss'] for m in steps]
+    step_s, tps = step_report('phase31', steps, shape, 'train/loss')
+    tower, layers = mcfg.vision.layers_run, mcfg.text.num_layers
+    # as phase 18: the frozen tower forward over every row's five crops
+    # (one launch a layer) for the policy and the reference, the language
+    # model's forward for both and its recompute, and its backward
+    need = {'fwd': ANYRES_STEPS * (2 * tower + 3 * layers),
+            'bwd': ANYRES_STEPS * layers}
+    log(f'phase31 {geometry}')
+    log(f'phase31 TI2T DPO on LLaVA-Next AnyRes: batch {shape} with '
+        f'pixel_values {tuple(b["pixel_values"].shape)} and select_idx '
+        f'{tuple(b["select_idx"].shape)}; image tokens per row {n_image} '
+        f'(num_tokens {n_sel}); remat {mcfg.text.remat}, compute '
+        f'{mcfg.text.compute_dtype}; trainer_main {total_s:.2f} s (load '
+        f'{timing["load_s"]:.2f} s, {len(steps)} steps); step time '
+        f'{step_s:.4f} s (median of steps 2-{len(steps)}), {tps:.1f} '
+        f'tokens/s; peak memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB '
+        f'resident before); modules moved {moved}; flash launches fwd '
+        f'{launches["fwd"]} (need {need["fwd"]}) bwd {launches["bwd"]} (need '
+        f'{need["bwd"]}); card {smi}')
+    if len(steps) != ANYRES_STEPS or shape != (2 * ANYRES_PAIRS,
+                                                ANYRES_BUCKET):
+        raise AssertionError(f'AnyRes DPO: {len(steps)} steps at {shape}')
+    if tuple(b['pixel_values'].shape[1:3]) != (5, 3):
+        raise AssertionError('AnyRes DPO: not five crops a row')
+    if n_image != n_sel or max(n_image) != most:
+        raise AssertionError(f'AnyRes DPO: image tokens per row {n_image}, '
+                             f'num_tokens {n_sel} (ROADMAP R12), or no row '
+                             f'of {most}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'AnyRes DPO step 1 loss {losses[0]!r} != ln 2')
+    if not all_finite(steps):
+        raise AssertionError('AnyRes DPO: a non-finite metric')
+    if moved != {'language_model': True, 'vision_tower': False,
+                 'projector': True, 'image_newline': True}:
+        raise AssertionError(f'AnyRes DPO: modules moved {moved}; the frozen '
+                             'tower must stay bit-equal, the rest train')
+    check_launches('AnyRes DPO', launches, need, exact=True)
+
+    params, _ = load_multimodal_params(ckpt, device=dev)
+    sums = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            sums[dtype] = masked_sums(multimodal.token_logprobs(
+                params, mcfg.replace(compute_dtype=dtype), b['input_ids'],
+                attention_mask=b['attention_mask'],
+                pixel_values=b['pixel_values'], select_idx=b['select_idx']),
+                b['response_mask'])
+    del params
+    free_memory()
+    log('phase31 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'],
+                                       sums['bfloat16'], sums['float32'])
+        + '; ' + check_sums('reference', first['ref_sums'], sums['bfloat16'],
+                            sums['float32']))
+    log(f'phase31 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.4f} GB written by the phase')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'peak_gb': peak / 1e9, 'newline': newline}
+
+
+def video_token_counts(ids: torch.Tensor) -> dict:
+    return {'video': (ids == VIDEO_TOKEN).sum(-1).tolist(),
+            'image': (ids == VIDEO_IMAGE_TOKEN).sum(-1).tolist()}
+
+
+def tv2t_full(dev, smi, tmp: str, base: str, newline: str) -> dict:
+    """Phase 32: TV2T SFT and DPO through their entry points on
+    LLaVA-NeXT-Video at LLaVA-NeXT-Video-7B widths (text 4 layers, the
+    tower frozen), phase 18's tensors and phase 31's newline hard-linked:
+    4 AA_TV2T rows over ``.npy`` videos; SFT 8 frames a row (8 x 144
+    pooled tokens of the video token) in the 2048 bucket; DPO as JAX's
+    (R26: 4 frames x 576 tokens of the image token, the frames dropped) in
+    the 4096 bucket; 2 rows (pairs) a step, 2 steps each."""
+    from align_anything_tpu_torch.models import multimodal  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_multimodal_params)
+    from align_anything_tpu_torch.trainers.text_video_to_text.dpo import (  # noqa: PLC0415
+        TV2TDPOTrainer)
+    from align_anything_tpu_torch.trainers.text_video_to_text.sft import (  # noqa: PLC0415
+        TV2TSupervisedTrainer)
+    from align_anything_tpu_torch.losses import cross_entropy_loss  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    free_memory()
+    written0 = disk_written()
+    ckpt = os.path.join(tmp, 'llava_next_video7b')
+    link_llava_next(base, ckpt, video=True, newline=newline)
+    videos = tv2t_videos(tmp, TV2T_ROWS, TV2T_FRAMES_STORED, 336, SEED + 140)
+    data = write_jsonl(os.path.join(tmp, 'tv2t.jsonl'),
+                       tv2t_rows(videos, SEED + 141))
+    common = ['--model_name_or_path', ckpt, '--train_datasets', data,
+              '--train_template', 'AA_TV2T', '--save_checkpoint', 'False',
+              '--epochs', '1', '--per_device_train_batch_size',
+              str(TV2T_BATCH)]
+    n_steps = TV2T_ROWS // TV2T_BATCH
+    out = {'fwd': 0, 'bwd': 0}
+    report = {}
+    for algo, cls, loss_name, frames, bucket, mesh in (
+            ('sft', TV2TSupervisedTrainer, 'loss_fn', TV2T_SFT_FRAMES,
+             TV2T_SFT_BUCKET, None),
+            ('dpo', TV2TDPOTrainer, 'preference_loss', TV2T_DPO_FRAMES,
+             ANYRES_BUCKET, HARNESS_MESH)):
+        argv = [*common, '--n_frames', str(frames), '--padding_buckets',
+                f'[{bucket}]']
+        first: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        with recording_loss(cls, loss_name, first, (
+                'input_ids', 'attention_mask', 'labels', 'response_mask',
+                'pixel_values')):
+            trainer, steps, timing = run_ti2t(
+                cls, f'text_video_to_text/{algo}', argv, mesh)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        mcfg = trainer.model_cfg
+        start, _ = load_multimodal_params(ckpt, device=dev)
+        moved = changed_modules(trainer.state.params,
+                                {m: leaves_by_path(start[m]) for m in start})
+        del trainer, start
+        free_memory()
+        b = first['batch']
+        shape = tuple(b['input_ids'].shape)
+        counts = video_token_counts(b['input_ids'])
+        step_s, tps = step_report(f'phase32 {algo}', steps, shape,
+                                  'train/loss')
+        tower, layers = mcfg.vision.layers_run, mcfg.text.num_layers
+        pooled = (mcfg.vision.image_size // mcfg.vision.patch_size
+                  // VIDEO_STRIDE) ** 2
+        if algo == 'sft':
+            # the frozen tower's forward over every frame, the language
+            # model's forward (remat 'save_flash' keeps the kernel's
+            # output) and backward
+            need = {'fwd': n_steps * (tower + layers),
+                    'bwd': n_steps * layers}
+            want = {'video': [frames * pooled] * shape[0],
+                    'image': [0] * shape[0]}
+            want_moved = {'language_model': True, 'vision_tower': False,
+                          'projector': True, 'image_newline': False}
+        else:
+            # as phase 18 (the tower runs, its features merge nowhere)
+            need = {'fwd': n_steps * (2 * tower + 3 * layers),
+                    'bwd': n_steps * layers}
+            want = {'video': [0] * shape[0],
+                    'image': [frames * mcfg.vision.num_patches] * shape[0]}
+            # R26: no video token in the rows, so the projector gets no
+            # gradient (and dpo.yaml's weight decay is 0)
+            want_moved = {'language_model': True, 'vision_tower': False,
+                          'projector': False, 'image_newline': False}
+        if algo == 'sft':
+            check_published_geometry(mcfg, video=True)
+        log(f'phase32 TV2T {algo.upper()} on LLaVA-NeXT-Video: batch {shape} '
+            f'with pixel_values {tuple(b["pixel_values"].shape)}; per row, '
+            f'tokens of id {VIDEO_TOKEN} (video) {counts["video"]} and of '
+            f'id {VIDEO_IMAGE_TOKEN} (image) {counts["image"]}; pad '
+            f'{mcfg.pad_token_id}; remat {mcfg.text.remat}; trainer_main '
+            f'{total_s:.2f} s (load {timing["load_s"]:.2f} s, {len(steps)} '
+            f'steps); step time {step_s:.4f} s, {tps:.1f} tokens/s; peak '
+            f'memory {peak / 1e9:.3f} GB; modules moved {moved}; flash '
+            f'launches fwd {launches["fwd"]} (need {need["fwd"]}) bwd '
+            f'{launches["bwd"]} (need {need["bwd"]}); card {smi}')
+        if len(steps) != n_steps or shape != (
+                TV2T_BATCH * (2 if algo == 'dpo' else 1), bucket):
+            raise AssertionError(f'TV2T {algo}: {len(steps)} steps at '
+                                 f'{shape}')
+        if tuple(b['pixel_values'].shape[1:3]) != (frames, 3):
+            raise AssertionError(f'TV2T {algo}: not {frames} frames a row')
+        if counts != want:
+            raise AssertionError(f'TV2T {algo}: token counts {counts}, want '
+                                 f'{want} (ROADMAP R12, R26)')
+        if not all_finite(steps):
+            raise AssertionError(f'TV2T {algo}: a non-finite metric')
+        if algo == 'dpo' and abs(steps[0]['train/loss'] - math.log(2)) > 1e-6:
+            raise AssertionError(f'TV2T DPO step 1 loss '
+                                 f'{steps[0]["train/loss"]!r} != ln 2')
+        if moved != want_moved:
+            raise AssertionError(f'TV2T {algo}: modules moved {moved}, '
+                                 f'expected {want_moved}')
+        check_launches(f'TV2T {algo}', launches, need, exact=True)
+
+        params, _ = load_multimodal_params(ckpt, device=dev)
+        plain = {}
+        with torch.no_grad(), plain_flash():
+            for dtype in ('bfloat16', 'float32'):
+                c = mcfg.replace(compute_dtype=dtype)
+                if algo == 'sft':
+                    logits = multimodal.forward(
+                        params, c, b['input_ids'],
+                        attention_mask=b['attention_mask'],
+                        pixel_values=b['pixel_values']).logits
+                    plain[dtype] = cross_entropy_loss(
+                        logits, b['labels'])['loss'].double().reshape(1)
+                else:
+                    plain[dtype] = masked_sums(multimodal.token_logprobs(
+                        params, c, b['input_ids'],
+                        attention_mask=b['attention_mask'],
+                        pixel_values=b['pixel_values']), b['response_mask'])
+        del params
+        free_memory()
+        if algo == 'sft':
+            msg = check_sums('loss', torch.tensor(
+                [steps[0]['train/loss']], dtype=torch.float64,
+                device=plain['float32'].device), plain['bfloat16'],
+                plain['float32'])
+        else:
+            msg = (check_sums('policy', first['sums'], plain['bfloat16'],
+                              plain['float32']) + '; '
+                   + check_sums('reference', first['ref_sums'],
+                                plain['bfloat16'], plain['float32']))
+        log(f'phase32 {algo} step 1 recomputed with the plain attention: '
+            f'{msg}')
+        for k in out:
+            out[k] += launches[k]
+        report[algo] = {'step_s': step_s, 'tokens_per_s': tps,
+                        'peak_gb': peak / 1e9}
+    log(f'phase32 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.4f} GB written by the phase')
+    return {'launches': out, **report}
+
+
+def llava_next_small(dev, smi, tmp: str) -> dict:
+    """Phase 33 at phase 10's text widths (1 layer) under the CLIP
+    ViT-L/14-336 tower cut to 2 layers, LLaVA-Next and -Video configs over
+    one bf16 checkpoint written from a seed: AnyRes TI2T SFT and its
+    export (bf16, LLaVA-Next tensor names) read back; the TV2T reward model
+    with its export (the LLaVA-NeXT-Video slice and ``score_head.npy``)
+    read back; TV2T PPO from that export (the rollout's prefill takes 5-D
+    pixels through ``generate``); TV2T GRPO.  Every metric finite, every
+    launch count exact."""
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_multimodal_params, read_safetensors, save_multimodal_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.sft import (  # noqa: PLC0415
+        TI2TSupervisedTrainer)
+    from align_anything_tpu_torch.trainers.text_video_to_text import (  # noqa: PLC0415
+        grpo as tv2t_grpo, ppo as tv2t_ppo, rm as tv2t_rm)
+    from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
+        ppo as ti2t_ppo)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    written0 = disk_written()
+    cfg = llava_config(LNEXT_SMALL_TEXT_LAYERS, LNEXT_SMALL_TOWER_LAYERS)
+    cfg = cfg.replace(vocab_size=SMALL['vocab_size'],
+                      hidden_size=SMALL['hidden'], num_heads=SMALL['heads'],
+                      num_kv_heads=SMALL['kv_heads'],
+                      head_dim=SMALL['hidden'] // SMALL['heads'],
+                      mlp_dim=SMALL['mlp'], max_position_embeddings=8192)
+    base = os.path.join(tmp, 'llava_small_base')
+    w = write_llava(cfg, base, SEED + 150, dev)
+    anyres = os.path.join(tmp, 'llava_next_small')
+    newline = link_llava_next(base, anyres, video=False, seed=SEED + 151)
+    video = os.path.join(tmp, 'llava_next_video_small')
+    link_llava_next(base, video, video=True, newline=newline)
+    tower, layers = cfg.vision.layers_run, cfg.text.num_layers
+    model = tower + layers
+    total = {'fwd': 0, 'bwd': 0}
+
+    def run(tag, cls, task, argv, need, env=None):
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env or {}):
+            trainer, steps, _ = run_ti2t(cls, task, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = flash_counts()
+        steps = [m for m in steps if 'train/loss' in m
+                 or 'train/actor_loss' in m]
+        key = 'train/actor_loss' if 'train/actor_loss' in steps[0] \
+            else 'train/loss'
+        log(f'phase33 {tag}: {len(steps)} steps, {key} '
+            f'{[m[key] for m in steps]}; trainer_main {seconds:.2f} s; flash '
+            f'launches fwd {launches["fwd"]} (need {need["fwd"]}) bwd '
+            f'{launches["bwd"]} (need {need["bwd"]}); card {smi}')
+        if not steps or not all_finite(steps):
+            raise AssertionError(f'{tag}: no step, or a non-finite metric')
+        check_launches(tag, launches, need, exact=True)
+        for k in total:
+            total[k] += launches[k]
+        return trainer, steps
+
+    def reads_back(tag, path, params, model_type, dtype):
+        """The export's config and HF tensor names, and the port's loader
+        reading it back equal to ``params`` rounded to ``dtype``."""
+        with open(os.path.join(path, 'config.json')) as f:
+            hf = json.load(f)
+        names = set()
+        for fname in os.listdir(path):
+            if fname.endswith('.safetensors'):
+                names |= set(read_safetensors(os.path.join(path, fname)))
+        need_names = {'image_newline',
+                      'language_model.model.embed_tokens.weight',
+                      'language_model.lm_head.weight',
+                      'multi_modal_projector.linear_1.weight',
+                      'vision_tower.vision_model.encoder.layers.0.'
+                      'self_attn.q_proj.weight'}
+        back, bcfg = load_multimodal_params(path, device=dev)
+        want = {m: {k: v.to(dtype).float() for k, v in
+                    leaves_by_path({m: params[m]}).items()}
+                for m in back}
+        same = all(torch.equal(v.float(), want[m][k])
+                   for m in back
+                   for k, v in leaves_by_path({m: back[m]}).items())
+        log(f'phase33 {tag} export: model_type {hf["model_type"]}, '
+            f'{len(names)} tensors, {dir_bytes(path) / 1e9:.4f} GB; read '
+            f'back equal: {same}')
+        if not (hf['model_type'] == model_type and need_names <= names
+                and same and set(back) == set(params) - {'score_head'}):
+            raise AssertionError(f'{tag}: the export does not read back')
+        return bcfg
+
+    # AnyRes TI2T SFT (tower frozen by sft.yaml), then its export in bf16
+    images = png_images(tmp, ((672, 672), (500, 700), (336, 1008),
+                                 (900, 400)), SEED + 152)
+    sft_data = write_jsonl(os.path.join(tmp, 'sft_anyres_small.jsonl'),
+                           ti2t_rows(images, SEED + 153, preference=False))
+    first: dict = {}
+    with recording_loss(TI2TSupervisedTrainer, 'loss_fn', first,
+                        ('input_ids', 'select_idx', 'pixel_values')):
+        trainer, _ = run(
+            'AnyRes TI2T SFT', TI2TSupervisedTrainer,
+            'text_image_to_text/sft',
+            ['--model_name_or_path', anyres, '--train_datasets', sft_data,
+             '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+             '--epochs', '1', '--per_device_train_batch_size', '2',
+             '--padding_buckets', f'[{ANYRES_BUCKET}]'],
+            {'fwd': 2 * model, 'bwd': 2 * layers})
+    n_image, n_sel = anyres_token_counts(first['batch'], cfg.image_token_id)
+    log(f'phase33 AnyRes SFT: crops {tuple(first["batch"]["pixel_values"].shape)}'
+        f'; image tokens per row {n_image}, num_tokens {n_sel}')
+    if n_image != n_sel:
+        raise AssertionError(f'AnyRes SFT: image tokens {n_image} != '
+                             f'num_tokens {n_sel} (ROADMAP R12)')
+    out_anyres = os.path.join(tmp, 'export_llava_next_small')
+    save_multimodal_params(out_anyres, trainer.state.params, trainer.model_cfg,
+                           dtype=torch.bfloat16)
+    acfg = reads_back('AnyRes', out_anyres, trainer.state.params,
+                      'llava_next', torch.bfloat16)
+    if acfg.image_grid_pinpoints != ANYRES_PINPOINTS:
+        raise AssertionError('AnyRes export lost its pinpoints')
+    del trainer
+    free_memory()
+
+    # the TV2T reward model with its export, then PPO and GRPO from it
+    videos = tv2t_videos(tmp, 4, 6, 336, SEED + 154)
+    rows = tv2t_rows(videos, SEED + 155, (20, 61), (10, 41))
+    data = write_jsonl(os.path.join(tmp, 'tv2t_small.jsonl'), rows)
+    frames = ['--n_frames', str(LNEXT_SMALL_FRAMES)]
+    rm_out = os.path.join(tmp, 'out_tv2t_rm')
+    common = ['--train_template', 'AA_TV2T', '--save_checkpoint', 'False',
+              '--epochs', '1', '--padding_buckets',
+              f'[{LNEXT_SMALL_BUCKET}]', '--train_datasets', data]
+    trainer, _ = run(
+        'TV2T RM', tv2t_rm.TV2TRMTrainer, 'text_video_to_text/rm',
+        ['--model_name_or_path', video, '--output_dir', rm_out,
+         '--per_device_train_batch_size', '2', *frames, *common],
+        {'fwd': 2 * model, 'bwd': 2 * layers})
+    slice_dir = os.path.join(rm_out, 'slice_2')
+    trained = trainer.state.params
+    vcfg = reads_back('TV2T RM', slice_dir, trained, 'llava_next_video',
+                      torch.float32)
+    head = np.load(os.path.join(slice_dir, 'score_head.npy'))
+    if not (np.array_equal(head, trained['score_head']['w'].detach().cpu()
+                           .numpy())
+            and (vcfg.video_token_id, vcfg.spatial_pool_stride) == (
+                VIDEO_TOKEN, VIDEO_STRIDE)):
+        raise AssertionError('TV2T RM export: the head or the video fields '
+                             'differ')
+    del trainer, trained
+    free_memory()
+
+    rl = ['--actor_model_name_or_path', video,
+          '--reward_model_name_or_path', slice_dir, '--max_new_tokens',
+          str(LNEXT_SMALL_NEW), *common]
+    prefill_pixels = []
+    generate = ti2t_ppo.generate
+
+    def recording_generate(*args, **kwargs):
+        prefill_pixels.append(tuple(kwargs['pixel_values'].shape))
+        return generate(*args, **kwargs)
+
+    with mock.patch.object(ti2t_ppo, 'generate', recording_generate):
+        # a round of 4 prompts: the prefill's tower, four scoring passes,
+        # actor and critic forward and backward per micro-batch (R13)
+        _, steps = run(
+            'TV2T PPO', tv2t_ppo.TV2TPPOTrainer, 'text_video_to_text/ppo',
+            [*rl, '--per_device_prompt_batch_size', '4',
+             '--per_device_train_batch_size', '2', '--update_iters', '1',
+             *frames],
+            {'fwd': tower + 4 * model + 2 * 2 * model,
+             'bwd': 2 * 2 * model})
+        if steps[0]['train/kl_divergence'] != 0.0:
+            raise AssertionError('TV2T PPO round 1 KL is not 0')
+        # GRPO reads text_image_to_text/grpo, which has no n_frames key:
+        # the environment adds it (a command-line override adds no key)
+        _, steps = run(
+            'TV2T GRPO', tv2t_grpo.TV2TGRPOTrainer, 'text_image_to_text/grpo',
+            [*rl, '--train_size', '2', '--per_device_prompt_batch_size', '2',
+             '--num_generations', '2'],
+            {'fwd': tower + 3 * model, 'bwd': model},
+            env={'ENV_PREFIX__TRAIN_CFGS__N_FRAMES':
+                 str(LNEXT_SMALL_FRAMES)})
+        if not abs(steps[0]['train/kl']) <= 1e-6:
+            raise AssertionError('TV2T GRPO step 1 KL is not 0')
+    log(f'phase33 the rollouts\' prefill pixel_values {prefill_pixels}')
+    if not prefill_pixels or any(len(s) != 5 or s[1] != LNEXT_SMALL_FRAMES
+                                 for s in prefill_pixels):
+        raise AssertionError('TV2T rollouts: the prefill took no 5-D frames')
+    log(f'phase33 done in {time.perf_counter() - t_phase:.1f} s (base '
+        f'checkpoint {w["bytes"] / 1e9:.4f} GB); '
+        f'{disk_written() - written0:.4f} GB written by the phase, '
+        f'{disk_written():.3f} GB by the run so far')
     return {'launches': total}
 
 
@@ -5400,6 +6075,9 @@ def main() -> int:
         ti2t_rm = ti2t_rm_full(dev, smi, tmp)
         ti2t_ppo = ti2t_ppo_full(dev, smi, tmp, ti2t_rm)
         ti2t_rl = ti2t_rl_small(dev, smi, tmp, ti2t_sft)
+        anyres = anyres_full(dev, smi, tmp, ti2t['ckpt'])
+        tv2t = tv2t_full(dev, smi, tmp, ti2t['ckpt'], anyres['newline'])
+        lnext_small = llava_next_small(dev, smi, tmp)
         qlora4 = qlora_full(dev, smi, tmp, 4, QLORA_STEPS)
         qlora8 = qlora_full(dev, smi, tmp, 8, QLORA_INT8_STEPS)
         lora = lora_small(dev, smi, tmp, cost)
@@ -5416,11 +6094,12 @@ def main() -> int:
     t8 = fstats['timed']['llama8b']
     vit = fstats['timed']['vit336']
     mm_ppo = fstats['timed']['ti2t_ppo']
-    g3 = {name: fstats['timed'][name]
-          for name in ('gemma3_1b', 'gemma3_1b_w512')}
+    timed = {name: fstats['timed'][name]
+             for name in ('gemma3_1b', 'gemma3_1b_w512', 'llava_next')}
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
-                 ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, qlora4, qlora8, lora,
-                 gemma, gemma_gen, remat, saves)
+                 ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, anyres, tv2t,
+                 lnext_small, qlora4, qlora8, lora, gemma, gemma_gen, remat,
+                 saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -5433,7 +6112,9 @@ def main() -> int:
                       'gemma3_1b: B4 L2048 H4 KH1 D256 causal, 2 rows padded '
                       '(Gemma-3-1B\'s full layers), gemma3_1b_w512 the same '
                       'with the window 512 (its sliding layers), SDPA over '
-                      'the whole causal square, no window',
+                      'the whole causal square, no window; llava_next: B4 '
+                      'L4096 H32 KH32 D128 causal, 2 rows padded (phase '
+                      '31\'s AnyRes DPO decoder), SDPA causal, no padding',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
@@ -5457,7 +6138,14 @@ def main() -> int:
                              'training forward beside the generation, which '
                              'runs no kernel) + phase 26 (3 DPO steps under '
                              'each of the ten remat policies) + phase 27 (8 '
-                             'DPO steps around two saves, small)'}
+                             'DPO steps around two saves, small) + phase 31 '
+                             '(4 AnyRes DPO steps at llava-v1.6-vicuna-7b '
+                             'widths: the 23-layer tower over 20 crops twice '
+                             'a step, the text at L 4096) + phase 32 (TV2T '
+                             'SFT and DPO, 2 steps each, at '
+                             'LLaVA-NeXT-Video-7B widths: the tower over 16 '
+                             'frames a step) + phase 33 (AnyRes SFT, TV2T '
+                             'RM, PPO and GRPO, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
@@ -5505,7 +6193,7 @@ def main() -> int:
                                             'bound_ms', 'bound_by')},
         **{name: {k: t[k] for k in ('ms', 'plain_ms', 'library_ms',
                                     'bound_ms', 'bound_by')}
-           for name, t in g3.items()}}, {
+           for name, t in timed.items()}}, {
         'name': 'flash_attention_bwd', **flash,
         'replaces': 'align_anything_tpu/ops/attention.py:99',
         'also_replaces': 'align_anything_tpu/ops/attention.py:186, '
@@ -5528,7 +6216,7 @@ def main() -> int:
                   'library_ms': t['library_bwd_ms'],
                   'bound_ms': t['bwd_bound_ms'],
                   'bound_by': t['bwd_bound_by']}
-           for name, t in g3.items()}}]}))
+           for name, t in timed.items()}}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -27,7 +27,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TASKS = ('sft', 'dpo', 'orpo', 'simpo', 'rm', 'ppo', 'kto', 'grpo',
          'saferlhf', 'text_image_to_text/sft', 'text_image_to_text/dpo',
          'text_image_to_text/rm', 'text_image_to_text/ppo',
-         'text_image_to_text/grpo', 'text_image_to_text/saferlhf')
+         'text_image_to_text/grpo', 'text_image_to_text/saferlhf',
+         'text_video_to_text/sft', 'text_video_to_text/dpo',
+         'text_video_to_text/rm', 'text_video_to_text/ppo')
 BOTH = pytest.mark.parametrize('m', [jcfg, tcfg], ids=['jax', 'port'])
 
 

@@ -291,20 +291,16 @@ def test_dpo_gradient_matches_jax():
 
 
 def test_unported_branches_raise():
-    """LLaVA-Next AnyRes and video raise and name the ROADMAP item."""
+    """A LLaVA config over a text model the port does not run yet raises
+    at init: m-rope (Qwen2-VL's rope, ROADMAP §1 item 12) and MoE (item
+    13).  The AnyRes and video branches run (``tests/
+    test_torch_llava_next.py``, ``tests/test_torch_llava_next_video.py``)."""
     _, tc = _configs()
-    tparams = from_jax_tree(_params(_configs()[0]), device='cpu')
-    ids, _, px = _batch()
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tmm.forward(tparams, tc, torch.from_numpy(ids),
-                    pixel_values=torch.from_numpy(px),
-                    select_idx=torch.zeros((2, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tmm.forward(tparams, tc, torch.from_numpy(ids),
-                    pixel_values=torch.from_numpy(px)[:, None])
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tmm.init_params(tc.replace(image_grid_pinpoints=((28, 28),)),
-                        torch.Generator().manual_seed(0), device='cpu')
+    for kw, what in (({'mrope_section': (2, 1, 1)}, 'm-rope'),
+                     ({'num_experts': 4}, 'MoE')):
+        with pytest.raises(NotImplementedError, match=what):
+            tmm.init_params(tc.replace(**kw),
+                            torch.Generator().manual_seed(0), device='cpu')
 
 
 # ---------------------------------------------------------------------------
@@ -407,8 +403,10 @@ def test_export_bf16(llava, tmp_path):
     assert hf['torch_dtype'] == 'bfloat16'
 
 
-@pytest.mark.parametrize('model_type', ['llava_next', 'llava_next_video'])
+@pytest.mark.parametrize('model_type', ['qwen2_vl', 'mllama'])
 def test_load_refuses_llava_next(tmp_path, model_type):
+    """A vision-LM family still unported raises and names the ROADMAP
+    item (LLaVA-Next and -Video load since they were ported)."""
     (tmp_path / 'config.json').write_text(json.dumps(
         {'model_type': model_type, 'text_config': {}, 'vision_config': {}}))
     with pytest.raises(NotImplementedError, match='item 12'):
