@@ -178,18 +178,27 @@ def _prune_old(root: str, keep: int, exclude: str | None = None) -> None:
 def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
                   tokenizer: Any | None = None) -> str:
     """HF-format ``slice_{step}`` export (reference output-layout parity) of
-    a decoder param tree, or of a LLaVA-layout one for a multimodal config;
-    the JAX module's other multimodal savers are not ported."""
+    a decoder param tree, or of a multimodal one in its family's layout:
+    Qwen2.5-VL (a tower with ``window_size``), Qwen2-VL (a tower with
+    ``spatial_merge_size``), else LLaVA, in JAX's order of checks.  The JAX
+    module's other multimodal savers are not ported."""
     from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
         save_multimodal_params,
         save_params,
+        save_qwen2_5_vl_params,
+        save_qwen2_vl_params,
     )
     from align_anything_tpu_torch.models.multimodal import (  # noqa: PLC0415
         MultimodalConfig)
 
     path = os.path.join(output_dir, f'slice_{step}')
     params = {k: v for k, v in params.items() if k != 'score_head'}
-    if isinstance(model_config, MultimodalConfig):
+    vision = getattr(model_config, 'vision', None)
+    if hasattr(vision, 'window_size'):
+        save_qwen2_5_vl_params(path, params, model_config)
+    elif hasattr(vision, 'spatial_merge_size'):
+        save_qwen2_vl_params(path, params, model_config)
+    elif isinstance(model_config, MultimodalConfig):
         save_multimodal_params(path, params, model_config)
     else:
         save_params(path, params, model_config)

@@ -1,6 +1,7 @@
 """Multimodal dataset formatters: the port of the image-text and video
 templates of ``align_anything_tpu/data/multimodal_formatters.py``
-(AA_TI2T, LLaVA_Instruct, RLAIFV, SPA_VL, SafeRLHF_V, AA_TV2T), unchanged.
+(AA_TI2T, LLaVA_Instruct, RLAIFV, SPA_VL, SafeRLHF_V, AA_TV2T, Qwen2-VL),
+unchanged.
 
 Rebuilds the reference's multimodal registrations
 (configs/format_dataset.py).  Conversations carry an ``<image>`` or
@@ -115,3 +116,31 @@ class AA_TV2T(BaseFormatter):
         prompt = f"<video>\n{raw_sample['question']}"
         return (_chat(prompt, better), _chat(prompt, worse),
                 {'video': raw_sample['video']})
+
+
+def _qwen2_vl_prompt(raw_sample: dict) -> tuple[str, dict]:
+    """The question behind a ``<video>`` or ``<image>`` placeholder (a video
+    first, as JAX checks), and the media it names."""
+    prompt = raw_sample['question']
+    if raw_sample.get('video') is not None:
+        return f'<video>\n{prompt}', {'video': raw_sample['video']}
+    if raw_sample.get('image') is not None:
+        return f'<image>\n{prompt}', {'image': raw_sample['image']}
+    return prompt, {}
+
+
+@register_template('Qwen2-VL')
+class Qwen2VL(BaseFormatter):
+    """(format_dataset.py Qwen2-VL): image or video grounded conversations."""
+
+    def format_supervised_sample(self, raw_sample: dict):
+        prompt, media = _qwen2_vl_prompt(raw_sample)
+        return _chat(prompt, raw_sample['response']), media
+
+    def format_preference_sample(self, raw_sample: dict):
+        overall = int(raw_sample['overall_response'])
+        better = raw_sample[f'response_{overall}']
+        worse = raw_sample[f'response_{3 - overall}' if overall in (1, 2)
+                           else 'response_1']
+        prompt, media = _qwen2_vl_prompt(raw_sample)
+        return _chat(prompt, better), _chat(prompt, worse), media

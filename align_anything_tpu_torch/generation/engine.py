@@ -4,10 +4,11 @@ per step for every row until each row hits EOS or the budget.
 Port of ``align_anything_tpu/generation/engine.py``: the generic decoder,
 and a vision-language model whose prefill takes the image
 (``pixel_values`` with ``prefill_forward`` / ``step_forward``, as JAX's
-TI2T PPO and GRPO call it).  The continuous engine's tests hold it to this
-engine's tokens.  JAX's ``media``, ``prefill_positions``,
-``position_offset`` and ``init_cache_fn`` serve model families the port
-does not have yet (ROADMAP §1 item 12) and are left out.
+TI2T PPO and GRPO call it); an m-rope model (Qwen2-VL) passes its prefill
+streams and decode offset (``prefill_positions`` / ``position_offset``).
+The continuous engine's tests hold it to this engine's tokens.  JAX's
+``init_cache_fn`` serves model families the port does not have yet
+(ROADMAP §1 item 12) and is left out.
 """
 
 from __future__ import annotations
@@ -39,7 +40,10 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
              input_ids: torch.Tensor, attention_mask: torch.Tensor,
              generator: torch.Generator | None = None,
              pixel_values: torch.Tensor | None = None,
-             prefill_forward=None, step_forward=None
+             prefill_forward=None, step_forward=None,
+             prefill_positions: torch.Tensor | None = None,
+             position_offset: torch.Tensor | None = None,
+             media: dict | None = None
              ) -> dict[str, torch.Tensor]:
     """Generate completions for left-padded prompts (B, P).
 
@@ -49,6 +53,15 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
     decode step runs ``step_forward`` (``multimodal.decode_forward``) over
     the text trunk.  Both default to ``transformer.forward``; the cache is
     built from ``model_cfg.text`` where the config has one.
+    ``media`` holds other named inputs of the prefill alone (Qwen2-VL's
+    ``image_grid_thw``).
+
+    m-rope models (Qwen2-VL class): ``prefill_positions`` (3, B, P)
+    replace the cumsum positions of the prefill, and ``position_offset``
+    (B,) shifts the decode positions so that the text continues from the
+    m-rope maximum, not from the prompt's length (HF
+    ``mrope_position_deltas``); the returned ``prompt_lens`` carry the
+    shift, as JAX's do.
 
     Returns ``sequences`` (B, P+T) (prompt block + completions, pad after
     EOS), ``attention_mask``, ``completions`` (B, T), ``completion_mask``
@@ -64,8 +77,9 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
         step_forward = transformer.forward
     if prefill_forward is None:
         prefill_forward = step_forward
-    prefill_kwargs = {} if pixel_values is None else {
-        'pixel_values': pixel_values}
+    prefill_kwargs = dict(media or {})
+    if pixel_values is not None:
+        prefill_kwargs['pixel_values'] = pixel_values
 
     text_cfg = getattr(c, 'text', c)
     cache = transformer.init_cache(
@@ -78,8 +92,13 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
     prompt_lens = attention_mask.sum(-1)
 
     out = prefill_forward(params, c, input_ids, attention_mask=full_mask,
-                          positions=prompt_positions, cache=cache,
-                          cache_offset=0, **prefill_kwargs)
+                          positions=(prefill_positions
+                                     if prefill_positions is not None
+                                     else prompt_positions),
+                          cache=cache, cache_offset=0, **prefill_kwargs)
+    if position_offset is not None:
+        prompt_lens = prompt_lens + torch.as_tensor(position_offset,
+                                                    device=dev)
     next_logits = out.logits[:, -1]
     seqs = torch.zeros((b, total), dtype=torch.long, device=dev)
     seqs[:, :p] = input_ids

@@ -21,9 +21,12 @@ Llama-layout language model, a CLIP vision tower and the projector),
 LLaVA-Next (``LlavaNextForConditionalGeneration``: AnyRes pinpoints and
 ``image_newline``) and LLaVA-NeXT-Video
 (``LlavaNextVideoForConditionalGeneration``: the video token and the
-average-pool stride too).  Not ported yet (ROADMAP §1 item 12): the other
-multimodal families (Qwen2-VL, audio, MLlama, MiniCPM, Emu3's fused codec
-layout).
+average-pool stride too).  ``load_qwen2_vl_params`` /
+``save_qwen2_vl_params`` and ``load_qwen2_5_vl_params`` /
+``save_qwen2_5_vl_params`` do it for Qwen2-VL and Qwen2.5-VL (the m-rope
+trunk's ``mrope_section`` from ``rope_scaling``; the tower under
+``visual``).  Not ported yet (ROADMAP §1 item 12): the other multimodal
+families (audio, MLlama, MiniCPM, Emu3's fused codec layout).
 """
 
 from __future__ import annotations
@@ -438,6 +441,171 @@ def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
     return params, cfg
 
 
+def _qwen_vl_text_config(hf: dict, default_theta: float,
+                         head_dim_key: bool) -> ModelConfig:
+    """The m-rope Qwen2 trunk of a Qwen2-VL / Qwen2.5-VL ``config.json``:
+    the ``text_config`` (or the top level of older files) and the
+    ``mrope_section`` of its ``rope_scaling``."""
+    tc = hf.get('text_config') or hf
+    rope_scaling = tc.get('rope_scaling') or hf.get('rope_scaling') or {}
+    mrope = tuple(rope_scaling.get('mrope_section') or (16, 24, 24))
+    head_dim = tc['hidden_size'] // tc['num_attention_heads']
+    if head_dim_key:
+        head_dim = tc.get('head_dim') or head_dim
+    return ModelConfig(
+        vocab_size=tc['vocab_size'], hidden_size=tc['hidden_size'],
+        num_layers=tc['num_hidden_layers'],
+        num_heads=tc['num_attention_heads'],
+        num_kv_heads=tc.get('num_key_value_heads', tc['num_attention_heads']),
+        head_dim=head_dim, mlp_dim=tc['intermediate_size'],
+        max_position_embeddings=tc.get('max_position_embeddings', 4096),
+        rope_theta=tc.get('rope_theta', default_theta),
+        norm_eps=tc.get('rms_norm_eps', 1e-6),
+        qkv_bias=True, mrope_section=mrope,
+        tie_word_embeddings=hf.get('tie_word_embeddings',
+                                   tc.get('tie_word_embeddings', False)),
+        bos_token_id=tc.get('bos_token_id', 1) or 1,
+        eos_token_id=tc.get('eos_token_id', 2) or 2,
+        pad_token_id=hf.get('pad_token_id') or tc.get('pad_token_id')
+        or tc.get('eos_token_id', 2),
+    )
+
+
+def _qwen_vl_tensors(path: str, text_cfg: ModelConfig, device, dtype
+                     ) -> tuple[dict, _OnDevice]:
+    """(the trunk's params, the tower's tensors by their name under
+    ``visual.``): the trunk lives at ``model.*`` (older files) or
+    ``model.language_model.*`` (transformers >= 4.52), the tower at
+    ``[model.]visual.*``."""
+    norm: dict[str, torch.Tensor] = {}
+    for k, v in _read_all_tensors(path).items():
+        norm[k.removeprefix('model.').removeprefix('language_model.')] = v
+    lm_raw = {'model.' + k: v for k, v in norm.items()
+              if not k.startswith('visual.') and k != 'lm_head.weight'}
+    if 'lm_head.weight' in norm:
+        lm_raw['lm_head.weight'] = norm['lm_head.weight']
+    lm_params = _load_llama_like(_OnDevice(lm_raw, device, dtype), text_cfg)
+    vt = _OnDevice({k.removeprefix('visual.'): v for k, v in norm.items()
+                    if k.startswith('visual.')}, device, dtype)
+    return lm_params, vt
+
+
+def _patch_embed_in(vt: _OnDevice, d: int) -> torch.Tensor:
+    """conv3d (D, C, T, P, P) -> (C*T*P*P, D)."""
+    return vt['patch_embed.proj.weight'].reshape(d, -1).T.contiguous()
+
+
+def load_qwen2_vl_params(path: str, dtype: torch.dtype = torch.float32,
+                         image_size: int = 224,
+                         device: torch.device | str | None = None):
+    """Load an HF Qwen2-VL checkpoint into (params, Qwen2VLConfig), every
+    leaf on ``device`` (default: the first CUDA device) in ``dtype``: the
+    2-D-rotary ViT with its PatchMerger under ``visual`` and the m-rope
+    Qwen2 trunk under ``language_model``.  ``image_size`` is the
+    fixed-resolution operating point (dynamic resolution ignores it)."""
+    from align_anything_tpu_torch.models.qwen2_vl import (  # noqa: PLC0415
+        Qwen2VLConfig,
+        Qwen2VLVisionConfig,
+    )
+
+    device = default_device(device)
+    with open(os.path.join(path, 'config.json')) as f:
+        hf = json.load(f)
+    text_cfg = _qwen_vl_text_config(hf, 10000.0, head_dim_key=False)
+    vc = hf['vision_config']
+    vision_cfg = Qwen2VLVisionConfig(
+        depth=vc['depth'], embed_dim=vc['embed_dim'],
+        num_heads=vc['num_heads'], patch_size=vc['patch_size'],
+        spatial_merge_size=vc.get('spatial_merge_size', 2),
+        temporal_patch_size=vc.get('temporal_patch_size', 2),
+        mlp_ratio=vc.get('mlp_ratio', 4.0), image_size=image_size)
+    cfg = Qwen2VLConfig(text=text_cfg, vision=vision_cfg,
+                        image_token_id=hf.get('image_token_id')
+                        or hf.get('image_token_index', 151655))
+    lm_params, vt = _qwen_vl_tensors(path, text_cfg, device, dtype)
+    n, pre = vision_cfg.depth, 'blocks.{i}.'
+
+    def pair(name, w_fn=_T):
+        return {'w': _stack(vt, pre + f'{name}.weight', n, w_fn),
+                'b': _stack(vt, pre + f'{name}.bias', n, _same)}
+
+    visual = {
+        'patch_embed': {'w': _patch_embed_in(vt, vision_cfg.embed_dim)},
+        'blocks': {
+            'norm1': pair('norm1', _same), 'norm2': pair('norm2', _same),
+            'qkv': pair('attn.qkv'), 'proj': pair('attn.proj'),
+            'fc1': pair('mlp.fc1'), 'fc2': pair('mlp.fc2'),
+        },
+        'merger': {
+            'ln_q': {'w': vt['merger.ln_q.weight'],
+                     'b': vt['merger.ln_q.bias']},
+            'mlp0': {'w': _T(vt['merger.mlp.0.weight']),
+                     'b': vt['merger.mlp.0.bias']},
+            'mlp2': {'w': _T(vt['merger.mlp.2.weight']),
+                     'b': vt['merger.mlp.2.bias']},
+        },
+    }
+    return {'language_model': lm_params, 'visual': visual}, cfg
+
+
+def load_qwen2_5_vl_params(path: str, dtype: torch.dtype = torch.float32,
+                           image_size: int = 224,
+                           device: torch.device | str | None = None):
+    """Load an HF Qwen2.5-VL checkpoint into (params, Qwen25VLConfig), every
+    leaf on ``device`` (default: the first CUDA device) in ``dtype``: the
+    window-attention RMSNorm / SwiGLU ViT and the m-rope Qwen2 trunk."""
+    from align_anything_tpu_torch.models.qwen2_5_vl import (  # noqa: PLC0415
+        Qwen25VLConfig,
+        Qwen25VLVisionConfig,
+    )
+
+    device = default_device(device)
+    with open(os.path.join(path, 'config.json')) as f:
+        hf = json.load(f)
+    text_cfg = _qwen_vl_text_config(hf, 1000000.0, head_dim_key=True)
+    vc = hf['vision_config']
+    vision_cfg = Qwen25VLVisionConfig(
+        depth=vc['depth'], embed_dim=vc['hidden_size'],
+        num_heads=vc['num_heads'], patch_size=vc['patch_size'],
+        spatial_merge_size=vc.get('spatial_merge_size', 2),
+        temporal_patch_size=vc.get('temporal_patch_size', 2),
+        intermediate_size=vc['intermediate_size'],
+        window_size=vc.get('window_size', 112),
+        fullatt_block_indexes=tuple(vc.get('fullatt_block_indexes')
+                                    or (7, 15, 23, 31)),
+        image_size=image_size)
+    cfg = Qwen25VLConfig(
+        text=text_cfg, vision=vision_cfg,
+        image_token_id=hf.get('image_token_id')
+        or hf.get('image_token_index', 151655),
+        video_token_id=hf.get('video_token_id', 151656))
+    lm_params, vt = _qwen_vl_tensors(path, text_cfg, device, dtype)
+    n, pre = vision_cfg.depth, 'blocks.{i}.'
+
+    def pair(name):
+        return {'w': _stack(vt, pre + f'{name}.weight', n, _T),
+                'b': _stack(vt, pre + f'{name}.bias', n, _same)}
+
+    visual = {
+        'patch_embed': {'w': _patch_embed_in(vt, vision_cfg.embed_dim)},
+        'blocks': {
+            'norm1': {'w': _stack(vt, pre + 'norm1.weight', n, _same)},
+            'norm2': {'w': _stack(vt, pre + 'norm2.weight', n, _same)},
+            'qkv': pair('attn.qkv'), 'proj': pair('attn.proj'),
+            'gate': pair('mlp.gate_proj'), 'up': pair('mlp.up_proj'),
+            'down': pair('mlp.down_proj'),
+        },
+        'merger': {
+            'ln_q': {'w': vt['merger.ln_q.weight']},
+            'mlp0': {'w': _T(vt['merger.mlp.0.weight']),
+                     'b': vt['merger.mlp.0.bias']},
+            'mlp2': {'w': _T(vt['merger.mlp.2.weight']),
+                     'b': vt['merger.mlp.2.bias']},
+        },
+    }
+    return {'language_model': lm_params, 'visual': visual}, cfg
+
+
 # ---------------------------------------------------------------------------
 # save (HF layout)
 # ---------------------------------------------------------------------------
@@ -575,6 +743,139 @@ def save_multimodal_params(path: str, params: dict, cfg,
         hf_cfg['spatial_pool_stride'] = cfg.spatial_pool_stride
     with open(os.path.join(path, 'config.json'), 'w') as f:
         json.dump(hf_cfg, f, indent=2)
+
+
+def _qwen_vl_out(params: dict, tc: ModelConfig
+                 ) -> tuple[dict[str, torch.Tensor], ModelConfig]:
+    """The trunk's tensors under the names JAX's Qwen-VL writers use
+    (``model.*``, ``lm_head.weight``), the vocab cut back to its true size,
+    and the config that goes with them."""
+    lm_params = params['language_model']
+    if tc.true_vocab_size is not None and tc.true_vocab_size != tc.vocab_size:
+        lm_params = dict(lm_params)
+        lm_params['embedding'] = lm_params['embedding'][:tc.true_vocab_size]
+        if 'lm_head' in lm_params:
+            lm_params['lm_head'] = lm_params['lm_head'][:, :tc.true_vocab_size]
+        tc = tc.replace(vocab_size=tc.true_vocab_size, true_vocab_size=None)
+    return dict(_dump_llama_like(lm_params, tc)), tc
+
+
+def _qwen_vl_write(path: str, out: dict, tc: ModelConfig, hf_cfg: dict,
+                   dtype: torch.dtype, text_extra: dict | None = None
+                   ) -> None:
+    """Write the tensors (contiguous, in ``dtype``) and ``config.json``:
+    ``hf_cfg`` with the m-rope trunk as its ``text_config`` (updated by
+    ``text_extra``)."""
+    write_safetensors(os.path.join(path, 'model.safetensors'), out,
+                      metadata={'format': 'pt'}, dtype=dtype)
+    torch_dtype = str(dtype).removeprefix('torch.')
+    text_hf = _to_hf_config(tc)
+    text_hf['rope_scaling'] = {'type': 'mrope',
+                               'mrope_section': list(tc.mrope_section)}
+    text_hf['torch_dtype'] = torch_dtype
+    text_hf.update(text_extra or {})
+    hf_cfg.update(tie_word_embeddings=tc.tie_word_embeddings,
+                  torch_dtype=torch_dtype, text_config=text_hf)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf_cfg, f, indent=2)
+
+
+def _patch_embed_out(w: torch.Tensor, vc) -> torch.Tensor:
+    """(C*T*P*P, D) -> conv3d (D, C, T, P, P)."""
+    return w.T.reshape(vc.embed_dim, 3, vc.temporal_patch_size,
+                       vc.patch_size, vc.patch_size)
+
+
+def save_qwen2_vl_params(path: str, params: dict, cfg,
+                         dtype: torch.dtype = torch.float32) -> None:
+    """Write a Qwen2-VL checkpoint in HF format, every tensor in ``dtype``:
+    the inverse of ``load_qwen2_vl_params``, with the tensor names and
+    ``config.json`` of JAX's ``save_qwen2_vl_params``
+    (``Qwen2VLForConditionalGeneration``)."""
+    from align_anything_tpu_torch.models.qwen2_vl import check_supported  # noqa: PLC0415
+
+    check_supported(cfg)
+    os.makedirs(path, exist_ok=True)
+    vc = cfg.vision
+    out, tc = _qwen_vl_out(params, cfg.text)
+    vt, pre = params['visual'], 'visual.blocks.{i}.'
+    out['visual.patch_embed.proj.weight'] = _patch_embed_out(
+        vt['patch_embed']['w'], vc)
+    bl = vt['blocks']
+    for ours, theirs in (('norm1', 'norm1'), ('norm2', 'norm2'),
+                         ('qkv', 'attn.qkv'), ('proj', 'attn.proj'),
+                         ('fc1', 'mlp.fc1'), ('fc2', 'mlp.fc2')):
+        w_fn = _same if ours.startswith('norm') else (lambda w: w.T)
+        out.update(_unstack(bl[ours]['w'], pre + f'{theirs}.weight', w_fn))
+        out.update(_unstack(bl[ours]['b'], pre + f'{theirs}.bias', _same))
+    mg = vt['merger']
+    out['visual.merger.ln_q.weight'] = mg['ln_q']['w']
+    out['visual.merger.ln_q.bias'] = mg['ln_q']['b']
+    for i, key in ((0, 'mlp0'), (2, 'mlp2')):
+        out[f'visual.merger.mlp.{i}.weight'] = mg[key]['w'].T
+        out[f'visual.merger.mlp.{i}.bias'] = mg[key]['b']
+    _qwen_vl_write(path, out, tc, {
+        'architectures': ['Qwen2VLForConditionalGeneration'],
+        'model_type': 'qwen2_vl',
+        'image_token_id': cfg.image_token_id,
+        'vision_config': {
+            'model_type': 'qwen2_vl',
+            'depth': vc.depth, 'embed_dim': vc.embed_dim,
+            'num_heads': vc.num_heads, 'patch_size': vc.patch_size,
+            'spatial_merge_size': vc.spatial_merge_size,
+            'temporal_patch_size': vc.temporal_patch_size,
+            'mlp_ratio': vc.mlp_ratio, 'in_channels': 3,
+            'hidden_size': tc.hidden_size,
+        },
+    }, dtype)
+
+
+def save_qwen2_5_vl_params(path: str, params: dict, cfg,
+                           dtype: torch.dtype = torch.float32) -> None:
+    """Write a Qwen2.5-VL checkpoint in HF format, every tensor in
+    ``dtype``: the inverse of ``load_qwen2_5_vl_params``, with the names
+    and ``config.json`` of JAX's ``save_qwen2_5_vl_params``."""
+    from align_anything_tpu_torch.models.qwen2_vl import check_supported  # noqa: PLC0415
+
+    check_supported(cfg)
+    os.makedirs(path, exist_ok=True)
+    vc = cfg.vision
+    out, tc = _qwen_vl_out(params, cfg.text)
+    vt, pre = params['visual'], 'visual.blocks.{i}.'
+    out['visual.patch_embed.proj.weight'] = _patch_embed_out(
+        vt['patch_embed']['w'], vc)
+    bl = vt['blocks']
+    for nm in ('norm1', 'norm2'):
+        out.update(_unstack(bl[nm]['w'], pre + f'{nm}.weight', _same))
+    for ours, theirs in (('qkv', 'attn.qkv'), ('proj', 'attn.proj'),
+                         ('gate', 'mlp.gate_proj'), ('up', 'mlp.up_proj'),
+                         ('down', 'mlp.down_proj')):
+        out.update(_unstack(bl[ours]['w'], pre + f'{theirs}.weight',
+                            lambda w: w.T))
+        out.update(_unstack(bl[ours]['b'], pre + f'{theirs}.bias', _same))
+    mg = vt['merger']
+    out['visual.merger.ln_q.weight'] = mg['ln_q']['w']
+    for i, key in ((0, 'mlp0'), (2, 'mlp2')):
+        out[f'visual.merger.mlp.{i}.weight'] = mg[key]['w'].T
+        out[f'visual.merger.mlp.{i}.bias'] = mg[key]['b']
+    _qwen_vl_write(path, out, tc, {
+        'architectures': ['Qwen2_5_VLForConditionalGeneration'],
+        'model_type': 'qwen2_5_vl',
+        'image_token_id': cfg.image_token_id,
+        'video_token_id': cfg.video_token_id,
+        'vision_config': {
+            'model_type': 'qwen2_5_vl',
+            'depth': vc.depth, 'hidden_size': vc.embed_dim,
+            'num_heads': vc.num_heads, 'patch_size': vc.patch_size,
+            'spatial_merge_size': vc.spatial_merge_size,
+            'temporal_patch_size': vc.temporal_patch_size,
+            'intermediate_size': vc.intermediate_size,
+            'window_size': vc.window_size,
+            'fullatt_block_indexes': list(vc.fullatt_block_indexes),
+            'out_hidden_size': tc.hidden_size, 'in_channels': 3,
+            'hidden_act': 'silu',
+        },
+    }, dtype, text_extra={'model_type': 'qwen2_5_vl_text'})
 
 
 def _to_hf_config(c: ModelConfig) -> dict:

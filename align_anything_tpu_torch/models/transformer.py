@@ -35,6 +35,10 @@ takes the rope table of ``rope_local_theta`` and sees keys fewer than
 ``sliding_window`` positions back, through the kernel's window in training
 (``ops/attention.windowed_causal_attention``) and through the masks of the
 cache paths.
+
+m-rope (``mrope_section``, the Qwen2-VL trunk): (3, B, L) positions rotate
+q and k with ``ops/rope.apply_mrope``; (B, L) positions take plain rope, as
+the decode steps do.
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ from align_anything_tpu_torch.ops.attention import (
 # either may be imported first
 from align_anything_tpu_torch.ops import int4_matmul as k2
 from align_anything_tpu_torch.ops.norms import layer_norm, rms_norm
-from align_anything_tpu_torch.ops.rope import apply_rope, rope_table
+from align_anything_tpu_torch.ops.rope import apply_mrope, apply_rope, rope_table
 from align_anything_tpu_torch.utils.tools import default_device
 
 NEG_INF = -2.3819763e38  # close to bf16 -inf without overflow
@@ -88,8 +92,6 @@ def check_supported(c: ModelConfig) -> None:
         missing.append('pipeline stages (pp_stages)')
     if c.remat not in REMAT_POLICIES:
         missing.append(f'remat policy {c.remat!r}')
-    if c.mrope_section is not None:
-        missing.append('m-rope (mrope_section)')
     if missing:
         raise NotImplementedError('not ported yet: ' + ', '.join(missing))
 
@@ -424,7 +426,13 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
     if c.attn_scale is not None:
         # fold the override into q; attention keeps its internal d^-0.5
         q = q * (c.attn_scale * c.head_dim ** 0.5)
-    if c.positional == 'rope':
+    if c.positional == 'rope' and c.mrope_section is not None \
+            and positions.ndim == 3:
+        # m-rope (Qwen2-VL): (3, B, L) streams rotate their head-dim
+        # sections; scalar-stream positions (decode) take plain rope
+        q = apply_mrope(q, positions, sin, cos, c.mrope_section)
+        k = apply_mrope(k, positions, sin, cos, c.mrope_section)
+    elif c.positional == 'rope':
         q = apply_rope(q, positions, sin, cos)
         k = apply_rope(k, positions, sin, cos)
 
@@ -626,7 +634,9 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
     No cache: ``attention_mask`` is (B, L) over the inputs.  With a cache:
     inputs are written at ``cache_offset`` and ``attention_mask``, when
     given, is (B, max_len) over cache slots (and includes the new tokens).
-    ``positions`` are required with a cache.  ``inputs_embeds`` (B, L, E),
+    ``positions`` are required with a cache: (B, L), or (3, B, L) m-rope
+    streams where the config has an ``mrope_section`` (Qwen2-VL; a decode
+    step passes scalar-stream (B, 1) positions).  ``inputs_embeds`` (B, L, E),
     when given, replaces the embedding lookup of ``input_ids`` (the
     multimodal models merge image features into it); positions still come
     from the mask."""

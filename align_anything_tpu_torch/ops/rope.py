@@ -1,4 +1,5 @@
-"""Rotary position embeddings (Llama/Qwen-style half-rotation layout).
+"""Rotary position embeddings (Llama/Qwen-style half-rotation layout),
+and Qwen2-VL's multimodal m-rope (``apply_mrope``).
 
 The table is computed apart from its application, so a decode step slices
 one position without recomputing sin/cos.  All math in float32.
@@ -54,6 +55,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, sin: torch.Tensor,
     d_half = x.shape[-1] // 2
     sin_p = sin[positions][..., None, :]  # (..., L, 1, D/2)
     cos_p = cos[positions][..., None, :]
+    x1 = x[..., :d_half].to(torch.float32)
+    x2 = x[..., d_half:].to(torch.float32)
+    out = torch.cat([x1 * cos_p - x2 * sin_p, x2 * cos_p + x1 * sin_p], dim=-1)
+    return out.to(dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sin: torch.Tensor,
+                cos: torch.Tensor, sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal rotary (Qwen2-VL m-rope): ``positions`` (3, B, L) holds
+    the (temporal, height, width) ids; the i-th slice of ``sections[i]``
+    dim pairs rotates by stream i.  ``sum(sections) == D/2``.  Text-only
+    tokens (three equal streams) reduce exactly to :func:`apply_rope`."""
+    dtype = x.dtype
+    d_half = x.shape[-1] // 2
+    if sum(sections) != d_half:
+        raise ValueError(f'mrope sections {tuple(sections)} sum to '
+                         f'{sum(sections)}, not D/2 = {d_half}')
+
+    def gather(table):
+        parts, off = [], 0
+        for i, sec in enumerate(sections):
+            parts.append(table[positions[i]][..., off:off + sec])
+            off += sec
+        return torch.cat(parts, dim=-1)[..., None, :]   # (B, L, 1, D/2)
+
+    sin_p, cos_p = gather(sin), gather(cos)
     x1 = x[..., :d_half].to(torch.float32)
     x2 = x[..., d_half:].to(torch.float32)
     out = torch.cat([x1 * cos_p - x2 * sin_p, x2 * cos_p + x1 * sin_p], dim=-1)

@@ -56,7 +56,7 @@ from align_anything_tpu_torch.trainers.text_image_to_text.rm import (
 )
 from align_anything_tpu_torch.trainers.text_image_to_text.sft import (
     compute_config,
-    load_vision_lm,
+    load_llava_lm,
 )
 from align_anything_tpu_torch.trainers.text_to_text.ppo import PPOTrainer
 from align_anything_tpu_torch.utils.tools import tree_map
@@ -73,7 +73,7 @@ class TI2TRLMixin:
         and its frozen fp32 copy as the reference, a full one: the actor's
         tower trains (R13)."""
         path = self.cfgs.model_cfgs.actor_model_name_or_path
-        params, cfg, _ = load_vision_lm(path, device=self.device)
+        params, cfg, _ = load_llava_lm(path, device=self.device)
         self.model_cfg = compute_config(self, cfg)
         self.tokenizer = self.load_tokenizer_for(path, self.model_cfg,
                                                  padding_side='left')
@@ -85,7 +85,7 @@ class TI2TRLMixin:
         """A multimodal score model: the trunk from ``path`` in the actor's
         compute dtype and its head from ``score_head.npy`` beside it (a
         fresh one where there is none)."""
-        params, cfg, _ = load_vision_lm(path, device=self.device)
+        params, cfg, _ = load_llava_lm(path, device=self.device)
         cfg = cfg.replace(compute_dtype=self.model_cfg.compute_dtype)
         params['score_head'] = {'w': score_model.load_score_head(
             path, cfg.hidden_size, self.next_rng(), device=self.device)}

@@ -35,7 +35,7 @@ from align_anything_tpu_torch.trainers.cli import trainer_main
 from align_anything_tpu_torch.trainers.text_image_to_text.sft import (
     TI2TTrainerMixin,
     compute_config,
-    load_vision_lm,
+    load_llava_lm,
 )
 from align_anything_tpu_torch.trainers.text_to_text.rm import RMTrainer
 from align_anything_tpu_torch.utils.tools import last_true_index
@@ -66,7 +66,7 @@ class TI2TRMTrainer(TI2TTrainerMixin, RMTrainer):
 
     def init_models(self) -> None:
         path = self.cfgs.model_cfgs.model_name_or_path
-        params, cfg, self.mm = load_vision_lm(path, device=self.device)
+        params, cfg, self.mm = load_llava_lm(path, device=self.device)
         self.model_cfg = compute_config(self, cfg)
         self.tokenizer = self.load_tokenizer_for(path, self.model_cfg)
         params['score_head'] = {'w': score_model.load_score_head(

@@ -15,9 +15,19 @@ default) leave their modules out of the optimizer and out of the backward.
 The LLaVA family loads: LLaVA-1.5 (``model_type`` 'llava'), LLaVA-Next
 ('llava_next', whose images go through ``AnyResProcessor``: crops, the
 packing gather ``select_idx`` and a token count per image) and
-LLaVA-NeXT-Video ('llava_next_video').  The JAX package's other vision-LM
-families (Qwen2-VL, Qwen2.5-VL, MLlama, MiniCPM-V, Idefics2) and their
-image processors are not ported yet (ROADMAP §1 item 12).
+LLaVA-NeXT-Video ('llava_next_video'); so do Qwen2-VL ('qwen2_vl') and
+Qwen2.5-VL ('qwen2_5_vl'), whose images become patch rows
+(``PatchProcessor`` at the fixed 224 px grid, or ``DynamicPatchProcessor``
+under ``dynamic_resolution``: per-image grids ride the batch as
+``image_grid_thw``).  The JAX package's other vision-LM families (MLlama,
+MiniCPM-V, Idefics2) and their image processors are not ported yet
+(ROADMAP §1 item 12).
+
+ROADMAP §3 R27: the freeze flags name the module keys of the LLaVA tree
+(``freeze_vision_tower`` -> ``vision_tower``); a Qwen2-VL tree names its
+tower and merger ``visual``, so under the YAMLs' ``freeze_vision_tower:
+True`` nothing is frozen and the tower trains, as in JAX.  One line at
+start-up names each flag that misses.
 """
 
 from __future__ import annotations
@@ -35,78 +45,131 @@ from align_anything_tpu_torch.data.image import (
     TI2TSupervisedDataset,
 )
 from align_anything_tpu_torch.losses import cross_entropy_loss
-from align_anything_tpu_torch.models import multimodal
+from align_anything_tpu_torch.models import (
+    multimodal,
+    qwen2_5_vl,
+    qwen2_vl,
+    transformer,
+)
 from align_anything_tpu_torch.models.hf_loader import (
     LLAVA_MODEL_TYPES,
     load_multimodal_params,
+    load_qwen2_5_vl_params,
+    load_qwen2_vl_params,
 )
 from align_anything_tpu_torch.trainers.cli import trainer_main
 from align_anything_tpu_torch.trainers.text_to_text.sft import SupervisedTrainer
 
+QWEN_VL_LOADERS = {'qwen2_vl': (load_qwen2_vl_params, qwen2_vl),
+                   'qwen2_5_vl': (load_qwen2_5_vl_params, qwen2_5_vl)}
 MM_BATCH_KEYS = ('image_grid_thw', 'aspect_ratio_ids', 'aspect_ratio_mask',
                  'select_idx', 'tgt_sizes')
 
 
 def mm_kwargs(batch: dict) -> dict:
     """Extra multimodal forward kwargs present in the batch (AnyRes's
-    ``select_idx``; the dynamic-resolution grids and tile metadata of the
-    families not ported yet)."""
+    ``select_idx``, Qwen2-VL's dynamic-resolution ``image_grid_thw``; the
+    tile metadata of the families not ported yet)."""
     return {k: batch[k] for k in MM_BATCH_KEYS if batch.get(k) is not None}
 
 
-def load_vision_lm(path: str, device: torch.device | str | None = None):
-    """(params, cfg, model module) for a vision-LM checkpoint directory on
-    ``device`` (default: the first CUDA device).  The LLaVA family only
-    (``LLAVA_MODEL_TYPES``): another ``model_type`` raises."""
+def load_llava_lm(path: str, device: torch.device | str | None = None):
+    """(params, cfg, ``multimodal``) for a LLaVA-family checkpoint
+    (``LLAVA_MODEL_TYPES``) on ``device`` (default: the first CUDA device),
+    as JAX's TI2T RM, PPO, GRPO and Safe-RLHF-V load theirs
+    (``load_multimodal_params``); another ``model_type`` raises."""
     with open(os.path.join(path, 'config.json')) as f:
         model_type = json.load(f).get('model_type')
     if model_type not in LLAVA_MODEL_TYPES:
         raise NotImplementedError(
-            f'vision-LM model_type {model_type!r} is not ported yet (ROADMAP '
-            f'§1 item 12); the port loads the LLaVA family '
-            f'{LLAVA_MODEL_TYPES}')
+            f'model_type {model_type!r}: this trainer loads the LLaVA family '
+            f'{LLAVA_MODEL_TYPES}, as in JAX (the other vision-LM families: '
+            'ROADMAP §1 item 12)')
     params, cfg = load_multimodal_params(path, device=device)
     return params, cfg, multimodal
 
 
-def compute_config(trainer, cfg: multimodal.MultimodalConfig
-                   ) -> multimodal.MultimodalConfig:
+def load_vision_lm(path: str, device: torch.device | str | None = None):
+    """(params, cfg, model module) for a vision-LM checkpoint directory on
+    ``device`` (default: the first CUDA device), by its ``model_type``, as
+    JAX's TI2T SFT and DPO dispatch: Qwen2-VL and Qwen2.5-VL, else the
+    LLaVA family (``load_llava_lm``); another ``model_type`` raises."""
+    with open(os.path.join(path, 'config.json')) as f:
+        model_type = json.load(f).get('model_type')
+    if model_type in QWEN_VL_LOADERS:
+        load, module = QWEN_VL_LOADERS[model_type]
+        params, cfg = load(path, device=device)
+        return params, cfg, module
+    return load_llava_lm(path, device=device)
+
+
+def compute_config(trainer, cfg):
     """The loaded config with the run's compute dtype (bf16 unless
     ``bf16`` is False) and nothing else, as JAX's TI2T RM, PPO, GRPO and
     Safe-RLHF-V trainers set it (no remat)."""
     tc = trainer.cfgs.train_cfgs
     cfg = cfg.replace(
         compute_dtype='bfloat16' if tc.bf16 in (True, None) else 'float32')
-    multimodal.check_supported(cfg)
+    transformer.check_supported(cfg.text)
     return cfg
 
 
-def runtime_config(trainer, cfg: multimodal.MultimodalConfig
-                   ) -> multimodal.MultimodalConfig:
+def runtime_config(trainer, cfg):
     """``compute_config`` plus the run's remat policy, as the JAX TI2T SFT
     and DPO trainers set them."""
     tc = trainer.cfgs.train_cfgs
     cfg = compute_config(trainer, cfg).replace(
         remat=trainer.mesh_config.remat
         if tc.gradient_checkpointing in (True, None) else 'none')
-    multimodal.check_supported(cfg)
+    transformer.check_supported(cfg.text)
     return cfg
 
 
+def report_missed_freeze_flags(trainer, params: dict) -> list[str]:
+    """ROADMAP §3 R27: one line for each freeze flag that is set but names
+    no module of ``params`` (so it freezes nothing, as in JAX); the lines
+    are printed and returned."""
+    tc = trainer.cfgs.train_cfgs
+    lines = [f'{flag}: True names {names}, which the {trainer.mm.__name__} '
+             f'tree {tuple(params)} does not hold: nothing is frozen and '
+             'those weights train, as in JAX (ROADMAP §3 R27)'
+             for flag, names in trainer.FREEZE_FLAG_MODULES
+             if getattr(tc, flag, None)
+             and not any(n in params for n in names)]
+    for line in lines:
+        print(line, flush=True)
+    return lines
+
+
 class TI2TTrainerMixin:
-    """The LLaVA model and the image datasets of the TI2T trainers, over a
-    text trainer's engine; ``DATASET_CLS`` is the image dataset."""
+    """The vision-LM model and the image datasets of the TI2T trainers,
+    over a text trainer's engine; ``DATASET_CLS`` is the image dataset."""
 
     def init_models(self) -> None:
         path = self.cfgs.model_cfgs.model_name_or_path
         params, cfg, self.mm = load_vision_lm(path, device=self.device)
         self.model_cfg = runtime_config(self, cfg)
         self.tokenizer = self.load_tokenizer_for(path, self.model_cfg)
+        report_missed_freeze_flags(self, params)
         self.params = self.trainable(params)
 
-    def make_image_processor(self) -> ImageProcessor | AnyResProcessor:
-        """AnyRes tiling for a LLaVA-Next config (pinpoints), else the
+    def make_image_processor(self):
+        """Qwen2-VL / Qwen2.5-VL: ``DynamicPatchProcessor`` under
+        ``dynamic_resolution`` (with ``min_pixels`` / ``max_pixels``), else
+        the family's fixed-grid ``PatchProcessor`` (JAX ``sft.py:113-125``;
+        the 2.5 tower's config serves the Qwen2-VL patchifier).  LLaVA:
+        AnyRes tiling for a LLaVA-Next config (pinpoints), else the
         fixed-resolution CLIP processor."""
+        tc = self.cfgs.train_cfgs
+        if self.mm in (qwen2_vl, qwen2_5_vl):
+            if tc.dynamic_resolution:
+                return qwen2_vl.DynamicPatchProcessor(
+                    self.model_cfg.vision,
+                    min_pixels=(int(tc.min_pixels) if tc.min_pixels
+                                else None),
+                    max_pixels=(int(tc.max_pixels) if tc.max_pixels
+                                else None))
+            return self.mm.PatchProcessor(self.model_cfg.vision)
         if self.model_cfg.image_grid_pinpoints is not None:
             return AnyResProcessor(self.model_cfg.vision,
                                    self.model_cfg.image_grid_pinpoints)
@@ -114,7 +177,8 @@ class TI2TTrainerMixin:
             size=self.model_cfg.vision.image_size))
 
     def image_num_patches(self) -> int:
-        """Per-image <image> expansion count."""
+        """Per-image <image> expansion count at the fixed grid (a processor
+        that returns a dict gives each image's own count)."""
         return self.model_cfg.vision.num_patches
 
     def make_dataset(self, dataset_cls, path, template, max_len, **kw):

@@ -44,8 +44,9 @@ Phases (any failure raises and the run exits non-zero):
      two main shapes, at phase 16's (Qwen2.5-0.5B's heads), at phase 18's
      tower (full attention at L 577), at ``ti2t_ppo`` and at Gemma-3-1B's
      DPO micro-batch (L 2048, 4 / 1 heads of 256) with the window 512 and
-     without, and at phase 31's decoder (``llava_next``: L 4096 at
-     LLaVA's heads);
+     without, at phase 31's decoder (``llava_next``: L 4096 at
+     LLaVA's heads) and at phase 34's (``qwen2_vl_2b``: L 1024 at
+     Qwen2-VL-2B's 12 / 2 heads);
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -231,20 +232,43 @@ Phases (any failure raises and the run exits non-zero):
      PPO from that export (5-D frames through ``generate``'s prefill) and
      TV2T GRPO; every metric finite, launches exact, the RL trainers'
      round-1 KL 0.
+ 34. (after phase 33) TI2T DPO through ``trainer_main(TI2TDPOTrainer,
+     ...)`` on Qwen2-VL at Qwen2-VL-2B-Instruct's published widths (the
+     text cut to 4 of its 28 layers, the 32-block tower, which trains:
+     ROADMAP R27), a bf16 checkpoint from a seed written by the port's
+     exporter, 4 ``Qwen2-VL``-template pairs over PNGs of four sizes at
+     dynamic resolution (``--dynamic_resolution True``: 242-256 image
+     tokens, two grids in each batch), 2 pairs in the 1024 bucket, 2 steps:
+     step 1's loss ln 2, each row's image tokens equal to its grid's, the
+     m-rope streams equal to a row-by-row host recomputation (h and w
+     differ in each span), the tower and the trunk moved, launches exact,
+     step 1's log-prob sums against a plain recompute; step time,
+     tokens/s, MFU and peak memory;
+ 35. at phase 10's text widths (2 layers) under published-width towers of
+     2 (Qwen2-VL) and 4 blocks (Qwen2.5-VL, windows of 112 px and a full
+     block): TI2T SFT on Qwen2-VL at 224 px and at dynamic resolution,
+     Qwen2.5-VL SFT and DPO at dynamic resolution, 2 steps each, launches
+     exact; then greedy ``generate`` of 16 tokens from 2 Qwen2-VL image
+     prompts with ``prefill_positions`` / ``position_offset`` (fp32
+     compute): every id the argmax of a no-cache forward over the grown
+     sequence.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
-    python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3]
+    python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3 qwen2vl]
                                       # instead: trace one DPO step of the
                                       # phase 7 and phase 8 configs, one
                                       # PPO round of phase 12's, one TI2T
                                       # DPO step of phase 18's, one
-                                      # QLoRA DPO step of phase 22's and
-                                      # one Gemma-3-1B DPO step and
-                                      # generate call of phases 24-25's (the
-                                      # ones named; all by default)
+                                      # QLoRA DPO step of phase 22's, one
+                                      # Gemma-3-1B DPO step and
+                                      # generate call of phases 24-25's and
+                                      # one Qwen2-VL DPO step of phase 34's
+                                      # with its tower and the tower's
+                                      # attention alone (the ones named;
+                                      # all by default)
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
 each DPO config with ``torch.profiler`` and prints device time by kernel,
@@ -370,6 +394,10 @@ FLASH_SHAPES = [
     # tokens) in the 4096 bucket at llava-v1.6-vicuna-7b's heads, trailing
     # pads on two rows
     ('llava_next', 4, 4096, 32, 32, 128, True, None, 2, None,
+     torch.bfloat16, True),
+    # phase 34's decoder: Qwen2-VL-2B's heads (12 / 2, a GQA group of 6)
+    # over its DPO rows in the 1024 bucket, trailing pads on two rows
+    ('qwen2_vl_2b', 4, 1024, 12, 2, 128, True, None, 2, None,
      torch.bfloat16, True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
@@ -2160,10 +2188,11 @@ def ppo_full(dev, smi, tmp: str, rm: dict) -> dict:
     per_round = {'fwd': (4 + 2 * n_micro) * RL_LAYERS,
                  'bwd': 2 * n_micro * RL_LAYERS}
     runs = {}
-    # the second run exports nothing: 6 GB more of disk writes (see phase
-    # 9) for the same save the first run makes
+    # neither run exports: the actor's fp32 slice at these widths is 6 GB
+    # of disk writes that no later phase reads (phase 13 checks PPO's
+    # export at bench.py's widths)
     for backend, rounds, extra, out in (
-            ('batch', 2, (), os.path.join(tmp, 'out_ppo_batch')),
+            ('batch', 2, (), None),
             ('continuous', 1, ('--rollout_backend', 'continuous',
                                '--rollout_num_slots', '8',
                                '--train_size', str(PPO_ROUND)), None)):
@@ -2964,22 +2993,27 @@ def ti2t_rows(images: list, seed: int, preference: bool) -> list:
 
 def run_ti2t(trainer_cls, task: str, argv: list,
              mesh_file: str | None = None) -> tuple:
-    """``run_trainer`` for a TI2T trainer, timing the LLaVA checkpoints'
-    loads (summed where the trainer loads several)."""
+    """``run_trainer`` for a TI2T trainer, timing the LLaVA and Qwen-VL
+    checkpoints' loads (summed where the trainer loads several)."""
     from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
         sft as ti2t_sft)
 
     timing = {'load_s': 0.0}
-    load = ti2t_sft.load_multimodal_params
 
-    def timed_load(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = load(*args, **kwargs)
-        torch.cuda.synchronize()
-        timing['load_s'] += time.perf_counter() - t0
-        return out
+    def timed(load):
+        def timed_load(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = load(*args, **kwargs)
+            torch.cuda.synchronize()
+            timing['load_s'] += time.perf_counter() - t0
+            return out
+        return timed_load
 
-    with mock.patch.object(ti2t_sft, 'load_multimodal_params', timed_load):
+    qwen = {k: (timed(load), module)
+            for k, (load, module) in ti2t_sft.QWEN_VL_LOADERS.items()}
+    with mock.patch.object(ti2t_sft, 'load_multimodal_params',
+                           timed(ti2t_sft.load_multimodal_params)), \
+            mock.patch.dict(ti2t_sft.QWEN_VL_LOADERS, qwen):
         trainer, steps, _ = run_trainer(trainer_cls, task, argv, mesh_file)
     return trainer, steps, timing
 
@@ -4307,6 +4341,427 @@ def llava_next_small(dev, smi, tmp: str) -> dict:
         f'checkpoint {w["bytes"] / 1e9:.4f} GB); '
         f'{disk_written() - written0:.4f} GB written by the phase, '
         f'{disk_written():.3f} GB by the run so far')
+    return {'launches': total}
+
+
+# phases 34-35: Qwen2-VL and Qwen2.5-VL through the TI2T entry points.
+# Phase 34 runs Qwen/Qwen2-VL-2B-Instruct's published config.json: the
+# text trunk (vocab 151936, hidden 1536, 12 / 2 heads of 128, MLP 8960,
+# tied embeddings, QKV bias, rope theta 1e6, m-rope sections 16 / 24 / 24)
+# cut to 4 of its 28 layers, the tower at its full 32 blocks (1280 wide, 16
+# heads of 80, MLP ratio 4, patches of 14 merged 2 x 2, 2 frames).  The
+# TI2T YAMLs' freeze_vision_tower names 'vision_tower', which the Qwen2-VL
+# tree does not hold (its tower is 'visual'), so the tower and merger train
+# (ROADMAP §3 R27), as in JAX.  Dynamic resolution is a key of dpo.yaml, so
+# the command line switches it on; smart_resize's default 256 x 28^2 pixels
+# give at most 1024 patches, 256 image tokens an image.
+QWEN2_VL_2B = dict(vocab_size=151936, hidden_size=1536, num_heads=12,
+                   num_kv_heads=2, head_dim=128, mlp_dim=8960,
+                   max_position_embeddings=32768, rope_theta=1000000.0,
+                   norm_eps=1e-6, qkv_bias=True, tie_word_embeddings=True,
+                   mrope_section=(16, 24, 24), bos_token_id=151643,
+                   eos_token_id=151645, pad_token_id=151643)
+QWEN2_VL_2B_VISION = dict(depth=32, embed_dim=1280, num_heads=16,
+                          patch_size=14, spatial_merge_size=2,
+                          temporal_patch_size=2, mlp_ratio=4.0)
+QWEN2_VL_IMAGE_TOKEN = 151655
+QWEN2_VL_TEXT_LAYERS, QWEN2_VL_PAIRS, QWEN2_VL_STEPS = 4, 2, 2
+QWEN2_VL_BUCKET = 1024
+# four grids (smart_resize at its default max of 200704 pixels): 32 x 32,
+# 22 x 44, 44 x 22 and 28 x 36 patches, 256, 242, 242 and 252 image tokens:
+# every batch of two rows holds two grids
+QWEN2_VL_SIZES = ((448, 448), (336, 672), (672, 336), (392, 504))
+# phase 35: phase 10's text widths (2 layers; head dim 64, sections
+# 8 / 12 / 12) under towers at their published widths, 2 blocks (Qwen2-VL)
+# and 4 (Qwen2.5-VL: windows of 112 px, full attention at block 3)
+QWEN_SMALL_IMAGE_TOKEN = 32000
+QWEN_SMALL_ROWS, QWEN_SMALL_BATCH, QWEN_SMALL_BUCKET = 4, 2, 1024
+QWEN_SMALL_SIZES = ((224, 224), (168, 336), (336, 168), (280, 224))
+QWEN_GEN_PROMPTS, QWEN_GEN_NEW = 2, 16
+
+
+def qwen2_vl_config(text_layers: int = QWEN2_VL_TEXT_LAYERS):
+    """Qwen2-VL-2B-Instruct's published widths, the text cut to
+    ``text_layers``."""
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+    from align_anything_tpu_torch.models.qwen2_vl import (  # noqa: PLC0415
+        Qwen2VLConfig, Qwen2VLVisionConfig)
+
+    return Qwen2VLConfig(
+        text=ModelConfig(num_layers=text_layers, **QWEN2_VL_2B),
+        vision=Qwen2VLVisionConfig(**QWEN2_VL_2B_VISION),
+        image_token_id=QWEN2_VL_IMAGE_TOKEN)
+
+
+def qwen_small_configs() -> tuple:
+    """(Qwen2-VL, Qwen2.5-VL) configs of phase 35."""
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+    from align_anything_tpu_torch.models.qwen2_5_vl import (  # noqa: PLC0415
+        Qwen25VLConfig, Qwen25VLVisionConfig)
+    from align_anything_tpu_torch.models.qwen2_vl import (  # noqa: PLC0415
+        Qwen2VLConfig, Qwen2VLVisionConfig)
+
+    s = SMALL
+    text = ModelConfig(
+        vocab_size=s['vocab_size'], hidden_size=s['hidden'],
+        num_layers=s['layers'], num_heads=s['heads'],
+        num_kv_heads=s['kv_heads'], head_dim=s['hidden'] // s['heads'],
+        mlp_dim=s['mlp'], max_position_embeddings=s['max_pos'],
+        rope_theta=1000000.0, norm_eps=1e-6, qkv_bias=True,
+        tie_word_embeddings=True, mrope_section=(8, 12, 12),
+        bos_token_id=1, eos_token_id=2, pad_token_id=0)
+    q2 = Qwen2VLConfig(text=text, vision=Qwen2VLVisionConfig(
+        **{**QWEN2_VL_2B_VISION, 'depth': 2}),
+        image_token_id=QWEN_SMALL_IMAGE_TOKEN)
+    q25 = Qwen25VLConfig(text=text, vision=Qwen25VLVisionConfig(
+        depth=4, embed_dim=1280, num_heads=16, intermediate_size=3420,
+        window_size=112, fullatt_block_indexes=(3,)),
+        image_token_id=QWEN_SMALL_IMAGE_TOKEN)
+    return q2, q25
+
+
+def write_qwen_vl(cfg, path: str, seed: int, dev) -> dict:
+    """A Qwen2-VL or Qwen2.5-VL checkpoint of ``cfg`` with random weights
+    from ``seed``, written in bf16 by the port's exporter: params per
+    module, seconds and bytes."""
+    from align_anything_tpu_torch.models import qwen2_5_vl, qwen2_vl  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        save_qwen2_5_vl_params, save_qwen2_vl_params)
+
+    family = hasattr(cfg.vision, 'window_size')
+    module = qwen2_5_vl if family else qwen2_vl
+    save = save_qwen2_5_vl_params if family else save_qwen2_vl_params
+    params = module.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = {m: sum(t.numel() for t in param_leaves(params[m]))
+                for m in params}
+    t0 = time.perf_counter()
+    save(path, params, cfg, dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    del params
+    free_memory()
+    return {'n_params': n_params, 'write_s': write_s,
+            'bytes': os.path.getsize(os.path.join(path, 'model.safetensors'))}
+
+
+def mrope_streams_host(ids: np.ndarray, image_token: int,
+                       grids: np.ndarray, merge: int) -> np.ndarray:
+    """HF ``get_rope_index`` for rows with one image span, row by row in
+    plain Python: (3, B, L) int64.  Text counts up on all three streams;
+    the span's tokens sit at the span's start plus (0, row, column) of the
+    merged grid; the text after it continues from the start plus the
+    grid's larger side."""
+    out = np.zeros((3,) + ids.shape, np.int64)
+    for r, row in enumerate(ids.tolist()):
+        gh, gw = int(grids[r, 1]) // merge, int(grids[r, 2]) // merge
+        start = row.index(image_token) if image_token in row else len(row)
+        nxt = 0
+        for i in range(len(row)):
+            if i < start:
+                out[:, r, i] = i
+                nxt = i + 1
+            elif i < start + gh * gw:
+                k = i - start
+                out[:, r, i] = (start, start + k // gw, start + k % gw)
+                nxt = start + max(gh, gw)
+            else:
+                out[:, r, i] = nxt
+                nxt += 1
+    return out
+
+
+def qwen2_vl_dpo_assets(cfg, dev, tmp: str) -> tuple:
+    """Phase 34's checkpoint (seeded), its ``Qwen2-VL`` preference rows
+    over PNG files and the command line: (checkpoint dir, what was
+    written, argv)."""
+    ckpt = os.path.join(tmp, 'qwen2_vl_2b')
+    w = write_qwen_vl(cfg, ckpt, SEED + 340, dev)
+    images = png_images(tmp, QWEN2_VL_SIZES, SEED + 341)
+    data = write_jsonl(os.path.join(tmp, 'pref_qwen2_vl.jsonl'),
+                       ti2t_rows(images, SEED + 342, preference=True))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'Qwen2-VL', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(QWEN2_VL_PAIRS), '--padding_buckets', f'[{QWEN2_VL_BUCKET}]',
+            '--dynamic_resolution', 'True']
+    return ckpt, w, argv
+
+
+def qwen2_vl_dpo_full(dev, smi, tmp: str) -> dict:
+    """Phase 34: TI2T DPO through ``trainer_main(TI2TDPOTrainer, ...)``
+    (``python -m ...text_image_to_text.dpo``) at Qwen2-VL-2B widths, from a
+    bf16 Qwen2-VL checkpoint written by the port's exporter, at dynamic
+    resolution."""
+    from align_anything_tpu_torch.models import qwen2_vl  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_qwen2_vl_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    cfg = qwen2_vl_config()
+    ckpt, w, argv = qwen2_vl_dpo_assets(cfg, dev, tmp)
+    n = w['n_params']
+    log(f'phase34 wrote the checkpoint (Qwen2-VL-2B widths, text '
+        f'{cfg.text.num_layers} layers, tower {cfg.vision.depth} blocks; '
+        f'params language_model {n["language_model"] / 1e9:.3f} B, visual '
+        f'{n["visual"] / 1e9:.3f} B; bf16 safetensors in Qwen2-VL layout): '
+        f'{w["bytes"] / 1e9:.3f} GB in {w["write_s"]:.2f} s; '
+        f'{len(QWEN2_VL_SIZES)} preference rows over PNG files of '
+        f'{QWEN2_VL_SIZES}; argv {" ".join(argv[2:])}; '
+        f'MESH_FILE={HARNESS_MESH}')
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with recording_loss(TI2TDPOTrainer, 'preference_loss', first, (
+            'input_ids', 'attention_mask', 'response_mask', 'pixel_values',
+            'image_grid_thw')):
+        trainer, steps, timing = run_ti2t(
+            TI2TDPOTrainer, 'text_image_to_text/dpo', argv, HARNESS_MESH)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    start, _ = load_qwen2_vl_params(ckpt, device=dev)
+    moved = changed_modules(trainer.state.params,
+                            {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    ids = b['input_ids'].cpu().numpy()
+    grids = b['image_grid_thw'].cpu().numpy()
+    m = cfg.vision.spatial_merge_size
+    n_image = (ids == cfg.image_token_id).sum(-1).tolist()
+    want_image = [int(g[1] * g[2]) // (m * m) for g in grids]
+    # the m-rope streams the forward used, against the host's
+    streams = qwen2_vl.default_positions(mcfg, b['input_ids'],
+                                         b['image_grid_thw']).cpu().numpy()
+    host = mrope_streams_host(ids, cfg.image_token_id, grids, m)
+    span = ids == cfg.image_token_id
+    hw_differ = [bool((streams[1, r][span[r]] != streams[2, r][span[r]])
+                      .any()) for r in range(shape[0])]
+    losses = [s['train/loss'] for s in steps]
+    step_s, tps = step_report('phase34', steps, shape, 'train/loss')
+    layers = mcfg.text.num_layers
+    need = {'fwd': QWEN2_VL_STEPS * 3 * layers,
+            'bwd': QWEN2_VL_STEPS * layers}
+    # FLOPs of a step: the text's by bench.py's convention over the padded
+    # rows, the tower's 8 x its params a patch (policy forward and
+    # backward, reference forward: it trains, R27) and its attention, 16 x
+    # N^2 x width a block and row, over the padded patch rows
+    n_text = n['language_model']
+    n_pad = b['pixel_values'].shape[1]
+    tower_flops = shape[0] * (8 * n['visual'] * n_pad + 16 * n_pad ** 2
+                              * cfg.vision.embed_dim * cfg.vision.depth)
+    step_flops = (shape[0] * shape[1] * dpo_flops_per_token(
+        n_text, shape[1], cfg.text.hidden_size, layers) + tower_flops)
+    mfu = step_flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f'phase34 Qwen2-VL TI2T DPO: batch {shape} with pixel_values '
+        f'{tuple(b["pixel_values"].shape)}, image_grid_thw '
+        f'{grids.tolist()}; image tokens per row {n_image} (the grids give '
+        f'{want_image}); m-rope streams equal to the host\'s: '
+        f'{bool(np.array_equal(streams, host))}, h and w streams differ in '
+        f'each image span: {hw_differ}; remat {mcfg.text.remat}, compute '
+        f'{mcfg.text.compute_dtype}; trainer_main {total_s:.2f} s (load '
+        f'{timing["load_s"]:.2f} s, {len(steps)} steps); step time '
+        f'{step_s:.4f} s (step 2), {tps:.1f} tokens/s, MFU {mfu:.4f} '
+        f'({step_flops / 1e12:.2f} TFLOP a step, the tower '
+        f'{tower_flops / 1e12:.2f}, against 989 TFLOP/s); peak memory '
+        f'{peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident before); '
+        f'modules moved {moved}; flash launches fwd {launches["fwd"]} (need '
+        f'{need["fwd"]}) bwd {launches["bwd"]} (need {need["bwd"]}); card '
+        f'{smi}')
+    if len(steps) != QWEN2_VL_STEPS or shape != (2 * QWEN2_VL_PAIRS,
+                                                 QWEN2_VL_BUCKET):
+        raise AssertionError(f'Qwen2-VL DPO: {len(steps)} steps at {shape}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'Qwen2-VL DPO step 1 loss {losses[0]!r} != '
+                             'ln 2')
+    if not all_finite(steps):
+        raise AssertionError('Qwen2-VL DPO: a non-finite metric')
+    if n_image != want_image or len({tuple(g) for g in grids[:QWEN2_VL_PAIRS]
+                                     .tolist()}) != 2:
+        raise AssertionError('Qwen2-VL DPO: image tokens off their grids, '
+                             'or a batch of one grid')
+    if not (np.array_equal(streams, host) and all(hw_differ)):
+        raise AssertionError('Qwen2-VL DPO: the m-rope streams disagree '
+                             'with the host\'s')
+    if moved != {'language_model': True, 'visual': True}:
+        raise AssertionError(f'Qwen2-VL DPO: modules moved {moved}; under '
+                             'R27 the tower trains')
+    check_launches('Qwen2-VL DPO', launches, need, exact=True)
+
+    # step 1 recomputed from the checkpoint with the plain attention, in
+    # bf16 compute and in fp32
+    params, _ = load_qwen2_vl_params(ckpt, device=dev)
+    sums = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            sums[dtype] = masked_sums(qwen2_vl.token_logprobs(
+                params, mcfg.replace(compute_dtype=dtype), b['input_ids'],
+                attention_mask=b['attention_mask'],
+                pixel_values=b['pixel_values'],
+                image_grid_thw=b['image_grid_thw']), b['response_mask'])
+    del params
+    free_memory()
+    log('phase34 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'],
+                                       sums['bfloat16'], sums['float32'])
+        + '; ' + check_sums('reference', first['ref_sums'], sums['bfloat16'],
+                            sums['float32']))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase34 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase, '
+        f'{disk_written():.3f} GB by the run so far')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'mfu': mfu, 'peak_gb': peak / 1e9}
+
+
+def qwen_vl_generation(cfg, ckpt: str, images: list, dev) -> dict:
+    """Greedy ``generate`` of ``QWEN_GEN_NEW`` tokens from image prompts at
+    the fixed grid, with m-rope prefill positions and the decode offset as
+    JAX's eval pipeline computes them, in fp32 compute: each generated id
+    is the argmax of a no-cache forward over the grown sequence."""
+    from align_anything_tpu_torch.generation import generate  # noqa: PLC0415
+    from align_anything_tpu_torch.models import qwen2_vl  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_qwen2_vl_params)
+
+    params, loaded = load_qwen2_vl_params(ckpt, device=dev)
+    gcfg = loaded.replace(compute_dtype='float32')
+    proc = qwen2_vl.PatchProcessor(gcfg.vision)
+    px = torch.as_tensor(np.stack([proc(p) for p in images]), device=dev)
+    rng = np.random.default_rng(SEED + 355)
+    n_img = gcfg.vision.num_patches
+    prompts = [[1] + list(rng.integers(3, 30000, 5)) + [
+        gcfg.image_token_id] * n_img + list(rng.integers(3, 30000, 9))
+        for _ in images]
+    ids = torch.as_tensor(prompts, device=dev)
+    mask = torch.ones_like(ids)
+    pos3 = qwen2_vl.mrope_positions(ids, gcfg.image_token_id,
+                                    gcfg.vision.grid_side // 2,
+                                    gcfg.vision.grid_side // 2)
+    offset = pos3.amax(dim=(0, 2)) + 1 - mask.sum(-1)
+    gen = GenerationConfig(max_new_tokens=QWEN_GEN_NEW, greedy=True,
+                           eos_token_id=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, gcfg, gen, ids, mask, pixel_values=px,
+                   prefill_forward=qwen2_vl.forward,
+                   step_forward=qwen2_vl.decode_forward,
+                   prefill_positions=pos3, position_offset=offset)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    seqs, p = out['sequences'], ids.shape[1]
+    agree = 0
+    with torch.no_grad():
+        for t in range(QWEN_GEN_NEW):
+            logits = qwen2_vl.forward(params, gcfg, seqs[:, :p + t],
+                                      pixel_values=px).logits[:, -1]
+            agree += int((logits.argmax(-1) == seqs[:, p + t]).sum())
+    del params
+    return {'gen_s': gen_s, 'agree': agree,
+            'total': QWEN_GEN_NEW * len(images),
+            'offset': offset.tolist(), 'ids': seqs[:, p:].tolist()}
+
+
+def qwen_vl_small(dev, smi, tmp: str) -> dict:
+    """Phase 35: at phase 10's text widths, TI2T SFT on Qwen2-VL at the
+    fixed 224 px grid and at dynamic resolution, Qwen2.5-VL SFT and DPO at
+    dynamic resolution (window and full blocks), then greedy m-rope
+    generation from Qwen2-VL image prompts."""
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+    from align_anything_tpu_torch.trainers.text_image_to_text.sft import (  # noqa: PLC0415
+        TI2TSupervisedTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    q2, q25 = qwen_small_configs()
+    ckpts = {}
+    for name, cfg, seed in (('qwen2_vl', q2, SEED + 350),
+                            ('qwen2_5_vl', q25, SEED + 351)):
+        ckpts[name] = os.path.join(tmp, f'{name}_small')
+        write_qwen_vl(cfg, ckpts[name], seed, dev)
+    images = png_images(tmp, QWEN_SMALL_SIZES, SEED + 352)
+    sft_data = write_jsonl(os.path.join(tmp, 'sft_qwen.jsonl'),
+                           ti2t_rows(images, SEED + 353, preference=False))
+    pref_data = write_jsonl(os.path.join(tmp, 'pref_qwen.jsonl'),
+                            ti2t_rows(images, SEED + 354, preference=True))
+    n_steps = QWEN_SMALL_ROWS // QWEN_SMALL_BATCH
+    layers = q2.text.num_layers
+    dynamic = ('--dynamic_resolution', 'True')
+    total = {'fwd': 0, 'bwd': 0}
+    # the default remat ('save_flash') keeps the kernel's output: SFT runs
+    # one forward a layer and step, DPO two (policy and reference)
+    runs = (('Qwen2-VL SFT, 224 px', 'qwen2_vl', TI2TSupervisedTrainer,
+             'text_image_to_text/sft', sft_data, (), 1),
+            ('Qwen2-VL SFT, dynamic', 'qwen2_vl', TI2TSupervisedTrainer,
+             'text_image_to_text/sft', sft_data, dynamic, 1),
+            ('Qwen2.5-VL SFT, dynamic', 'qwen2_5_vl', TI2TSupervisedTrainer,
+             'text_image_to_text/sft', sft_data, dynamic, 1),
+            ('Qwen2.5-VL DPO, dynamic', 'qwen2_5_vl', TI2TDPOTrainer,
+             'text_image_to_text/dpo', pref_data, dynamic, 2))
+    for tag, family, cls, task, data, flags, fwd_per_layer in runs:
+        argv = ['--model_name_or_path', ckpts[family], '--train_datasets',
+                data, '--train_template', 'Qwen2-VL', '--save_checkpoint',
+                'False', '--epochs', '1', '--per_device_train_batch_size',
+                str(QWEN_SMALL_BATCH), '--padding_buckets',
+                f'[{QWEN_SMALL_BUCKET}]', '--learning_rate', '1e-4', *flags]
+        first: dict = {}
+        name = 'preference_loss' if cls is TI2TDPOTrainer else 'loss_fn'
+        keys = ('input_ids', 'image_grid_thw', 'pixel_values')
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        with recording_loss(cls, name, first, keys):
+            trainer, steps, _ = run_ti2t(cls, task, argv)
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        mm = trainer.mm.__name__.rsplit('.', 1)[-1]
+        del trainer
+        free_memory()
+        need = {'fwd': n_steps * fwd_per_layer * layers,
+                'bwd': n_steps * layers}
+        b = first['batch']
+        grids = (b['image_grid_thw'].tolist() if 'image_grid_thw' in b
+                 else None)
+        losses = [m['train/loss'] for m in steps]
+        log(f'phase35 {tag}: model {mm}; batch {tuple(b["input_ids"].shape)}'
+            f', pixel_values {tuple(b["pixel_values"].shape)}, grids '
+            f'{grids}; losses {losses}; flash launches fwd {launches["fwd"]} '
+            f'(need {need["fwd"]}) bwd {launches["bwd"]} (need '
+            f'{need["bwd"]}); card {smi}')
+        if mm != family or len(steps) != n_steps or not all_finite(steps):
+            raise AssertionError(f'{tag}: {mm}, {len(steps)} steps, or a '
+                                 'non-finite metric')
+        if (grids is None) == bool(flags):
+            raise AssertionError(f'{tag}: image_grid_thw {grids}')
+        if cls is TI2TDPOTrainer and abs(losses[0] - math.log(2)) > 1e-6:
+            raise AssertionError(f'{tag}: step 1 loss {losses[0]!r} != ln 2')
+        check_launches(tag, launches, need, exact=True)
+        for k in total:
+            total[k] += launches[k]
+    gen = qwen_vl_generation(q2, ckpts['qwen2_vl'],
+                             png_images(tmp, ((224, 224), (300, 200)),
+                                        SEED + 356), dev)
+    log(f'phase35 Qwen2-VL generate (fp32 compute, 224 px, '
+        f'{QWEN_GEN_NEW} new tokens from {QWEN_GEN_PROMPTS} image prompts, '
+        f'decode offset {gen["offset"]}): {gen["gen_s"]:.3f} s; ids equal '
+        f'to the argmax of the no-cache forward over the grown sequence '
+        f'{gen["agree"]}/{gen["total"]}; ids {gen["ids"]}')
+    if gen['agree'] != gen['total']:
+        raise AssertionError('Qwen2-VL generate: ids off the no-cache '
+                             'argmax')
+    for path in ckpts.values():
+        shutil.rmtree(path, ignore_errors=True)
+    log(f'phase35 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase')
     return {'launches': total}
 
 
@@ -5704,9 +6159,10 @@ KERNEL_GROUPS = (   # (group, substrings of the kernel name), first match
 
 
 def report_trace(name: str, prof, wall: float, smi: str, top: int = 25
-                 ) -> None:
+                 ) -> float:
     """Device time by kernel group and the idle share of a traced window
-    that took ``wall`` seconds (ending in a synchronize)."""
+    that took ``wall`` seconds (ending in a synchronize); returns the
+    device's busy seconds."""
     # device-side events only: kernels, copies and fills on the card (a
     # CPU op's entry repeats the time of the kernels it launched, and a
     # span such as 'Optimizer.step#AdamW.step' covers them)
@@ -5726,13 +6182,18 @@ def report_trace(name: str, prof, wall: float, smi: str, top: int = 25
         groups[group] = groups.get(group, 0.0) + us / 1e6
     log(f'profile {name}: {wall:.4f} s (traced), device busy {busy:.4f} s, '
         f'idle share {1 - busy / wall:.4f}; card {smi}')
-    for group, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f'profile {name} group {group}: {sec:.4f} s '
-            f'({sec / wall:.4f} of the window)')
+    report_groups(name, groups, wall)
     for key, (us, count) in sorted(kernels.items(),
                                    key=lambda kv: -kv[1][0])[:top]:
         log(f'profile {name} kernel {us / 1e3:10.3f} ms x{count:<6d} '
             f'{key[:110]}')
+    return busy
+
+
+def report_groups(name: str, groups: dict, wall: float) -> None:
+    for group, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f'profile {name} group {group}: {sec:.4f} s '
+            f'({sec / wall:.4f} of the window)')
 
 
 def traced(fn):
@@ -5850,6 +6311,77 @@ def profile_ti2t(dev, smi, tmp: str) -> None:
     free_memory()
 
 
+def profile_qwen2_vl(dev, smi, tmp: str) -> None:
+    """``--profile qwen2vl``: one Qwen2-VL DPO step of phase 34's config
+    after a warm-up step, traced whole; then, over that step's patch rows,
+    the tower's forward and backward (the policy's pass), its forward
+    without gradients (the reference's), and the tower's 32 plain
+    attention calls alone at those shapes (forward and backward, then
+    forward without gradients): the share of the step that a D 80
+    attention kernel could take over."""
+    from align_anything_tpu_torch.models import qwen2_vl  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.attention import xla_attention  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    cfg = qwen2_vl_config()
+    argv = qwen2_vl_dpo_assets(cfg, dev, tmp)[2]
+    with mock.patch.dict(os.environ, {'MESH_FILE': HARNESS_MESH}):
+        cfgs, pc = parse_cfgs('text_image_to_text/dpo', argv)
+    trainer = TI2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    step_busy = report_trace('qwen2vl dpo step', prof, wall, smi)
+    dev_batch = trainer.put_batch(batch)
+    px, grids = dev_batch['pixel_values'], dev_batch['image_grid_thw'][:, 1:]
+    visual, vcfg = trainer.state.params['visual'], trainer.model_cfg.vision
+
+    def tower_fwd_bwd():
+        out = qwen2_vl.vision_forward(visual, vcfg, px, 'bfloat16', grids)
+        out.float().sum().backward()
+
+    _, prof, wall = traced(tower_fwd_bwd)
+    tower = report_trace(f'qwen2vl tower forward + backward ({px.shape[0]} '
+                         f'rows of {px.shape[1]} patches)', prof, wall, smi)
+    for t in param_leaves(visual):
+        t.grad = None
+    with torch.no_grad():
+        _, prof, wall = traced(lambda: qwen2_vl.vision_forward(
+            visual, vcfg, px, 'bfloat16', grids))
+    tower += report_trace('qwen2vl tower forward, no grad', prof, wall, smi)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 345)
+    b, n = px.shape[:2]
+    q, k, v = (torch.randn((b, n, vcfg.num_heads, vcfg.head_dim),
+                           generator=gen, device=dev).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    mask = (torch.arange(n, device=dev)[None]
+            < (grids[:, 0] * grids[:, 1])[:, None])
+
+    def attention_fwd_bwd():
+        for _ in range(vcfg.depth):
+            out = xla_attention(q, k, v, attention_mask=mask, causal=False)
+            torch.autograd.grad(out.float().sum(), (q, k, v))
+
+    _, prof, wall = traced(attention_fwd_bwd)
+    attn = report_trace(f'qwen2vl tower attention x {vcfg.depth}, forward + '
+                        'backward', prof, wall, smi, top=8)
+    with torch.no_grad():
+        _, prof, wall = traced(lambda: [
+            xla_attention(q, k, v, attention_mask=mask, causal=False)
+            for _ in range(vcfg.depth)])
+    attn += report_trace(f'qwen2vl tower attention x {vcfg.depth}, forward',
+                         prof, wall, smi, top=8)
+    log(f'profile qwen2vl: device busy a step {step_busy:.4f} s; the tower '
+        f'(policy and reference passes) {tower:.4f} s '
+        f'({tower / step_busy:.4f}); its plain attention at D '
+        f'{vcfg.head_dim} {attn:.4f} s ({attn / step_busy:.4f} of the '
+        f"step's device time); card {smi}")
+    del trainer, prof, q, k, v
+    free_memory()
+
+
 def profile_qlora(dev, smi, tmp: str) -> None:
     """``--profile``: one QLoRA DPO step of phase 22's config (Llama-3-8B, 32
     layers, the int4 base) after a warm-up step, traced whole."""
@@ -5940,14 +6472,16 @@ def main() -> int:
 
     libs = build_kernels()
     if sys.argv[1:2] == ['--profile']:
-        which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora', 'gemma3']
+        which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora', 'gemma3',
+                                 'qwen2vl']
         if 'dpo' in which:
             profile_dpo(dev, smi)
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
         try:
             for name, fn in (('ppo', profile_ppo), ('ti2t', profile_ti2t),
                              ('qlora', profile_qlora),
-                             ('gemma3', profile_gemma3)):
+                             ('gemma3', profile_gemma3),
+                             ('qwen2vl', profile_qwen2_vl)):
                 if name in which:
                     fn(dev, smi, tmp)
         finally:
@@ -6078,6 +6612,8 @@ def main() -> int:
         anyres = anyres_full(dev, smi, tmp, ti2t['ckpt'])
         tv2t = tv2t_full(dev, smi, tmp, ti2t['ckpt'], anyres['newline'])
         lnext_small = llava_next_small(dev, smi, tmp)
+        qwen_dpo = qwen2_vl_dpo_full(dev, smi, tmp)
+        qwen_small = qwen_vl_small(dev, smi, tmp)
         qlora4 = qlora_full(dev, smi, tmp, 4, QLORA_STEPS)
         qlora8 = qlora_full(dev, smi, tmp, 8, QLORA_INT8_STEPS)
         lora = lora_small(dev, smi, tmp, cost)
@@ -6095,11 +6631,12 @@ def main() -> int:
     vit = fstats['timed']['vit336']
     mm_ppo = fstats['timed']['ti2t_ppo']
     timed = {name: fstats['timed'][name]
-             for name in ('gemma3_1b', 'gemma3_1b_w512', 'llava_next')}
+             for name in ('gemma3_1b', 'gemma3_1b_w512', 'llava_next',
+                          'qwen2_vl_2b')}
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
                  ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, anyres, tv2t,
-                 lnext_small, qlora4, qlora8, lora, gemma, gemma_gen, remat,
-                 saves)
+                 lnext_small, qwen_dpo, qwen_small, qlora4, qlora8, lora,
+                 gemma, gemma_gen, remat, saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -6114,7 +6651,10 @@ def main() -> int:
                       'with the window 512 (its sliding layers), SDPA over '
                       'the whole causal square, no window; llava_next: B4 '
                       'L4096 H32 KH32 D128 causal, 2 rows padded (phase '
-                      '31\'s AnyRes DPO decoder), SDPA causal, no padding',
+                      '31\'s AnyRes DPO decoder), SDPA causal, no padding; '
+                      'qwen2_vl_2b: B4 L1024 H12 KH2 D128 causal, 2 rows '
+                      'padded (phase 34\'s Qwen2-VL-2B DPO decoder), SDPA '
+                      'causal, no padding',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
@@ -6145,7 +6685,11 @@ def main() -> int:
                              'SFT and DPO, 2 steps each, at '
                              'LLaVA-NeXT-Video-7B widths: the tower over 16 '
                              'frames a step) + phase 33 (AnyRes SFT, TV2T '
-                             'RM, PPO and GRPO, small)'}
+                             'RM, PPO and GRPO, small) + phase 34 (2 '
+                             'Qwen2-VL DPO steps at Qwen2-VL-2B widths, text '
+                             '4 layers: the trunk only, the towers run no '
+                             'kernel) + phase 35 (Qwen2-VL SFT at 224 px and '
+                             'dynamic, Qwen2.5-VL SFT and DPO, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',

@@ -292,15 +292,17 @@ def test_dpo_gradient_matches_jax():
 
 def test_unported_branches_raise():
     """A LLaVA config over a text model the port does not run yet raises
-    at init: m-rope (Qwen2-VL's rope, ROADMAP §1 item 12) and MoE (item
-    13).  The AnyRes and video branches run (``tests/
-    test_torch_llava_next.py``, ``tests/test_torch_llava_next_video.py``)."""
+    at init: MoE (ROADMAP §1 item 13).  An m-rope trunk (Qwen2-VL's rope)
+    runs since it was ported (``tests/test_torch_qwen2_vl.py``); the AnyRes
+    and video branches run (``tests/test_torch_llava_next.py``,
+    ``tests/test_torch_llava_next_video.py``)."""
     _, tc = _configs()
-    for kw, what in (({'mrope_section': (2, 1, 1)}, 'm-rope'),
-                     ({'num_experts': 4}, 'MoE')):
-        with pytest.raises(NotImplementedError, match=what):
-            tmm.init_params(tc.replace(**kw),
-                            torch.Generator().manual_seed(0), device='cpu')
+    params = tmm.init_params(tc.replace(mrope_section=(2, 1, 1)),
+                             torch.Generator().manual_seed(0), device='cpu')
+    assert set(params) == {'language_model', 'vision_tower', 'projector'}
+    with pytest.raises(NotImplementedError, match='MoE'):
+        tmm.init_params(tc.replace(num_experts=4),
+                        torch.Generator().manual_seed(0), device='cpu')
 
 
 # ---------------------------------------------------------------------------

@@ -472,12 +472,17 @@ def test_ti2t_trainers_default_to_the_card(assets, tmp_path, monkeypatch):
 
 
 def test_ti2t_loader_refuses_other_families(tmp_path):
-    """Only LLaVA-1.5 loads: another vision-LM ``model_type`` raises and
-    names the ROADMAP item."""
+    """A vision-LM ``model_type`` not ported yet raises and names the
+    ROADMAP item; the LLaVA-only loader of the RM and RL trainers (JAX's
+    ``load_multimodal_params``) refuses Qwen2-VL too."""
+    (tmp_path / 'config.json').write_text(json.dumps(
+        {'model_type': 'mllama'}))
+    with pytest.raises(NotImplementedError, match='item 12'):
+        tsft.load_vision_lm(str(tmp_path), device='cpu')
     (tmp_path / 'config.json').write_text(json.dumps(
         {'model_type': 'qwen2_vl'}))
     with pytest.raises(NotImplementedError, match='item 12'):
-        tsft.load_vision_lm(str(tmp_path), device='cpu')
+        tsft.load_llava_lm(str(tmp_path), device='cpu')
 
 
 @pytest.mark.parametrize('algo', ['sft', 'dpo', 'rm', 'cost_model', 'ppo',
