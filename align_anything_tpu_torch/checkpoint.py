@@ -179,10 +179,12 @@ def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
                   tokenizer: Any | None = None) -> str:
     """HF-format ``slice_{step}`` export (reference output-layout parity) of
     a decoder param tree, or of a multimodal one in its family's layout:
-    Qwen2.5-VL (a tower with ``window_size``), Qwen2-VL (a tower with
-    ``spatial_merge_size``), else LLaVA, in JAX's order of checks.  The JAX
-    module's other multimodal savers are not ported."""
+    Qwen2-Audio (a config with ``audio`` and ``text``), Qwen2.5-VL (a tower
+    with ``window_size``), Qwen2-VL (a tower with ``spatial_merge_size``),
+    else LLaVA, in JAX's order of checks.  The JAX module's other
+    multimodal savers are not ported."""
     from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        save_audio_params,
         save_multimodal_params,
         save_params,
         save_qwen2_5_vl_params,
@@ -194,7 +196,9 @@ def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
     path = os.path.join(output_dir, f'slice_{step}')
     params = {k: v for k, v in params.items() if k != 'score_head'}
     vision = getattr(model_config, 'vision', None)
-    if hasattr(vision, 'window_size'):
+    if hasattr(model_config, 'audio') and hasattr(model_config, 'text'):
+        save_audio_params(path, params, model_config)
+    elif hasattr(vision, 'window_size'):
         save_qwen2_5_vl_params(path, params, model_config)
     elif hasattr(vision, 'spatial_merge_size'):
         save_qwen2_vl_params(path, params, model_config)

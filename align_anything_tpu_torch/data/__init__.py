@@ -1,13 +1,19 @@
 """The data layer: the port of ``align_anything_tpu/data`` (templates,
 chat formatting, tokenizers, datasets, collators, the iterator), with the
-image-text and video templates (``multimodal_formatters.py``), the image
-datasets (``image.py``: the supervised, preference and prompt-only sets,
-AnyRes tiling) and the video ones (``video.py``).  The audio templates and
-the other multimodal processors are not ported yet (ROADMAP §1 item
-12)."""
+image-text, audio and video templates (``multimodal_formatters.py``), the
+image datasets (``image.py``: the supervised, preference and prompt-only
+sets, AnyRes tiling), the audio ones (``audio.py``) and the video ones
+(``video.py``).  The other multimodal processors are not ported yet
+(ROADMAP §1 item 12)."""
 
 from align_anything_tpu_torch.data import formatters  # noqa: F401  (registers templates)
 from align_anything_tpu_torch.data import multimodal_formatters  # noqa: F401
+from align_anything_tpu_torch.data.audio import (
+    TA2TPreferenceDataset,
+    TA2TPromptOnlyDataset,
+    TA2TSupervisedDataset,
+    load_waveform,
+)
 from align_anything_tpu_torch.data.chat_template import ChatTemplate, ModelFormatter
 from align_anything_tpu_torch.data.datasets import (
     DEFAULT_BUCKETS,
@@ -72,4 +78,8 @@ __all__ = [
     'TV2TPromptOnlyDataset',
     'TV2TSupervisedDataset',
     'sample_frames',
+    'TA2TPreferenceDataset',
+    'TA2TPromptOnlyDataset',
+    'TA2TSupervisedDataset',
+    'load_waveform',
 ]

@@ -1,13 +1,14 @@
-"""Multimodal dataset formatters: the port of the image-text and video
-templates of ``align_anything_tpu/data/multimodal_formatters.py``
-(AA_TI2T, LLaVA_Instruct, RLAIFV, SPA_VL, SafeRLHF_V, AA_TV2T, Qwen2-VL),
-unchanged.
+"""Multimodal dataset formatters: the port of the image-text, audio-text
+and video templates of ``align_anything_tpu/data/multimodal_formatters.py``
+(AA_TI2T, LLaVA_Instruct, RLAIFV, SPA_VL, SafeRLHF_V, AA_TA2T,
+LibriSpeech, AA_TV2T, AudioCaps, AudioSet, Qwen2-VL), unchanged.
 
 Rebuilds the reference's multimodal registrations
-(configs/format_dataset.py).  Conversations carry an ``<image>`` or
-``<video>`` placeholder in the text; the raw media rides in the mm-info
-dict for the collator.  The audio templates and the text-to-video
-diffusion ones wait for their models (ROADMAP §1 items 12 and 15).
+(configs/format_dataset.py).  Conversations carry an ``<image>``,
+``<audio>`` or ``<video>`` placeholder in the text; the raw media rides in
+the mm-info dict for the collator.  The templates of the generation
+models (the diffusion ones, WavCaps and AA_T2A for text-to-audio) wait for
+those models (ROADMAP §1 item 15).
 """
 
 from __future__ import annotations
@@ -96,6 +97,35 @@ class SafeRLHFV(BaseFormatter):
                 {'image': raw_sample['image']})
 
 
+@register_template('AA_TA2T')
+class AA_TA2T(BaseFormatter):
+    """align-anything text-audio-to-text (format_dataset.py AA_TA2T)."""
+
+    def format_supervised_sample(self, raw_sample: dict):
+        prompt = f"<audio>\n{raw_sample['question']}"
+        return _chat(prompt, raw_sample['response']), {'audio': raw_sample['audio']}
+
+    def format_prompt_only_sample(self, raw_sample: dict):
+        return (_chat(f"<audio>\n{raw_sample['question']}"),
+                {'audio': raw_sample['audio']})
+
+    def format_preference_sample(self, raw_sample: dict):
+        overall = int(raw_sample['overall_response'])
+        better = raw_sample[f'response_{overall}']
+        worse = raw_sample[f'response_{3 - overall}' if overall in (1, 2)
+                           else 'response_1']
+        prompt = f"<audio>\n{raw_sample['question']}"
+        return (_chat(prompt, better), _chat(prompt, worse),
+                {'audio': raw_sample['audio']})
+
+
+@register_template('LibriSpeech')
+class LibriSpeech(BaseFormatter):
+    def format_supervised_sample(self, raw_sample: dict):
+        prompt = '<audio>\nTranscribe the audio.'
+        return _chat(prompt, raw_sample['text']), {'audio': raw_sample['audio']}
+
+
 @register_template('AA_TV2T')
 class AA_TV2T(BaseFormatter):
     """align-anything text-video-to-text (format_dataset.py AA_TV2T)."""
@@ -127,6 +157,25 @@ def _qwen2_vl_prompt(raw_sample: dict) -> tuple[str, dict]:
     if raw_sample.get('image') is not None:
         return f'<image>\n{prompt}', {'image': raw_sample['image']}
     return prompt, {}
+
+
+@register_template('AudioCaps')
+class AudioCaps(BaseFormatter):
+    """(format_dataset.py:1410-1428): captioning over audio clips."""
+
+    def format_supervised_sample(self, raw_sample: dict):
+        prompt = '<audio>\nDescribe the audio.'
+        return _chat(prompt, raw_sample['caption']), {
+            'audio': raw_sample.get('audiocap_path') or raw_sample.get('audio')}
+
+    def format_diffusion_supervised_sample(self, raw_sample: dict):
+        return raw_sample['caption'], {
+            'audio': raw_sample.get('audiocap_path') or raw_sample.get('audio')}
+
+
+@register_template('AudioSet')
+class AudioSet(AudioCaps):
+    pass
 
 
 @register_template('Qwen2-VL')

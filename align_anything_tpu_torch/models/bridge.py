@@ -14,8 +14,10 @@ Layouts are kept as they are: layer leaves stacked on a leading
 ``num_layers`` axis, einsum weight layouts (E, H, D), (H, D, E), (E, F), and
 the quantized packings byte for byte.  A multimodal tree converts module by
 module as it is: LLaVA's ``language_model`` / ``vision_tower`` /
-``projector``, and Qwen2-VL's and Qwen2.5-VL's ``language_model`` /
-``visual`` (the tower's blocks stacked on a leading ``depth`` axis).  ``trainable_from_jax_tree`` makes a
+``projector``, Qwen2-VL's and Qwen2.5-VL's ``language_model`` /
+``visual`` (the tower's blocks stacked on a leading ``depth`` axis), and
+Qwen2-Audio's ``language_model`` / ``audio_tower`` (the convolutions as
+(K, C_in, C_out), the layers stacked) / ``projector``.  ``trainable_from_jax_tree`` makes a
 trainable fp32 tree and its frozen reference copy for the train step;
 ``lora_from_jax_tree`` the trainable adapters of ``models/lora.py``.
 """

@@ -25,8 +25,10 @@ average-pool stride too).  ``load_qwen2_vl_params`` /
 ``save_qwen2_vl_params`` and ``load_qwen2_5_vl_params`` /
 ``save_qwen2_5_vl_params`` do it for Qwen2-VL and Qwen2.5-VL (the m-rope
 trunk's ``mrope_section`` from ``rope_scaling``; the tower under
-``visual``).  Not ported yet (ROADMAP §1 item 12): the other multimodal
-families (audio, MLlama, MiniCPM, Emu3's fused codec layout).
+``visual``), and ``load_audio_params`` / ``save_audio_params`` for
+Qwen2-Audio (the Whisper-style tower under ``audio_tower``).  Not ported
+yet (ROADMAP §1 item 12): the other multimodal families (MLlama, MiniCPM,
+Emu3's fused codec layout).
 """
 
 from __future__ import annotations
@@ -293,6 +295,53 @@ def _load_llama_like(t: _OnDevice, c: ModelConfig) -> dict:
     return params
 
 
+def _text_config(hf: dict, qkv_bias: bool) -> ModelConfig:
+    """The Llama-layout trunk of a LLaVA or Qwen2-Audio ``config.json``
+    (its ``text_config``; ``head_dim = hidden // heads``)."""
+    tc = hf['text_config']
+    return ModelConfig(
+        vocab_size=tc['vocab_size'], hidden_size=tc['hidden_size'],
+        num_layers=tc['num_hidden_layers'],
+        num_heads=tc['num_attention_heads'],
+        num_kv_heads=tc.get('num_key_value_heads', tc['num_attention_heads']),
+        head_dim=tc['hidden_size'] // tc['num_attention_heads'],
+        mlp_dim=tc['intermediate_size'],
+        max_position_embeddings=tc.get('max_position_embeddings', 4096),
+        rope_theta=tc.get('rope_theta', 10000.0),
+        norm_eps=tc.get('rms_norm_eps', 1e-6),
+        qkv_bias=qkv_bias,
+        tie_word_embeddings=hf.get('tie_word_embeddings',
+                                   tc.get('tie_word_embeddings', False)),
+        bos_token_id=tc.get('bos_token_id', 1) or 1,
+        eos_token_id=tc.get('eos_token_id', 2) or 2,
+        pad_token_id=hf.get('pad_token_id') or tc.get('pad_token_id')
+        or tc.get('eos_token_id', 2),
+    )
+
+
+def _prefixed_trunk(path: str, text_cfg: ModelConfig, device, dtype
+                    ) -> tuple[dict, dict[str, torch.Tensor]]:
+    """(the trunk's params, every tensor by its normalized name) of a
+    checkpoint whose trunk lives under ``language_model.``: the
+    ``model.language_model.*`` (transformers >= 4.52) and the
+    ``language_model.model.*`` (older) prefixes both become
+    ``language_model.*``, and the other modules lose a leading
+    ``model.``."""
+    norm: dict[str, torch.Tensor] = {}
+    for k, v in _read_all_tensors(path).items():
+        k = k.removeprefix('model.')
+        norm[k.replace('language_model.model.', 'language_model.')] = v
+    lm_raw = {}
+    for k, v in norm.items():
+        if k == 'language_model.lm_head.weight':
+            lm_raw['lm_head.weight'] = v
+        elif k.startswith('language_model.'):
+            lm_raw['model.' + k.removeprefix('language_model.')] = v
+    if 'lm_head.weight' in norm:
+        lm_raw['lm_head.weight'] = norm['lm_head.weight']
+    return _load_llama_like(_OnDevice(lm_raw, device, dtype), text_cfg), norm
+
+
 LLAVA_MODEL_TYPES = ('llava', 'llava_next', 'llava_next_video')
 
 
@@ -329,25 +378,9 @@ def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
             raise ValueError('only average spatial pooling is supported '
                              f"(got {hf.get('spatial_pool_mode')!r})")
         pool_stride = int(hf.get('spatial_pool_stride', 2))
-    tc, vc = hf['text_config'], hf['vision_config']
-    text_cfg = ModelConfig(
-        vocab_size=tc['vocab_size'], hidden_size=tc['hidden_size'],
-        num_layers=tc['num_hidden_layers'],
-        num_heads=tc['num_attention_heads'],
-        num_kv_heads=tc.get('num_key_value_heads', tc['num_attention_heads']),
-        head_dim=tc['hidden_size'] // tc['num_attention_heads'],
-        mlp_dim=tc['intermediate_size'],
-        max_position_embeddings=tc.get('max_position_embeddings', 4096),
-        rope_theta=tc.get('rope_theta', 10000.0),
-        norm_eps=tc.get('rms_norm_eps', 1e-6),
-        qkv_bias=tc.get('model_type') == 'qwen2',
-        tie_word_embeddings=hf.get('tie_word_embeddings',
-                                   tc.get('tie_word_embeddings', False)),
-        bos_token_id=tc.get('bos_token_id', 1) or 1,
-        eos_token_id=tc.get('eos_token_id', 2) or 2,
-        pad_token_id=hf.get('pad_token_id') or tc.get('pad_token_id')
-        or tc.get('eos_token_id', 2),
-    )
+    vc = hf['vision_config']
+    text_cfg = _text_config(hf, qkv_bias=hf['text_config'].get(
+        'model_type') == 'qwen2')
     vision_cfg = ViTConfig(
         image_size=vc['image_size'], patch_size=vc['patch_size'],
         hidden_size=vc['hidden_size'], num_layers=vc['num_hidden_layers'],
@@ -359,22 +392,7 @@ def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
                                   'default') == 'default' else 'full'),
     )
 
-    raw = _read_all_tensors(path)
-    # normalize the prefixes to language_model.* / vision_tower.* /
-    # multi_modal_projector.*
-    norm: dict[str, torch.Tensor] = {}
-    for k, v in raw.items():
-        k = k.removeprefix('model.')
-        norm[k.replace('language_model.model.', 'language_model.')] = v
-    lm_raw = {}
-    for k, v in norm.items():
-        if k == 'language_model.lm_head.weight':
-            lm_raw['lm_head.weight'] = v
-        elif k.startswith('language_model.'):
-            lm_raw['model.' + k.removeprefix('language_model.')] = v
-    if 'lm_head.weight' in norm:
-        lm_raw['lm_head.weight'] = norm['lm_head.weight']
-    lm_params = _load_llama_like(_OnDevice(lm_raw, device, dtype), text_cfg)
+    lm_params, norm = _prefixed_trunk(path, text_cfg, device, dtype)
 
     vt = _OnDevice({k.removeprefix('vision_tower.vision_model.'): v
                     for k, v in norm.items()
@@ -606,6 +624,88 @@ def load_qwen2_5_vl_params(path: str, dtype: torch.dtype = torch.float32,
     return {'language_model': lm_params, 'visual': visual}, cfg
 
 
+def load_audio_params(path: str, dtype: torch.dtype = torch.float32,
+                      device: torch.device | str | None = None):
+    """Load an HF Qwen2-Audio-layout checkpoint into (params,
+    AudioLMConfig), every leaf on ``device`` (default: the first CUDA
+    device) in ``dtype``.
+
+    The Whisper-style tower (conv1 / conv2, the pre-norm encoder layers,
+    the final ``layer_norm``), the one-linear projector and the Qwen2 trunk
+    (``qkv_bias``, ``head_dim = hidden // heads``, ``rms_norm_eps`` of the
+    ``text_config``), under either trunk prefix.  Whisper's attention has
+    no key bias: it loads as zero rows, which ``save_audio_params`` drops
+    again."""
+    from align_anything_tpu_torch.models.audio import (  # noqa: PLC0415
+        AudioEncoderConfig,
+        AudioLMConfig,
+    )
+
+    device = default_device(device)
+    with open(os.path.join(path, 'config.json')) as f:
+        hf = json.load(f)
+    ac = hf['audio_config']
+    text_cfg = _text_config(hf, qkv_bias=True)
+    d = ac['d_model']
+    audio_cfg = AudioEncoderConfig(
+        n_mels=ac['num_mel_bins'], hidden_size=d,
+        num_layers=ac['encoder_layers'],
+        num_heads=ac['encoder_attention_heads'],
+        mlp_dim=ac['encoder_ffn_dim'],
+        max_frames=2 * ac['max_source_positions'])
+    cfg = AudioLMConfig(text=text_cfg, audio=audio_cfg,
+                        audio_token_id=hf.get('audio_token_index', 151646))
+
+    lm_params, norm = _prefixed_trunk(path, text_cfg, device, dtype)
+    at = _OnDevice({k.removeprefix('audio_tower.'): v
+                    for k, v in norm.items()
+                    if k.startswith('audio_tower.')}, device, dtype)
+    h, hd, n = audio_cfg.num_heads, audio_cfg.head_dim, audio_cfg.num_layers
+    pre = 'layers.{i}.'
+    heads = lambda x: x.reshape(h, hd)  # noqa: E731
+    conv_in = lambda w: w.permute(2, 1, 0).contiguous()  # noqa: E731
+    encoder: dict[str, Any] = {
+        # torch conv (C_out, C_in, K) -> ours (K, C_in, C_out)
+        'conv1': {'w': conv_in(at['conv1.weight']), 'b': at['conv1.bias']},
+        'conv2': {'w': conv_in(at['conv2.weight']), 'b': at['conv2.bias']},
+        'pos_embed': at['embed_positions.weight'],
+        'post_norm': {'w': at['layer_norm.weight'],
+                      'b': at['layer_norm.bias']},
+        'layers': {
+            'norm1': {'w': _stack(at, pre + 'self_attn_layer_norm.weight', n,
+                                  _same),
+                      'b': _stack(at, pre + 'self_attn_layer_norm.bias', n,
+                                  _same)},
+            'q': {'w': _stack(at, pre + 'self_attn.q_proj.weight', n,
+                              _qkv_in(d, h, hd)),
+                  'b': _stack(at, pre + 'self_attn.q_proj.bias', n, heads)},
+            # Whisper attention has no key bias
+            'k': {'w': _stack(at, pre + 'self_attn.k_proj.weight', n,
+                              _qkv_in(d, h, hd)),
+                  'b': torch.zeros((n, h, hd), device=device, dtype=dtype)},
+            'v': {'w': _stack(at, pre + 'self_attn.v_proj.weight', n,
+                              _qkv_in(d, h, hd)),
+                  'b': _stack(at, pre + 'self_attn.v_proj.bias', n, heads)},
+            'o': {'w': _stack(at, pre + 'self_attn.out_proj.weight', n,
+                              _o_in(d, h, hd)),
+                  'b': _stack(at, pre + 'self_attn.out_proj.bias', n, _same)},
+            'norm2': {'w': _stack(at, pre + 'final_layer_norm.weight', n,
+                                  _same),
+                      'b': _stack(at, pre + 'final_layer_norm.bias', n,
+                                  _same)},
+            'up': {'w': _stack(at, pre + 'fc1.weight', n, _T),
+                   'b': _stack(at, pre + 'fc1.bias', n, _same)},
+            'down': {'w': _stack(at, pre + 'fc2.weight', n, _T),
+                     'b': _stack(at, pre + 'fc2.bias', n, _same)},
+        },
+    }
+    pt = _OnDevice(norm, device, dtype)
+    projector = {'w': _T(pt['multi_modal_projector.linear.weight']),
+                 'b': pt['multi_modal_projector.linear.bias']}
+    return {'language_model': lm_params, 'audio_tower': encoder,
+            'projector': projector}, cfg
+
+
 # ---------------------------------------------------------------------------
 # save (HF layout)
 # ---------------------------------------------------------------------------
@@ -646,19 +746,7 @@ def save_multimodal_params(path: str, params: dict, cfg,
 
     check_supported(cfg)
     os.makedirs(path, exist_ok=True)
-    tc = cfg.text
-    lm_params = params['language_model']
-    if tc.true_vocab_size is not None and tc.true_vocab_size != tc.vocab_size:
-        lm_params = dict(lm_params)
-        lm_params['embedding'] = lm_params['embedding'][:tc.true_vocab_size]
-        if 'lm_head' in lm_params:
-            lm_params['lm_head'] = lm_params['lm_head'][:, :tc.true_vocab_size]
-        tc = tc.replace(vocab_size=tc.true_vocab_size, true_vocab_size=None)
-    out: dict[str, torch.Tensor] = {
-        ('language_model.lm_head.weight' if k == 'lm_head.weight'
-         else 'language_model.' + k): v
-        for k, v in _dump_llama_like(lm_params, tc).items()
-    }
+    out, tc = _language_model_out(params, cfg.text)
 
     vc = cfg.vision
     d, h, hd = vc.hidden_size, vc.num_heads, vc.head_dim
@@ -745,11 +833,11 @@ def save_multimodal_params(path: str, params: dict, cfg,
         json.dump(hf_cfg, f, indent=2)
 
 
-def _qwen_vl_out(params: dict, tc: ModelConfig
+def _trunk_out(params: dict, tc: ModelConfig
                  ) -> tuple[dict[str, torch.Tensor], ModelConfig]:
-    """The trunk's tensors under the names JAX's Qwen-VL writers use
-    (``model.*``, ``lm_head.weight``), the vocab cut back to its true size,
-    and the config that goes with them."""
+    """The trunk's tensors under their decoder names (``model.*``,
+    ``lm_head.weight``, as JAX's Qwen-VL writers write them), the vocab
+    cut back to its true size, and the config that goes with them."""
     lm_params = params['language_model']
     if tc.true_vocab_size is not None and tc.true_vocab_size != tc.vocab_size:
         lm_params = dict(lm_params)
@@ -758,6 +846,16 @@ def _qwen_vl_out(params: dict, tc: ModelConfig
             lm_params['lm_head'] = lm_params['lm_head'][:, :tc.true_vocab_size]
         tc = tc.replace(vocab_size=tc.true_vocab_size, true_vocab_size=None)
     return dict(_dump_llama_like(lm_params, tc)), tc
+
+
+def _language_model_out(params: dict, tc: ModelConfig
+                        ) -> tuple[dict[str, torch.Tensor], ModelConfig]:
+    """``_trunk_out`` under the names of the LLaVA and Qwen2-Audio
+    checkpoints: ``language_model.model.*`` and
+    ``language_model.lm_head.weight``."""
+    out, tc = _trunk_out(params, tc)
+    return {('language_model.lm_head.weight' if k == 'lm_head.weight'
+             else 'language_model.' + k): v for k, v in out.items()}, tc
 
 
 def _qwen_vl_write(path: str, out: dict, tc: ModelConfig, hf_cfg: dict,
@@ -797,7 +895,7 @@ def save_qwen2_vl_params(path: str, params: dict, cfg,
     check_supported(cfg)
     os.makedirs(path, exist_ok=True)
     vc = cfg.vision
-    out, tc = _qwen_vl_out(params, cfg.text)
+    out, tc = _trunk_out(params, cfg.text)
     vt, pre = params['visual'], 'visual.blocks.{i}.'
     out['visual.patch_embed.proj.weight'] = _patch_embed_out(
         vt['patch_embed']['w'], vc)
@@ -840,7 +938,7 @@ def save_qwen2_5_vl_params(path: str, params: dict, cfg,
     check_supported(cfg)
     os.makedirs(path, exist_ok=True)
     vc = cfg.vision
-    out, tc = _qwen_vl_out(params, cfg.text)
+    out, tc = _trunk_out(params, cfg.text)
     vt, pre = params['visual'], 'visual.blocks.{i}.'
     out['visual.patch_embed.proj.weight'] = _patch_embed_out(
         vt['patch_embed']['w'], vc)
@@ -876,6 +974,79 @@ def save_qwen2_5_vl_params(path: str, params: dict, cfg,
             'hidden_act': 'silu',
         },
     }, dtype, text_extra={'model_type': 'qwen2_5_vl_text'})
+
+
+def save_audio_params(path: str, params: dict, cfg,
+                      dtype: torch.dtype = torch.float32) -> None:
+    """Write a Qwen2-Audio checkpoint in HF format, every tensor in
+    ``dtype``: the inverse of ``load_audio_params``, with the tensor names
+    and ``config.json`` of JAX's ``save_audio_params``
+    (``Qwen2AudioForConditionalGeneration``; the zero key-bias rows that
+    Whisper's attention lacks are dropped).  An OPT-class trunk (learned
+    positions) is refused, as in JAX."""
+    from align_anything_tpu_torch.models.audio import check_supported  # noqa: PLC0415
+
+    if cfg.text.positional == 'learned':
+        raise ValueError('Qwen2-Audio HF export requires a llama/qwen-class '
+                         'text trunk (rope); got an OPT-class config')
+    check_supported(cfg)
+    os.makedirs(path, exist_ok=True)
+    ac = cfg.audio
+    out, tc = _language_model_out(params, cfg.text)
+    enc = params['audio_tower']
+    d, h, hd = ac.hidden_size, ac.num_heads, ac.head_dim
+    conv_out = lambda w: w.permute(2, 1, 0)  # noqa: E731
+    out['audio_tower.conv1.weight'] = conv_out(enc['conv1']['w'])
+    out['audio_tower.conv1.bias'] = enc['conv1']['b']
+    out['audio_tower.conv2.weight'] = conv_out(enc['conv2']['w'])
+    out['audio_tower.conv2.bias'] = enc['conv2']['b']
+    out['audio_tower.embed_positions.weight'] = enc['pos_embed']
+    out['audio_tower.layer_norm.weight'] = enc['post_norm']['w']
+    out['audio_tower.layer_norm.bias'] = enc['post_norm']['b']
+    lp, pre = enc['layers'], 'audio_tower.layers.{i}.'
+    qkv_out = lambda w: w.reshape(d, h * hd).T  # noqa: E731
+    flat = lambda x: x.reshape(-1)  # noqa: E731
+    for nm, hf_nm in (('norm1', 'self_attn_layer_norm'),
+                      ('norm2', 'final_layer_norm'), ('up', 'fc1'),
+                      ('down', 'fc2')):
+        w_fn = _same if nm.startswith('norm') else (lambda w: w.T)
+        out.update(_unstack(lp[nm]['w'], pre + f'{hf_nm}.weight', w_fn))
+        out.update(_unstack(lp[nm]['b'], pre + f'{hf_nm}.bias', _same))
+    for nm in ('q', 'k', 'v'):
+        out.update(_unstack(lp[nm]['w'], pre + f'self_attn.{nm}_proj.weight',
+                            qkv_out))
+    for nm in ('q', 'v'):   # k has no bias in Whisper attention
+        out.update(_unstack(lp[nm]['b'], pre + f'self_attn.{nm}_proj.bias',
+                            flat))
+    out.update(_unstack(lp['o']['w'], pre + 'self_attn.out_proj.weight',
+                        lambda w: w.reshape(h * hd, d).T))
+    out.update(_unstack(lp['o']['b'], pre + 'self_attn.out_proj.bias',
+                        _same))
+    out['multi_modal_projector.linear.weight'] = params['projector']['w'].T
+    out['multi_modal_projector.linear.bias'] = params['projector']['b']
+    write_safetensors(os.path.join(path, 'model.safetensors'), out,
+                      metadata={'format': 'pt'}, dtype=dtype)
+
+    torch_dtype = str(dtype).removeprefix('torch.')
+    text_hf = _to_hf_config(tc)
+    text_hf['torch_dtype'] = torch_dtype
+    hf_cfg = {
+        'architectures': ['Qwen2AudioForConditionalGeneration'],
+        'model_type': 'qwen2_audio',
+        'audio_token_index': cfg.audio_token_id,
+        'tie_word_embeddings': tc.tie_word_embeddings,
+        'torch_dtype': torch_dtype,
+        'text_config': text_hf,
+        'audio_config': {
+            'model_type': 'qwen2_audio_encoder',
+            'd_model': ac.hidden_size, 'encoder_layers': ac.num_layers,
+            'encoder_attention_heads': ac.num_heads,
+            'encoder_ffn_dim': ac.mlp_dim, 'num_mel_bins': ac.n_mels,
+            'max_source_positions': ac.max_frames // 2,
+        },
+    }
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf_cfg, f, indent=2)
 
 
 def _to_hf_config(c: ModelConfig) -> dict:

@@ -131,10 +131,11 @@ def mem_stats(device: torch.device) -> dict:
 
 def run(mode: str, tiny: bool = False, slots: int = 128,
         cache_mode: str = 'dense',
-        device: torch.device | str | None = None) -> dict:
-    """Build the quantized model, serve ``2 * slots`` requests of 120
-    prompt and 64 new tokens twice through the continuous engine, and time
-    the second call."""
+        device: torch.device | str | None = None,
+        n_requests: int | None = None) -> dict:
+    """Build the quantized model, serve ``n_requests`` (default
+    ``2 * slots``) requests of 120 prompt and 64 new tokens twice through
+    the continuous engine, and time the second call."""
     device = default_device(device)
     if tiny:  # a smoke of the full path (quantized init -> engine)
         # special tokens inside the toy vocab: the engine embeds the pad
@@ -157,7 +158,7 @@ def run(mode: str, tiny: bool = False, slots: int = 128,
 
     # 128 lanes: the JAX script's default, a v5e sweep's peak (the lane
     # count has not been swept on the card)
-    n_req, prompt_len, new = 2 * slots, 120, 64
+    n_req, prompt_len, new = n_requests or 2 * slots, 120, 64
     if tiny:
         n_req, slots, prompt_len, new = 4, 32, 24, 8
     rng = np.random.default_rng(0)

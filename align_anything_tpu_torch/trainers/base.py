@@ -683,3 +683,23 @@ class TrainerBase:
         self.global_step = step
         self.logger.print(f'resumed from {path} at step {step}')
         return state
+
+
+class FreezesNothingMixin:
+    """The multimodal RL trainers' freezing, as JAX's: none (ROADMAP §3
+    R13).  JAX's PPO builds its optimizers with ``make_optimizer`` and no
+    frozen labels, and its GRPO's ``build_optimizer`` labels
+    ``self.params``, which those trainers never set: the modules the
+    freeze flags name train.  One line at start-up names them."""
+
+    def frozen_modules(self) -> tuple[str, ...]:
+        return ()
+
+    def init_engines(self) -> None:
+        named = TrainerBase.frozen_modules(self)
+        if named:
+            self.logger.print(
+                f'freeze flags name {named}; as in JAX, the multimodal RL '
+                'trainers freeze nothing, so they train them (ROADMAP §3 '
+                'R13)')
+        super().init_engines()

@@ -48,7 +48,7 @@ from align_anything_tpu_torch.data.image import (
 )
 from align_anything_tpu_torch.generation import generate
 from align_anything_tpu_torch.models import multimodal, score_model
-from align_anything_tpu_torch.trainers.base import TrainerBase
+from align_anything_tpu_torch.trainers.base import FreezesNothingMixin
 from align_anything_tpu_torch.trainers.cli import trainer_main
 from align_anything_tpu_torch.trainers.text_image_to_text.rm import (
     multimodal_end_scores,
@@ -62,7 +62,7 @@ from align_anything_tpu_torch.trainers.text_to_text.ppo import PPOTrainer
 from align_anything_tpu_torch.utils.tools import tree_map
 
 
-class TI2TRLMixin:
+class TI2TRLMixin(FreezesNothingMixin):
     """What the TI2T RL trainers (PPO, GRPO, Safe-RLHF-V) share: the
     multimodal actor and score models, the image prompt set, the
     pixel-aware actor log-probs, the image-prefilled ``generate``, and
@@ -117,21 +117,6 @@ class TI2TRLMixin:
             dataset.get_collator(buckets=self.padding_buckets()))
         self.eval_iterator = None
         self.ptx_iterator = None
-
-    def frozen_modules(self) -> tuple[str, ...]:
-        """None (R13): JAX's TI2T PPO builds its optimizers with
-        ``make_optimizer`` and no frozen labels, and its TI2T GRPO's
-        ``build_optimizer`` finds no ``self.params`` to label."""
-        return ()
-
-    def init_engines(self) -> None:
-        named = TrainerBase.frozen_modules(self)
-        if named:
-            self.logger.print(
-                f'freeze flags name {named}; as in JAX, the TI2T RL '
-                'trainers freeze nothing, so they train them (ROADMAP §3 '
-                'R13)')
-        super().init_engines()
 
     def compute_actor_logprobs(self, params: dict, batch: dict
                                ) -> torch.Tensor:

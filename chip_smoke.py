@@ -45,8 +45,9 @@ Phases (any failure raises and the run exits non-zero):
      tower (full attention at L 577), at ``ti2t_ppo`` and at Gemma-3-1B's
      DPO micro-batch (L 2048, 4 / 1 heads of 256) with the window 512 and
      without, at phase 31's decoder (``llava_next``: L 4096 at
-     LLaVA's heads) and at phase 34's (``qwen2_vl_2b``: L 1024 at
-     Qwen2-VL-2B's 12 / 2 heads);
+     LLaVA's heads), at phase 34's (``qwen2_vl_2b``: L 1024 at
+     Qwen2-VL-2B's 12 / 2 heads) and at phase 36's tower
+     (``qwen2_audio_tower``: full attention at L 1500, 20 heads of 64);
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -66,7 +67,8 @@ Phases (any failure raises and the run exits non-zero):
  10. the harness at bench.py's widths cut to 2 layers: the HF slice export
      read back bit-equal, a run resumed from its step-2 train state
      against the uninterrupted run (bit-equal, or within phase 7's 2e-4),
-     SFT's step 1 against a plain recompute, ORPO and SimPO;
+     SFT's step 1 against a plain recompute, ORPO and SimPO (the saves
+     that no check reads are not written: ``unread_saves_skipped``);
  11. the reward model at Llama-3-8B widths cut to 2 layers through
      ``trainer_main(RMTrainer, ...)`` (a bf16 checkpoint written from a
      seed, 8 pairs in the 512 bucket, 4 steps): every loss and grad norm
@@ -194,8 +196,9 @@ Phases (any failure raises and the run exits non-zero):
      to first token (p50 / max);
  29. ``scripts/bench/bench_int4_7b.py``'s ``run`` at Llama-3-8B's 32
      layers: int4 (128 slots, ``o`` flattened, an int8-COMPUTE head) and
-     int8-COMPUTE (64 slots), each dense and paged; every request's 64
-     tokens, K2's launches (those on ``o`` apart), resident and peak GB;
+     int8-COMPUTE (64 slots), each dense and paged, one wave of requests
+     (as many as slots); every request's 64 tokens, K2's launches (those
+     on ``o`` apart), resident and peak GB;
  30. (after phase 25, on phase 24's checkpoint) the OpenAI-compatible HTTP
      server (``serve/api_server.py``, ``make_stdlib_server`` on a free port
      of 127.0.0.1), dense, then paged with a 48-word system text as its
@@ -252,23 +255,43 @@ Phases (any failure raises and the run exits non-zero):
      prompts with ``prefill_positions`` / ``position_offset`` (fp32
      compute): every id the argmax of a no-cache forward over the grown
      sequence.
+ 36. (after phase 35) TA2T DPO through ``trainer_main(TA2TDPOTrainer,
+     ...)`` on Qwen2-Audio at Qwen2-Audio-7B-Instruct's published widths
+     (the text cut to 4 of its 32 layers, the 32-layer Whisper-style tower
+     whole and frozen), a bf16 checkpoint from a seed written by the port's
+     exporter and read by ``load_audio_params``, 4 AA_TA2T pairs over 30 s
+     16-bit wav clips made from the seed, 2 pairs a step in the 1024
+     bucket, 2 steps: step 1's loss ln 2, each row's <audio> span 750
+     tokens, the tower bit-equal while the trunk and projector move,
+     launches exact, the card's log-mel within 2e-4 of the CPU's, step 1's
+     log-prob sums against a plain recompute; step time, tokens/s, MFU,
+     peak memory and the bytes written;
+ 37. at phase 10's text widths (1 layer, Qwen2) under a 2-layer tower of
+     the published widths, clips of 2-30 s: TA2T SFT and its export read
+     back through ``load_audio_params``, the RM, one PPO round and one
+     GRPO round (the rollout's prefill takes the clips; round 1's KL 0;
+     the towers train, R13), and SFT over a fresh encoder on phase 10's
+     text checkpoint; launches exact.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
-    python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3 qwen2vl]
+    python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3 qwen2vl
+                                     ta2t]
                                       # instead: trace one DPO step of the
                                       # phase 7 and phase 8 configs, one
                                       # PPO round of phase 12's, one TI2T
                                       # DPO step of phase 18's, one
                                       # QLoRA DPO step of phase 22's, one
                                       # Gemma-3-1B DPO step and
-                                      # generate call of phases 24-25's and
+                                      # generate call of phases 24-25's,
                                       # one Qwen2-VL DPO step of phase 34's
                                       # with its tower and the tower's
-                                      # attention alone (the ones named;
-                                      # all by default)
+                                      # attention alone, and one TA2T DPO
+                                      # step of phase 36's with its encoder
+                                      # and log-mel frontend alone (the
+                                      # ones named; all by default)
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
 each DPO config with ``torch.profiler`` and prints device time by kernel,
@@ -398,6 +421,11 @@ FLASH_SHAPES = [
     # phase 34's decoder: Qwen2-VL-2B's heads (12 / 2, a GQA group of 6)
     # over its DPO rows in the 1024 bucket, trailing pads on two rows
     ('qwen2_vl_2b', 4, 1024, 12, 2, 128, True, None, 2, None,
+     torch.bfloat16, True),
+    # phase 36's tower: Qwen2-Audio-7B's Whisper-style encoder, full
+    # attention over the 1500 frames of a 30 s clip at 20 heads of 64 (a
+    # ragged tail: 1500 = 23 x 64 + 28), the DPO step's 4 rows
+    ('qwen2_audio_tower', 4, 1500, 20, 20, 64, False, None, 0, None,
      torch.bfloat16, True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
@@ -1119,7 +1147,9 @@ def paged_serving(params, cfg, requests: dict, dev, smi) -> dict:
 def bench_int4_8b(dev, smi) -> dict:
     """Phase 29: ``scripts/bench/bench_int4_7b.py``'s ``run`` at Llama-3-8B's
     32 layers, int4 (128 slots) and int8 (64, as its ``main`` caps them),
-    each dense and paged; K2's launches counted, those on ``o`` apart."""
+    each dense and paged, one wave of requests (as many as slots; the
+    script's default serves two); K2's launches counted, those on ``o``
+    apart."""
     from align_anything_tpu_torch.scripts.bench import bench_int4_7b  # noqa: PLC0415
 
     t_phase = time.perf_counter()
@@ -1146,7 +1176,8 @@ def bench_int4_8b(dev, smi) -> dict:
             k2.int4_matmul_cuda.launches = 0
             with mock.patch.object(k2, 'int4_matmul', counting):
                 r = bench_int4_7b.run(mode, slots=slots,
-                                      cache_mode=cache_mode, device=dev)
+                                      cache_mode=cache_mode, device=dev,
+                                      n_requests=slots)
             n = k2.int4_matmul_cuda.launches
             launches += n
             outs = r.pop('outputs')
@@ -1737,6 +1768,36 @@ def run_trainer(trainer_cls, task: str, argv: list,
     return trainer, steps, timing
 
 
+def unread_saves_skipped(state_steps: tuple = (), slice_steps: tuple = ()):
+    """A patch of the trainers' checkpoint writers that writes only what a
+    later check reads: the train state of ``state_steps`` and the HF slice
+    of ``slice_steps``, each once.  A run that saves at an interval writes
+    both at every interval step and again at its last step (the interval's
+    save and ``trainer_main``'s final one); the rest is disk writes that
+    nothing reads, which count toward the card's 45 GiB."""
+    from align_anything_tpu_torch import checkpoint as ckpt_lib  # noqa: PLC0415
+
+    written: set = set()
+
+    def writer(kind: str, real, wanted: tuple, path):
+        def write(output_dir, step, *args, **kwargs):
+            if step in wanted and (kind, step) not in written:
+                written.add((kind, step))
+                return real(output_dir, step, *args, **kwargs)
+            return path(output_dir, step)
+        return write
+
+    return mock.patch.multiple(
+        ckpt_lib,
+        save_train_state=writer(
+            'state', ckpt_lib.save_train_state, state_steps,
+            lambda out, step: os.path.join(out, 'checkpoints',
+                                           f'step_{step}')),
+        save_hf_slice=writer(
+            'slice', ckpt_lib.save_hf_slice, slice_steps,
+            lambda out, step: os.path.join(out, f'slice_{step}')))
+
+
 def harness_full(dev, smi, bare: dict, tmp: str) -> dict:
     """Phase 9: DPO from an 8B-width checkpoint on disk through
     ``trainer_main``, beside phase 7's bare step."""
@@ -1867,11 +1928,16 @@ def harness_small(dev, smi, tmp: str) -> None:
                 '--epochs', '1', '--per_device_train_batch_size', '2',
                 *extra]
 
-    # 4 uninterrupted steps, the train state saved at step 2 and 4
-    full, full_steps, _ = run_trainer(
-        DPOTrainer, 'text_to_text/dpo',
-        argv(pref, 'PKUSafeRLHF', 'full', '--save_checkpoint', 'True',
-             '--save_interval', '2', '--save_total_limit', '3'))
+    # 4 uninterrupted steps, saving at steps 2 and 4 and at the end: only
+    # the step-2 train state (the resume's) and the step-4 slice (the
+    # export check's) are written, once each; the other 3.1 GB at these
+    # widths (the step-4 train state twice, slices 2 and 4 again) would be
+    # read by nothing
+    with unread_saves_skipped(state_steps=(2,), slice_steps=(4,)):
+        full, full_steps, _ = run_trainer(
+            DPOTrainer, 'text_to_text/dpo',
+            argv(pref, 'PKUSafeRLHF', 'full', '--save_checkpoint', 'True',
+                 '--save_interval', '2', '--save_total_limit', '3'))
     got = leaves_by_path(full.state.params)
     back, _ = load_params(os.path.join(tmp, 'full', 'slice_4'), device=dev)
     back = leaves_by_path(back)
@@ -1886,10 +1952,11 @@ def harness_small(dev, smi, tmp: str) -> None:
     os.makedirs(os.path.join(tmp, 'resumed', 'checkpoints'))
     shutil.copytree(os.path.join(tmp, 'full', 'checkpoints', 'step_2'),
                     os.path.join(tmp, 'resumed', 'checkpoints', 'step_2'))
-    resumed, resumed_steps, _ = run_trainer(
-        DPOTrainer, 'text_to_text/dpo',
-        argv(pref, 'PKUSafeRLHF', 'resumed', '--save_checkpoint', 'False',
-             '--load_checkpoint', 'True'))
+    with unread_saves_skipped():      # its final slice: read by nothing
+        resumed, resumed_steps, _ = run_trainer(
+            DPOTrainer, 'text_to_text/dpo',
+            argv(pref, 'PKUSafeRLHF', 'resumed', '--save_checkpoint',
+                 'False', '--load_checkpoint', 'True'))
     want = [(m['train/loss'], m['train/grad_norm']) for m in full_steps[2:]]
     have = [(m['train/loss'], m['train/grad_norm']) for m in resumed_steps]
     mine = leaves_by_path(resumed.state.params)
@@ -2326,11 +2393,12 @@ def rl_small(dev, smi, tmp: str) -> str:
         ('multi_ppo rloo', MultiPPOTrainer,
          {'ENV_PREFIX__TRAIN_CFGS__N_SAMPLES_PER_PROMPT': '2',
           'ENV_PREFIX__TRAIN_CFGS__ADVANTAGE_ESTIMATOR': 'rloo'}, ()))
+    # no output dir: each run's fp32 actor slice (0.39 GB) would be read by
+    # nothing
     for name, cls, env, extra in cases:
         with mock.patch.dict(os.environ, env):
             trainer, steps, _ = run_trainer(cls, 'text_to_text/ppo', ppo_argv(
-                ckpt, cost, data, os.path.join(tmp, f'ppo_{name[:3]}'),
-                *common, *extra))
+                ckpt, cost, data, None, *common, *extra))
         rounds = [m for m in steps if 'train/actor_loss' in m]
         evals = [m for m in steps if 'eval/reward' in m]
         log(f'phase13 {name}: {len(rounds)} rounds, round 1 kl '
@@ -4765,6 +4833,485 @@ def qwen_vl_small(dev, smi, tmp: str) -> dict:
     return {'launches': total}
 
 
+# phase 36: Qwen2-Audio-7B-Instruct's published config.json
+# (Qwen/Qwen2-Audio-7B-Instruct: its text_config's vocab 156032,
+# intermediate 11008, rope_theta 10000 and rms_norm_eps 1e-5 over Qwen2's
+# defaults, hidden 4096, 32 layers, 32 / 32 heads, untied; bos / eos / pad
+# Qwen2's 151643 / 151645 / 151643; its audio_config's d_model 1280, 32
+# layers, 20 heads, ffn 5120, 128 mel bins, 1500 source positions;
+# audio_token_index 151646).  transformers' Qwen2AudioConfig() defaults are
+# not these (text intermediate 22016, vocab 151936).  The text is cut to 4
+# of its 32 layers for fp32 AdamW; the 32-layer tower is whole and frozen
+# (the YAML's freeze_audio_tower).  4 pairs over 30 s clips, 2 a step in
+# the 1024 bucket: 750 audio tokens a row
+QWEN2_AUDIO_7B = dict(vocab_size=156032, hidden_size=4096, num_heads=32,
+                      num_kv_heads=32, head_dim=128, mlp_dim=11008,
+                      max_position_embeddings=8192, rope_theta=10000.0,
+                      norm_eps=1e-5, qkv_bias=True,
+                      tie_word_embeddings=False, bos_token_id=151643,
+                      eos_token_id=151645, pad_token_id=151643)
+QWEN2_AUDIO_7B_TOWER = dict(n_mels=128, hidden_size=1280, num_layers=32,
+                            num_heads=20, mlp_dim=5120, max_frames=3000)
+QWEN2_AUDIO_TOKEN = 151646
+QWEN2_AUDIO_TEXT_LAYERS = 4
+TA2T_ROWS, TA2T_PAIRS, TA2T_BUCKET = 4, 2, 1024
+TA2T_STEPS = TA2T_ROWS // TA2T_PAIRS
+CLIP_RATE, CLIP_SAMPLES = 16000, 480000      # 30 s: waveform_len's default
+# the card's log-mel (cuFFT) against the CPU's (pocketfft), fp32: each sits
+# within 6e-5 of a float64 recompute on tests/test_torch_audio.py's clips
+MEL_CARD_TOL = 2e-4
+# phase 37: phase 10's text widths, 1 layer, as a Qwen2 trunk (qkv bias),
+# under the published tower widths cut to 2 layers; clips of 2-30 s, each
+# padded to 30 s (750 audio tokens a row), the 1024 bucket
+TA2T_SMALL_TOWER_LAYERS, TA2T_SMALL_TOKEN = 2, 32000
+TA2T_SMALL_NEW = 16
+FRESH_TOWER = ('--n_mels', '128', '--audio_hidden_size', '256',
+               '--audio_layers', '2', '--audio_heads', '4',
+               '--audio_mlp_dim', '1024', '--audio_max_frames', '3000',
+               '--audio_token_id', str(TA2T_SMALL_TOKEN))
+
+
+def qwen2_audio_config(text_layers: int = QWEN2_AUDIO_TEXT_LAYERS):
+    """Qwen2-Audio-7B-Instruct's published widths, the text cut to
+    ``text_layers``."""
+    from align_anything_tpu_torch.models.audio import (  # noqa: PLC0415
+        AudioEncoderConfig, AudioLMConfig)
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+
+    return AudioLMConfig(
+        text=ModelConfig(num_layers=text_layers, **QWEN2_AUDIO_7B),
+        audio=AudioEncoderConfig(**QWEN2_AUDIO_7B_TOWER),
+        audio_token_id=QWEN2_AUDIO_TOKEN)
+
+
+def qwen2_audio_small_config():
+    """Phase 37's model: phase 10's text widths (1 layer, Qwen2) under the
+    published tower cut to ``TA2T_SMALL_TOWER_LAYERS``."""
+    from align_anything_tpu_torch.models.audio import (  # noqa: PLC0415
+        AudioEncoderConfig, AudioLMConfig)
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+
+    s = SMALL
+    return AudioLMConfig(
+        text=ModelConfig(
+            vocab_size=s['vocab_size'], hidden_size=s['hidden'], num_layers=1,
+            num_heads=s['heads'], num_kv_heads=s['kv_heads'],
+            head_dim=s['hidden'] // s['heads'], mlp_dim=s['mlp'],
+            max_position_embeddings=s['max_pos'], rope_theta=10000.0,
+            norm_eps=1e-5, qkv_bias=True, tie_word_embeddings=False,
+            bos_token_id=1, eos_token_id=2, pad_token_id=0),
+        audio=AudioEncoderConfig(**{**QWEN2_AUDIO_7B_TOWER,
+                                    'num_layers': TA2T_SMALL_TOWER_LAYERS}),
+        audio_token_id=TA2T_SMALL_TOKEN)
+
+
+def write_audio_lm(cfg, path: str, seed: int, dev) -> dict:
+    """A Qwen2-Audio checkpoint of ``cfg`` with random weights from
+    ``seed``, written in bf16 by the port's exporter: params per module,
+    seconds and bytes."""
+    from align_anything_tpu_torch.models import audio  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        save_audio_params)
+
+    params = audio.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = {m: sum(t.numel() for t in param_leaves(params[m]))
+                for m in params}
+    t0 = time.perf_counter()
+    save_audio_params(path, params, cfg, dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    del params
+    free_memory()
+    return {'n_params': n_params, 'write_s': write_s,
+            'bytes': os.path.getsize(os.path.join(path, 'model.safetensors'))}
+
+
+def write_wav(path: str, samples: np.ndarray) -> str:
+    """16-bit mono PCM at 16 kHz through the standard library."""
+    import wave  # noqa: PLC0415
+
+    pcm = np.clip(samples * 32768.0, -32768, 32767).astype(np.int16)
+    with wave.open(path, 'wb') as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(CLIP_RATE)
+        f.writeframes(pcm.tobytes())
+    return path
+
+
+def audio_clips(tmp: str, seconds: list, seed: int) -> list:
+    """16-bit wav files of ``seconds`` each, made from ``seed``: two tones
+    of 100-4000 Hz whose loudness swells, under noise."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, sec in enumerate(seconds):
+        t = np.arange(int(sec * CLIP_RATE)) / CLIP_RATE
+        clip = sum(rng.uniform(0.1, 0.3) * np.sin(
+            2 * np.pi * rng.uniform(100, 4000) * t + rng.uniform(0, 6.3))
+            for _ in range(2)) * (0.6 + 0.4 * np.sin(
+                2 * np.pi * rng.uniform(0.1, 1.0) * t))
+        clip = clip + 0.02 * rng.standard_normal(len(t))
+        paths.append(write_wav(os.path.join(tmp, f'clip_{seed}_{i}.wav'),
+                               clip.astype(np.float32)))
+    return paths
+
+
+def ta2t_rows(clips: list, seed: int, words_range: tuple) -> list:
+    """AA_TA2T rows, one a clip: a question, a response, and a preference
+    pair of responses, each of ``words_range`` words."""
+    rng = np.random.default_rng(seed)
+
+    def text():
+        return words(rng, int(rng.integers(*words_range)))
+
+    return [{'question': text(), 'response': text(), 'response_1': text(),
+             'response_2': text(), 'overall_response': int(rng.integers(1, 3)),
+             'audio': clip} for clip in clips]
+
+
+def run_ta2t(trainer_cls, task: str, argv: list,
+             mesh_file: str | None = None) -> tuple:
+    """``run_trainer`` for a TA2T trainer, timing its Qwen2-Audio
+    checkpoint's load."""
+    from align_anything_tpu_torch.trainers.text_audio_to_text import (  # noqa: PLC0415
+        sft as ta2t_sft)
+
+    timing = {'load_s': 0.0}
+    load = ta2t_sft.load_audio_params
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        timing['load_s'] += time.perf_counter() - t0
+        return out
+
+    with mock.patch.object(ta2t_sft, 'load_audio_params', timed_load):
+        trainer, steps, _ = run_trainer(trainer_cls, task, argv, mesh_file)
+    return trainer, steps, timing
+
+
+def audio_token_spans(ids: np.ndarray, token: int) -> tuple:
+    """(audio tokens a row, the longest run of them a row: the <audio>
+    span; the difference is the hash tokenizer's words that fell on the
+    audio token, ROADMAP R12)."""
+    counts, spans = [], []
+    for row in ids.tolist():
+        run = best = 0
+        for t in row:
+            run = run + 1 if t == token else 0
+            best = max(best, run)
+        counts.append(row.count(token))
+        spans.append(best)
+    return counts, spans
+
+
+def ta2t_dpo_assets(cfg, dev, tmp: str) -> tuple:
+    """Phase 36's checkpoint (seeded), its AA_TA2T preference rows over
+    30 s wav clips and the command line: (checkpoint dir, what was
+    written, argv)."""
+    ckpt = os.path.join(tmp, 'qwen2_audio_7b')
+    w = write_audio_lm(cfg, ckpt, SEED + 360, dev)
+    clips = audio_clips(tmp, [CLIP_SAMPLES / CLIP_RATE] * TA2T_ROWS,
+                        SEED + 361)
+    # 40-90 words a question and response: 750 audio tokens and at most
+    # 190 words of text with the chat format, inside the 1024 bucket
+    data = write_jsonl(os.path.join(tmp, 'pref_ta2t.jsonl'),
+                       ta2t_rows(clips, SEED + 362, (40, 91)))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'AA_TA2T', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(TA2T_PAIRS), '--padding_buckets', f'[{TA2T_BUCKET}]']
+    return ckpt, w, argv
+
+
+def ta2t_dpo_full(dev, smi, tmp: str) -> dict:
+    """Phase 36: TA2T DPO through ``trainer_main(TA2TDPOTrainer, ...)``
+    (``python -m ...text_audio_to_text.dpo``) at Qwen2-Audio-7B widths,
+    from a bf16 Qwen2-Audio checkpoint written by the port's exporter (the
+    ``load_audio_params`` path), over 30 s clips."""
+    from align_anything_tpu_torch.models import audio  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_audio_params)
+    from align_anything_tpu_torch.ops.audio import log_mel_spectrogram  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_audio_to_text.dpo import (  # noqa: PLC0415
+        TA2TDPOTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    cfg = qwen2_audio_config()
+    ckpt, w, argv = ta2t_dpo_assets(cfg, dev, tmp)
+    n = w['n_params']
+    log(f'phase36 wrote the checkpoint (Qwen2-Audio-7B widths, text '
+        f'{cfg.text.num_layers} of 32 layers, tower {cfg.audio.num_layers} '
+        f'layers; params language_model {n["language_model"] / 1e9:.3f} B, '
+        f'audio_tower {n["audio_tower"] / 1e9:.3f} B, projector '
+        f'{n["projector"] / 1e9:.4f} B; bf16 safetensors in Qwen2-Audio '
+        f'layout): {w["bytes"] / 1e9:.3f} GB in {w["write_s"]:.2f} s; '
+        f'{TA2T_ROWS} AA_TA2T preference rows over 30 s 16-bit wav clips; '
+        f'argv {" ".join(argv[2:])}')
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with recording_loss(TA2TDPOTrainer, 'preference_loss', first, (
+            'input_ids', 'attention_mask', 'response_mask', 'audio_values')):
+        trainer, steps, timing = run_ta2t(
+            TA2TDPOTrainer, 'text_audio_to_text/dpo', argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    start, _ = load_audio_params(ckpt, device=dev)
+    moved = changed_modules(trainer.state.params,
+                            {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    counts, spans = audio_token_spans(b['input_ids'].cpu().numpy(),
+                                      cfg.audio_token_id)
+    per_clip = cfg.audio.num_audio_tokens
+    losses = [s['train/loss'] for s in steps]
+    step_s, tps = step_report('phase36', steps, shape, 'train/loss')
+    t_layers, layers = cfg.audio.num_layers, cfg.text.num_layers
+    # a step: the tower and the trunk forward for the policy and for the
+    # reference; the trunk backward (the tower is frozen and its input
+    # needs no gradient); no remat (the checkpoint's config)
+    need = {'fwd': TA2T_STEPS * 2 * (t_layers + layers),
+            'bwd': TA2T_STEPS * layers}
+    # FLOPs of a step: the trained text's by bench.py's convention over
+    # the padded rows (projector included); the frozen tower's forward
+    # twice (policy and reference), 2 x its params a frame and 4 x
+    # frames^2 x width a layer for the attention, over each row's 1500
+    # frames
+    n_text = n['language_model'] + n['projector']
+    frames = cfg.audio.max_frames // 2
+    tower_flops = 2 * shape[0] * (
+        2 * n['audio_tower'] * frames
+        + 4 * frames ** 2 * cfg.audio.hidden_size * t_layers)
+    step_flops = (shape[0] * shape[1] * dpo_flops_per_token(
+        n_text, shape[1], cfg.text.hidden_size, layers) + tower_flops)
+    mfu = step_flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    waves = b['audio_values']
+    mel = log_mel_spectrogram(waves, n_mels=cfg.audio.n_mels)
+    mel_cpu = log_mel_spectrogram(waves.cpu(), n_mels=cfg.audio.n_mels)
+    mel_err = float((mel.cpu() - mel_cpu).abs().max())
+    log(f'phase36 Qwen2-Audio TA2T DPO: batch {shape} with audio_values '
+        f'{tuple(waves.shape)} ({waves.shape[1] / CLIP_RATE:.0f} s a row); '
+        f'audio tokens a row {counts}, the <audio> span {spans} (need '
+        f'{per_clip} a clip; words that hash to the audio token: '
+        f'{[c - s for c, s in zip(counts, spans)]}); remat '
+        f'{mcfg.text.remat}, compute {mcfg.text.compute_dtype}; log-mel on '
+        f'the card against the CPU\'s: max|diff| {mel_err:.3e} (tol '
+        f'{MEL_CARD_TOL:g}) over {tuple(mel.shape)}; trainer_main '
+        f'{total_s:.2f} s (load {timing["load_s"]:.2f} s, {len(steps)} '
+        f'steps); step time {step_s:.4f} s (step 2), {tps:.1f} tokens/s, MFU '
+        f'{mfu:.4f} ({step_flops / 1e12:.2f} TFLOP a step, the tower '
+        f'{tower_flops / 1e12:.2f}, against 989 TFLOP/s); peak memory '
+        f'{peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident before); '
+        f'modules moved {moved}; flash launches fwd {launches["fwd"]} (need '
+        f'{need["fwd"]}) bwd {launches["bwd"]} (need {need["bwd"]}); card '
+        f'{smi}')
+    if len(steps) != TA2T_STEPS or shape != (2 * TA2T_PAIRS, TA2T_BUCKET):
+        raise AssertionError(f'TA2T DPO: {len(steps)} steps at {shape}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'TA2T DPO step 1 loss {losses[0]!r} != ln 2')
+    if not all_finite(steps):
+        raise AssertionError('TA2T DPO: a non-finite metric')
+    if spans != [per_clip] * shape[0]:
+        raise AssertionError(f'TA2T DPO: <audio> spans {spans}, not '
+                             f'{per_clip} a row')
+    if not (torch.isfinite(mel).all() and mel_err <= MEL_CARD_TOL):
+        raise AssertionError(f'TA2T DPO: the card\'s log-mel is {mel_err} '
+                             'from the CPU\'s')
+    if moved != {'language_model': True, 'audio_tower': False,
+                 'projector': True}:
+        raise AssertionError(f'TA2T DPO: modules moved {moved}; the tower '
+                             'is frozen, the rest trains')
+    check_launches('TA2T DPO', launches, need, exact=True)
+
+    # step 1 recomputed from the checkpoint with the plain attention, in
+    # bf16 compute and in fp32
+    params, _ = load_audio_params(ckpt, device=dev)
+    sums = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            sums[dtype] = masked_sums(audio.token_logprobs(
+                params, mcfg.replace(compute_dtype=dtype), b['input_ids'],
+                attention_mask=b['attention_mask'],
+                audio_values=b['audio_values']), b['response_mask'])
+    del params
+    free_memory()
+    log('phase36 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'],
+                                       sums['bfloat16'], sums['float32'])
+        + '; ' + check_sums('reference', first['ref_sums'], sums['bfloat16'],
+                            sums['float32']))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase36 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase, '
+        f'{disk_written():.3f} GB by the run so far')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'mfu': mfu, 'peak_gb': peak / 1e9}
+
+
+def ta2t_small(dev, smi, tmp: str) -> dict:
+    """Phase 37: at phase 10's text widths (1 layer) under a 2-layer tower
+    of the published widths, through the entry points' ``trainer_main``:
+    TA2T SFT and its export read back, the RM, one PPO round and one GRPO
+    round (the audio prefill in the rollout), then SFT on the fresh-encoder
+    path over phase 10's text checkpoint."""
+    from align_anything_tpu_torch.models import audio  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_audio_params)
+    from align_anything_tpu_torch.trainers.text_audio_to_text import (  # noqa: PLC0415
+        grpo as ta2t_grpo, ppo as ta2t_ppo, rm as ta2t_rm, sft as ta2t_sft)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    cfg = qwen2_audio_small_config()
+    ckpt = os.path.join(tmp, 'qwen2_audio_small')
+    write_audio_lm(cfg, ckpt, SEED + 370, dev)
+    rng = np.random.default_rng(SEED + 371)
+    clips = audio_clips(tmp, rng.uniform(2, 30, 8).round(2).tolist(),
+                        SEED + 372)
+    data = write_jsonl(os.path.join(tmp, 'ta2t_small.jsonl'),
+                       ta2t_rows(clips, SEED + 373, (10, 61)))
+    start = load_audio_params(ckpt, device=dev)[0]
+    start = {m: leaves_by_path(start[m]) for m in start}
+    t_layers, layers = cfg.audio.num_layers, cfg.text.num_layers
+    per_clip = cfg.audio.num_audio_tokens
+    common = ['--train_datasets', data, '--train_template', 'AA_TA2T',
+              '--epochs', '1', '--save_checkpoint', 'False',
+              '--padding_buckets', f'[{TA2T_BUCKET}]']
+    rollout_calls: list = []
+    generate = ta2t_ppo.generate
+
+    def recording_generate(*args, **kwargs):
+        rollout_calls.append((kwargs['prefill_forward'],
+                              tuple(kwargs['media']['audio_values'].shape)))
+        return generate(*args, **kwargs)
+
+    out = os.path.join(tmp, 'ta2t_sft')
+    # (tag, class, task, argv, steps or rounds, launches a step or round)
+    runs = (
+        ('SFT', ta2t_sft.TA2TSupervisedTrainer, 'text_audio_to_text/sft',
+         ['--model_name_or_path', ckpt, *common, '--output_dir', out,
+          '--train_size', '4', '--per_device_train_batch_size', '2'], 2,
+         {'fwd': t_layers + layers, 'bwd': layers}),
+        ('RM', ta2t_rm.TA2TRMTrainer, 'text_audio_to_text/rm',
+         ['--model_name_or_path', ckpt, *common, '--train_size', '4',
+          '--per_device_train_batch_size', '2'], 2,
+         {'fwd': t_layers + layers, 'bwd': layers}),
+        # a round: the tower in the prefill (the decode steps and the
+        # prefill's trunk run the cache path), 4 scoring passes, and for
+        # each of 2 micro-batches the actor and the critic forward and
+        # backward; the towers train (R13)
+        ('PPO', ta2t_ppo.TA2TPPOTrainer, 'text_audio_to_text/ppo',
+         ['--model_name_or_path', ckpt, *common, '--train_size', '4',
+          '--per_device_prompt_batch_size', '4',
+          '--per_device_train_batch_size', '2',
+          '--max_new_tokens', str(TA2T_SMALL_NEW)], 1,
+         {'fwd': t_layers + 8 * (t_layers + layers),
+          'bwd': 4 * (t_layers + layers)}),
+        # 2 prompts x 4 generations (ppo.yaml has no num_generations): the
+        # tower in the prefill, the reward pass, the actor's and the
+        # reference's forward, the actor's backward
+        ('GRPO', ta2t_grpo.TA2TGRPOTrainer, 'text_audio_to_text/ppo',
+         ['--model_name_or_path', ckpt, *common, '--train_size', '2',
+          '--per_device_prompt_batch_size', '2',
+          '--max_new_tokens', str(TA2T_SMALL_NEW)], 1,
+         {'fwd': t_layers + 3 * (t_layers + layers),
+          'bwd': t_layers + layers}),
+        # the fresh encoder (2 layers of 256, 4 heads of 64) over phase
+        # 10's Llama trunk (2 layers; remat 'save_flash' keeps the kernel's
+        # output), the tower frozen
+        ('SFT, fresh encoder', ta2t_sft.TA2TSupervisedTrainer,
+         'text_audio_to_text/sft',
+         ['--model_name_or_path', os.path.join(tmp, 'small'), *common,
+          '--train_size', '4', '--per_device_train_batch_size', '2',
+          *FRESH_TOWER], 2, {'fwd': 2 + SMALL['layers'],
+                             'bwd': SMALL['layers']}))
+    total = {'fwd': 0, 'bwd': 0}
+    for tag, cls, task, argv, n_steps, per in runs:
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        rollout_calls.clear()
+        with mock.patch.object(ta2t_ppo, 'generate', recording_generate):
+            trainer, steps, timing = run_ta2t(cls, task, argv)
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        steps = [m for m in steps if 'train/reward' in m or 'train/loss' in m
+                 or 'train/actor_loss' in m]
+        mcfg = trainer.model_cfg
+        params = (trainer.actor_state if hasattr(trainer, 'actor_state')
+                  else trainer.state).params
+        need = {k: n_steps * v for k, v in per.items()}
+        first = next(iter(trainer.train_iterator.epoch_batches(0)))
+        counts, spans = audio_token_spans(first['input_ids'],
+                                          mcfg.audio_token_id)
+        info = ''
+        if tag == 'SFT':
+            back, _ = load_audio_params(os.path.join(out, f'slice_{n_steps}'),
+                                        device=dev)
+            got, back = leaves_by_path(params), leaves_by_path(back)
+            exported = set(got) == set(back) and all(
+                torch.equal(got[p], back[p]) for p in got)
+            info = f'; slice_{n_steps} read back bit-equal: {exported}'
+            if not exported:
+                raise AssertionError('TA2T SFT: the export does not read '
+                                     'back through load_audio_params')
+            del back, got
+        if tag in ('SFT', 'RM', 'PPO', 'GRPO'):
+            moved = changed_modules(
+                {m: params[m] for m in start}, start)
+            info += f'; modules moved {moved}'
+            tower_trains = tag in ('PPO', 'GRPO')          # R13
+            if moved != {'language_model': True, 'projector': True,
+                         'audio_tower': tower_trains}:
+                raise AssertionError(f'TA2T {tag}: modules moved {moved}')
+        if rollout_calls:
+            info += (f'; rollout prefill {rollout_calls[0][0].__module__}.'
+                     f'{rollout_calls[0][0].__name__} with audio_values '
+                     f'{rollout_calls[0][1]}')
+            if not (rollout_calls[0][0] is audio.forward
+                    and rollout_calls[0][1][1] == CLIP_SAMPLES):
+                raise AssertionError(f'TA2T {tag}: the rollout prefill '
+                                     'took no clips')
+        kl = [m.get('train/kl_divergence', m.get('train/kl'))
+              for m in steps][:1]
+        log(f'phase37 {tag}: batch {first["input_ids"].shape}; audio tokens '
+            f'a row {counts}, spans {spans} (need {per_clip}); '
+            f'{len(steps)} steps, losses '
+            f'{[m.get("train/loss", m.get("train/actor_loss")) for m in steps]}'
+            + (f', round 1 KL {kl[0]!r}' if tag in ('PPO', 'GRPO') else '')
+            + f'; load {timing["load_s"]:.2f} s; flash launches fwd '
+            f'{launches["fwd"]} (need {need["fwd"]}) bwd {launches["bwd"]} '
+            f'(need {need["bwd"]}){info}; card {smi}')
+        if len(steps) != n_steps or not all_finite(steps):
+            raise AssertionError(f'TA2T {tag}: {len(steps)} steps or a '
+                                 'non-finite metric')
+        if tag in ('PPO', 'GRPO') and kl != [0.0]:
+            raise AssertionError(f'TA2T {tag}: round 1 KL {kl}')
+        if tag in ('PPO', 'GRPO') and not rollout_calls:
+            raise AssertionError(f'TA2T {tag}: no rollout')
+        if spans != [per_clip] * len(spans):
+            raise AssertionError(f'TA2T {tag}: <audio> spans {spans}')
+        check_launches(f'TA2T {tag}', launches, need, exact=True)
+        for k in total:
+            total[k] += launches[k]
+        del trainer, params
+        free_memory()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase37 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase')
+    return {'launches': total}
+
+
 # phases 22-23: LoRA and QLoRA through the trainers' entry points.  Phase
 # 22 runs DPO at Llama-3-8B's full size, all 32 layers, from the port's
 # 'llama-3-8b' preset (fp32 weights drawn from the trainer's seed on the
@@ -5119,19 +5666,23 @@ def lora_small(dev, smi, tmp: str, cost: str) -> dict:
 
     # resume: QLoRA DPO saved at step 2, resumed for steps 3-4, against the
     # uninterrupted run's metrics and adapters
-    full, full_steps, _ = run_trainer(
-        dpo.DPOTrainer, 'text_to_text/dpo',
-        argv(pref, 'PKUSafeRLHF', 'lora_full', '--save_checkpoint', 'True',
-             '--save_interval', '2', '--save_total_limit', '3',
-             *LORA_FLAGS['int4']))
+    # only the step-2 train state is read (the merged slices of steps 2
+    # and 4, 0.39 GB each, would be read by nothing)
+    with unread_saves_skipped(state_steps=(2,)):
+        full, full_steps, _ = run_trainer(
+            dpo.DPOTrainer, 'text_to_text/dpo',
+            argv(pref, 'PKUSafeRLHF', 'lora_full', '--save_checkpoint',
+                 'True', '--save_interval', '2', '--save_total_limit', '3',
+                 *LORA_FLAGS['int4']))
     os.makedirs(os.path.join(tmp, 'lora_resumed', 'checkpoints'))
     shutil.copytree(os.path.join(tmp, 'lora_full', 'checkpoints', 'step_2'),
                     os.path.join(tmp, 'lora_resumed', 'checkpoints',
                                  'step_2'))
-    resumed, resumed_steps, _ = run_trainer(
-        dpo.DPOTrainer, 'text_to_text/dpo',
-        argv(pref, 'PKUSafeRLHF', 'lora_resumed', '--load_checkpoint',
-             'True', *LORA_FLAGS['int4']))
+    with unread_saves_skipped():      # its final save: read by nothing
+        resumed, resumed_steps, _ = run_trainer(
+            dpo.DPOTrainer, 'text_to_text/dpo',
+            argv(pref, 'PKUSafeRLHF', 'lora_resumed', '--load_checkpoint',
+                 'True', *LORA_FLAGS['int4']))
     want = [(m['train/loss'], m['train/grad_norm']) for m in full_steps[2:]]
     have = [(m['train/loss'], m['train/grad_norm']) for m in resumed_steps]
     a, b = (leaves_by_path(t.state.params) for t in (full, resumed))
@@ -6382,6 +6933,48 @@ def profile_qwen2_vl(dev, smi, tmp: str) -> None:
     free_memory()
 
 
+def profile_ta2t(dev, smi, tmp: str) -> None:
+    """``--profile ta2t``: one TA2T DPO step of phase 36's config after a
+    warm-up step, traced whole; then, on that step's clips, what the step
+    runs of the audio path twice (the policy's pass and the reference's):
+    the log-mel frontend alone, and the whole encoder (frontend,
+    convolutions, the 32 layers, pool, norm and projector) without
+    gradients, as the frozen tower runs: their shares of the step's device
+    time."""
+    from align_anything_tpu_torch.models import audio  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_audio_to_text.dpo import (  # noqa: PLC0415
+        TA2TDPOTrainer)
+
+    cfg = qwen2_audio_config()
+    ckpt, _, argv = ta2t_dpo_assets(cfg, dev, tmp)
+    cfgs, pc = parse_cfgs('text_audio_to_text/dpo', argv)
+    trainer = TA2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    step_busy = report_trace('ta2t dpo step', prof, wall, smi)
+    waves = trainer.put_batch(batch)['audio_values']
+    params, mcfg = trainer.state.params, trainer.model_cfg
+    with torch.no_grad():
+        _, prof, wall = traced(lambda: [audio.frontend(mcfg, waves)
+                                        for _ in range(2)])
+        mel = report_trace(f'ta2t log-mel frontend x 2 ({waves.shape[0]} '
+                           'clips of 30 s)', prof, wall, smi, top=8)
+        _, prof, wall = traced(lambda: [audio.encode_audio(params, mcfg,
+                                                           waves)
+                                        for _ in range(2)])
+        tower = report_trace(f'ta2t encoder forward x 2 ({waves.shape[0]} '
+                             'clips of 30 s)', prof, wall, smi)
+    log(f'profile ta2t: device busy a step {step_busy:.4f} s; the encoder '
+        f'(policy and reference passes) {tower:.4f} s '
+        f'({tower / step_busy:.4f} of the step\'s device time), of it the '
+        f'log-mel frontend {mel:.4f} s ({mel / step_busy:.4f}); card {smi}')
+    del trainer, prof, params, waves
+    free_memory()
+
+
 def profile_qlora(dev, smi, tmp: str) -> None:
     """``--profile``: one QLoRA DPO step of phase 22's config (Llama-3-8B, 32
     layers, the int4 base) after a warm-up step, traced whole."""
@@ -6473,7 +7066,7 @@ def main() -> int:
     libs = build_kernels()
     if sys.argv[1:2] == ['--profile']:
         which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora', 'gemma3',
-                                 'qwen2vl']
+                                 'qwen2vl', 'ta2t']
         if 'dpo' in which:
             profile_dpo(dev, smi)
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
@@ -6481,7 +7074,8 @@ def main() -> int:
             for name, fn in (('ppo', profile_ppo), ('ti2t', profile_ti2t),
                              ('qlora', profile_qlora),
                              ('gemma3', profile_gemma3),
-                             ('qwen2vl', profile_qwen2_vl)):
+                             ('qwen2vl', profile_qwen2_vl),
+                             ('ta2t', profile_ta2t)):
                 if name in which:
                     fn(dev, smi, tmp)
         finally:
@@ -6614,6 +7208,8 @@ def main() -> int:
         lnext_small = llava_next_small(dev, smi, tmp)
         qwen_dpo = qwen2_vl_dpo_full(dev, smi, tmp)
         qwen_small = qwen_vl_small(dev, smi, tmp)
+        ta2t_dpo = ta2t_dpo_full(dev, smi, tmp)
+        ta2t_sm = ta2t_small(dev, smi, tmp)
         qlora4 = qlora_full(dev, smi, tmp, 4, QLORA_STEPS)
         qlora8 = qlora_full(dev, smi, tmp, 8, QLORA_INT8_STEPS)
         lora = lora_small(dev, smi, tmp, cost)
@@ -6632,11 +7228,11 @@ def main() -> int:
     mm_ppo = fstats['timed']['ti2t_ppo']
     timed = {name: fstats['timed'][name]
              for name in ('gemma3_1b', 'gemma3_1b_w512', 'llava_next',
-                          'qwen2_vl_2b')}
+                          'qwen2_vl_2b', 'qwen2_audio_tower')}
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
                  ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, anyres, tv2t,
-                 lnext_small, qwen_dpo, qwen_small, qlora4, qlora8, lora,
-                 gemma, gemma_gen, remat, saves)
+                 lnext_small, qwen_dpo, qwen_small, ta2t_dpo, ta2t_sm,
+                 qlora4, qlora8, lora, gemma, gemma_gen, remat, saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -6654,7 +7250,9 @@ def main() -> int:
                       '31\'s AnyRes DPO decoder), SDPA causal, no padding; '
                       'qwen2_vl_2b: B4 L1024 H12 KH2 D128 causal, 2 rows '
                       'padded (phase 34\'s Qwen2-VL-2B DPO decoder), SDPA '
-                      'causal, no padding',
+                      'causal, no padding; qwen2_audio_tower: B4 L1500 '
+                      'H20 KH20 D64 full (phase 36\'s Qwen2-Audio-7B '
+                      'encoder over 30 s clips), SDPA full',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
@@ -6689,7 +7287,13 @@ def main() -> int:
                              'Qwen2-VL DPO steps at Qwen2-VL-2B widths, text '
                              '4 layers: the trunk only, the towers run no '
                              'kernel) + phase 35 (Qwen2-VL SFT at 224 px and '
-                             'dynamic, Qwen2.5-VL SFT and DPO, small)'}
+                             'dynamic, Qwen2.5-VL SFT and DPO, small) + '
+                             'phase 36 (2 TA2T DPO steps at Qwen2-Audio-7B '
+                             'widths, text 4 layers: the 32-layer tower '
+                             'forward twice a step, frozen) + phase 37 '
+                             '(TA2T SFT, RM, PPO, GRPO and SFT over a '
+                             'fresh encoder, small: the towers train in '
+                             'PPO and GRPO)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',

@@ -29,7 +29,9 @@ TASKS = ('sft', 'dpo', 'orpo', 'simpo', 'rm', 'ppo', 'kto', 'grpo',
          'text_image_to_text/rm', 'text_image_to_text/ppo',
          'text_image_to_text/grpo', 'text_image_to_text/saferlhf',
          'text_video_to_text/sft', 'text_video_to_text/dpo',
-         'text_video_to_text/rm', 'text_video_to_text/ppo')
+         'text_video_to_text/rm', 'text_video_to_text/ppo',
+         'text_audio_to_text/sft', 'text_audio_to_text/dpo',
+         'text_audio_to_text/rm', 'text_audio_to_text/ppo')
 BOTH = pytest.mark.parametrize('m', [jcfg, tcfg], ids=['jax', 'port'])
 
 

@@ -25,7 +25,9 @@ for name in names:
 # Safe-RLHF and the two PPO variants with the remote reward model, the
 # LLaVA image-text path, the image-text RL and preference trainers, LoRA,
 # the HTTP server and the 8B int4 / int8 serving bench, the video data and
-# the text-video-to-text trainers, the Qwen2-VL and Qwen2.5-VL models
+# the text-video-to-text trainers, the Qwen2-VL and Qwen2.5-VL models, the
+# audio frontend, the Qwen2-Audio model, the audio data and the
+# text-audio-to-text trainers
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
@@ -60,7 +62,13 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'trainers.text_video_to_text.rm',
              'trainers.text_video_to_text.ppo',
              'trainers.text_video_to_text.grpo', 'models.qwen2_vl',
-             'models.qwen2_5_vl', 'ops.rope'):
+             'models.qwen2_5_vl', 'ops.rope', 'ops.audio', 'models.audio',
+             'data.audio', 'trainers.text_audio_to_text',
+             'trainers.text_audio_to_text.sft',
+             'trainers.text_audio_to_text.dpo',
+             'trainers.text_audio_to_text.rm',
+             'trainers.text_audio_to_text.ppo',
+             'trainers.text_audio_to_text.grpo'):
     assert 'align_anything_tpu_torch.' + name in names, name
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
@@ -77,7 +85,7 @@ def test_port_imports_no_jax():
     n, bad = proc.stdout.split(maxsplit=1)
     assert bad.strip() == '[]', bad
     # every module of the slices was imported
-    assert int(n) >= 91
+    assert int(n) >= 100
 
 
 @pytest.mark.parametrize('module', [
@@ -94,6 +102,9 @@ def test_port_imports_no_jax():
     'align_anything_tpu_torch.trainers.text_image_to_text.saferlhf',
     'align_anything_tpu_torch.serve.api_server',
     'align_anything_tpu_torch.scripts.bench.bench_int4_7b',
+    'align_anything_tpu_torch.models.audio',
+    'align_anything_tpu_torch.trainers.text_audio_to_text.dpo',
+    'align_anything_tpu_torch.trainers.text_audio_to_text.grpo',
 ])
 def test_kernel_module_imports_first(module):
     """A module that holds a kernel, or a trainer's entry point, imports on
