@@ -154,6 +154,13 @@ def _copy_into(tree: Any, saved: Any) -> None:
         for k in tree:
             _copy_into(tree[k], saved[k])
         return
+    if isinstance(tree, list):
+        if len(tree) != len(saved):
+            raise ValueError('checkpoint param tree differs from the '
+                             f'target: {len(saved)} layers, not {len(tree)}')
+        for t, s in zip(tree, saved):
+            _copy_into(t, s)
+        return
     with torch.no_grad():
         tree.copy_(saved)
 
@@ -179,12 +186,14 @@ def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
                   tokenizer: Any | None = None) -> str:
     """HF-format ``slice_{step}`` export (reference output-layout parity) of
     a decoder param tree, or of a multimodal one in its family's layout:
-    Qwen2-Audio (a config with ``audio`` and ``text``), Qwen2.5-VL (a tower
-    with ``window_size``), Qwen2-VL (a tower with ``spatial_merge_size``),
-    else LLaVA, in JAX's order of checks.  The JAX module's other
-    multimodal savers are not ported."""
+    Qwen2-Audio (a config with ``audio`` and ``text``), Mllama (a config
+    with ``cross_attention_layers``), Qwen2.5-VL (a tower with
+    ``window_size``), Qwen2-VL (a tower with ``spatial_merge_size``), else
+    LLaVA, in JAX's order of checks.  The JAX module's other multimodal
+    savers (MiniCPM-V / MiniCPM-o) are not ported."""
     from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
         save_audio_params,
+        save_mllama_params,
         save_multimodal_params,
         save_params,
         save_qwen2_5_vl_params,
@@ -198,6 +207,8 @@ def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
     vision = getattr(model_config, 'vision', None)
     if hasattr(model_config, 'audio') and hasattr(model_config, 'text'):
         save_audio_params(path, params, model_config)
+    elif hasattr(model_config, 'cross_attention_layers'):
+        save_mllama_params(path, params, model_config)
     elif hasattr(vision, 'window_size'):
         save_qwen2_5_vl_params(path, params, model_config)
     elif hasattr(vision, 'spatial_merge_size'):

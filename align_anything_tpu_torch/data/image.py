@@ -16,9 +16,13 @@ and the tiles of the best pinpoint resolution, padded to a fixed crop
 count, with ``select_idx``, the gather that packs their features in HF's
 order, and ``num_tokens``, the image's <image> expansion.
 
+``MllamaTileProcessor`` is Mllama's aspect-ratio tiling: an image becomes
+up to ``max_num_tiles`` tiles of the canvas that fits it best, with its
+``aspect_ratio_ids`` and ``aspect_ratio_mask``, and one image token
+(``num_tokens`` 1: the image reaches the text by cross-attention).
+
 Not ported yet, with the models and trainers that use them (ROADMAP §1 item
-12): ``MiniCPMVSliceProcessor``, ``Idefics2NaViTProcessor`` and
-``MllamaTileProcessor``.
+12): ``MiniCPMVSliceProcessor`` and ``Idefics2NaViTProcessor``.
 """
 
 from __future__ import annotations
@@ -225,6 +229,72 @@ class AnyResProcessor:
         out_sel[:num_tokens] = select
         return {'pixel_values': crops, 'select_idx': out_sel,
                 'num_tokens': num_tokens}
+
+
+class MllamaTileProcessor:
+    """Mllama's aspect-ratio tiling on the host (HF
+    image_processing_mllama.py semantics): the optimal tile canvas among
+    the supported ratios, resize-to-fit and pad, the tiles, normalized
+    with the 0.5 / 0.5 mean and std.
+
+    Returns ``{'pixel_values': (1, max_tiles, 3, ts, ts),
+    'aspect_ratio_ids': (1,), 'aspect_ratio_mask': (1, max_tiles),
+    'num_tokens': 1}``: one ``<image>`` token an image, which reaches the
+    text through the cross-attention layers, not by an embedding merge."""
+
+    dynamic = True
+
+    def __init__(self, vcfg):
+        self.tile_size = vcfg.image_size
+        self.max_tiles = vcfg.max_num_tiles
+        # (h_tiles, w_tiles) in HF's id order: the first coordinate outer
+        self.ratios = [(a, b) for a in range(1, self.max_tiles + 1)
+                       for b in range(1, self.max_tiles + 1)
+                       if a * b <= self.max_tiles]
+
+    def _optimal_canvas(self, h: int, w: int) -> tuple[int, int]:
+        ts = self.tile_size
+        sizes = np.asarray(self.ratios) * ts
+        scales = np.minimum(sizes[:, 0] / h, sizes[:, 1] / w)
+        up = scales[scales >= 1]
+        sel = up.min() if len(up) else scales[scales < 1].max()
+        cand = sizes[scales == sel]
+        return tuple(cand[np.argmin(cand[:, 0] * cand[:, 1])])
+
+    def __call__(self, image: Any) -> dict[str, Any]:
+        from PIL import Image as PILImage  # noqa: PLC0415
+
+        ts = self.tile_size
+        arr = ImageProcessor._to_array(image)
+        h, w = arr.shape[:2]
+        ch, cw = self._optimal_canvas(h, w)
+        # fit to the canvas, keeping the aspect (image_processing_mllama.py:82)
+        th, tw = np.clip(h, ts, ch), np.clip(w, ts, cw)
+        scale_h, scale_w = th / h, tw / w
+        if scale_w < scale_h:
+            nh, nw = min(int(h * scale_w) or 1, th), tw
+        else:
+            nh, nw = th, min(int(w * scale_h) or 1, tw)
+        arr = np.asarray(PILImage.fromarray(arr).resize(
+            (int(nw), int(nh)), PILImage.BILINEAR))       # HF's default
+        canvas = np.zeros((ch, cw, 3), np.float32)
+        canvas[:nh, :nw] = arr.astype(np.float32)
+        x = canvas / 255.0
+        x = ((x - 0.5) / 0.5).transpose(2, 0, 1)          # (3, ch, cw)
+        nth, ntw = ch // ts, cw // ts
+        tiles = x.reshape(3, nth, ts, ntw, ts).transpose(1, 3, 0, 2, 4)
+        tiles = tiles.reshape(nth * ntw, 3, ts, ts)
+        out = np.zeros((self.max_tiles, 3, ts, ts), np.float32)
+        out[:tiles.shape[0]] = tiles
+        mask = np.zeros((self.max_tiles,), np.int32)
+        mask[:tiles.shape[0]] = 1
+        ar_id = self.ratios.index((nth, ntw)) + 1
+        return {
+            'pixel_values': out[None],                    # the media axis
+            'aspect_ratio_ids': np.asarray([ar_id], np.int32),
+            'aspect_ratio_mask': mask[None],
+            'num_tokens': 1,
+        }
 
 
 def expand_image_tokens(text: str, tokenizer, image_token_id: int,

@@ -5,10 +5,10 @@ Port of ``align_anything_tpu/generation/engine.py``: the generic decoder,
 and a vision-language model whose prefill takes the image
 (``pixel_values`` with ``prefill_forward`` / ``step_forward``, as JAX's
 TI2T PPO and GRPO call it); an m-rope model (Qwen2-VL) passes its prefill
-streams and decode offset (``prefill_positions`` / ``position_offset``).
-The continuous engine's tests hold it to this engine's tokens.  JAX's
-``init_cache_fn`` serves model families the port does not have yet
-(ROADMAP §1 item 12) and is left out.
+streams and decode offset (``prefill_positions`` / ``position_offset``);
+a family whose decode state is not the decoder's ``KVCache`` (Mllama: the
+cross K/V beside the self-attention cache) passes ``init_cache_fn``.  The
+continuous engine's tests hold it to this engine's tokens.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
              prefill_forward=None, step_forward=None,
              prefill_positions: torch.Tensor | None = None,
              position_offset: torch.Tensor | None = None,
-             media: dict | None = None
+             media: dict | None = None, init_cache_fn=None
              ) -> dict[str, torch.Tensor]:
     """Generate completions for left-padded prompts (B, P).
 
@@ -54,7 +54,13 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
     the text trunk.  Both default to ``transformer.forward``; the cache is
     built from ``model_cfg.text`` where the config has one.
     ``media`` holds other named inputs of the prefill alone (Qwen2-VL's
-    ``image_grid_thw``).
+    ``image_grid_thw``, Mllama's ``aspect_ratio_ids`` /
+    ``aspect_ratio_mask``).
+
+    Families whose decode state is not the decoder's ``KVCache`` (Mllama's
+    cross-attention K/V) pass ``init_cache_fn(model_cfg, b, total, dtype,
+    device=...)`` returning their cache; the loop then carries whatever
+    cache ``prefill_forward`` and each step return in ``out.cache``.
 
     m-rope models (Qwen2-VL class): ``prefill_positions`` (3, B, P)
     replace the cumsum positions of the prefill, and ``position_offset``
@@ -82,9 +88,12 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
         prefill_kwargs['pixel_values'] = pixel_values
 
     text_cfg = getattr(c, 'text', c)
-    cache = transformer.init_cache(
-        text_cfg, b, total,
-        dtype=transformer.torch_dtype(text_cfg.compute_dtype), device=dev)
+    cache_dtype = transformer.torch_dtype(text_cfg.compute_dtype)
+    if init_cache_fn is not None:
+        cache = init_cache_fn(c, b, total, cache_dtype, device=dev)
+    else:
+        cache = transformer.init_cache(text_cfg, b, total, dtype=cache_dtype,
+                                       device=dev)
     attention_mask = attention_mask.to(torch.long)
     full_mask = torch.zeros((b, total), dtype=torch.long, device=dev)
     full_mask[:, :p] = attention_mask
@@ -96,6 +105,7 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
                                      if prefill_positions is not None
                                      else prompt_positions),
                           cache=cache, cache_offset=0, **prefill_kwargs)
+    cache = out.cache
     if position_offset is not None:
         prompt_lens = prompt_lens + torch.as_tensor(position_offset,
                                                     device=dev)
@@ -117,6 +127,7 @@ def generate(params: dict, model_cfg, gen_cfg: GenerationConfig,
                             attention_mask=full_mask,
                             positions=(prompt_lens + t)[:, None],
                             cache=cache, cache_offset=p + t)
+        cache = step.cache
         next_logits = step.logits[:, 0]
         if bool(done.all()):
             break

@@ -17,7 +17,10 @@ module as it is: LLaVA's ``language_model`` / ``vision_tower`` /
 ``projector``, Qwen2-VL's and Qwen2.5-VL's ``language_model`` /
 ``visual`` (the tower's blocks stacked on a leading ``depth`` axis), and
 Qwen2-Audio's ``language_model`` / ``audio_tower`` (the convolutions as
-(K, C_in, C_out), the layers stacked) / ``projector``.  ``trainable_from_jax_tree`` makes a
+(K, C_in, C_out), the layers stacked) / ``projector``, and Mllama's
+``vision_model`` / ``language_model`` / ``projector``, whose layers are
+lists of per-layer dicts (``local_layers``, ``global_layers``, the text
+``layers``: self and cross layers differ), carried across as lists.  ``trainable_from_jax_tree`` makes a
 trainable fp32 tree and its frozen reference copy for the train step;
 ``lora_from_jax_tree`` the trainable adapters of ``models/lora.py``.
 """
@@ -64,6 +67,8 @@ def from_jax_tree(tree: Any, device: torch.device | str | None = None) -> Any:
                               b=tensor_from_numpy(tree['b'], device),
                               scaling=float(tree['scaling']))
         return {k: from_jax_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_jax_tree(v, device) for v in tree]
     return tensor_from_numpy(tree, device)
 
 

@@ -25,9 +25,12 @@ average-pool stride too).  ``load_qwen2_vl_params`` /
 ``save_qwen2_vl_params`` and ``load_qwen2_5_vl_params`` /
 ``save_qwen2_5_vl_params`` do it for Qwen2-VL and Qwen2.5-VL (the m-rope
 trunk's ``mrope_section`` from ``rope_scaling``; the tower under
-``visual``), and ``load_audio_params`` / ``save_audio_params`` for
-Qwen2-Audio (the Whisper-style tower under ``audio_tower``).  Not ported
-yet (ROADMAP §1 item 12): the other multimodal families (MLlama, MiniCPM,
+``visual``), ``load_audio_params`` / ``save_audio_params`` for
+Qwen2-Audio (the Whisper-style tower under ``audio_tower``), and
+``load_mllama_params`` / ``save_mllama_params`` for Mllama
+(Llama-3.2-Vision: the tiled tower under ``vision_model``, the trunk with
+its cross-attention layers, lists of per-layer dicts).  Not ported yet
+(ROADMAP §1 item 12): the other multimodal families (Idefics2, MiniCPM,
 Emu3's fused codec layout).
 """
 
@@ -1043,6 +1046,293 @@ def save_audio_params(path: str, params: dict, cfg,
             'encoder_attention_heads': ac.num_heads,
             'encoder_ffn_dim': ac.mlp_dim, 'num_mel_bins': ac.n_mels,
             'max_source_positions': ac.max_frames // 2,
+        },
+    }
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf_cfg, f, indent=2)
+
+
+def _mllama_tensors(path: str) -> dict[str, torch.Tensor]:
+    """An Mllama checkpoint's tensors under one set of names:
+    ``language_model.*`` (the trunk), ``lm_head.weight``,
+    ``vision_model.*`` and ``multi_modal_projector.*``, from the older
+    layout (``language_model.model.*``, ``language_model.lm_head.weight``)
+    or the newer (``model.language_model.*``, ``lm_head.weight``,
+    ``model.vision_model.*``, transformers >= 4.52)."""
+    out: dict[str, torch.Tensor] = {}
+    for k, v in _read_all_tensors(path).items():
+        k = k.removeprefix('model.')
+        if k in ('language_model.lm_head.weight', 'lm_head.weight'):
+            k = 'lm_head.weight'
+        out[k.replace('language_model.model.', 'language_model.')] = v
+    return out
+
+
+def load_mllama_params(path: str, dtype: torch.dtype = torch.float32,
+                       device: torch.device | str | None = None):
+    """Load an HF Mllama (Llama-3.2-Vision) checkpoint into (params,
+    MllamaConfig), every leaf on ``device`` (default: the first CUDA
+    device) in ``dtype``: the tiled two-stage vision encoder under
+    ``vision_model``, the Llama trunk with its interleaved cross-attention
+    layers under ``language_model`` (lists of per-layer dicts, as JAX's
+    ``load_mllama_params`` builds them) and the projector."""
+    from align_anything_tpu_torch.models.mllama import (  # noqa: PLC0415
+        MllamaConfig,
+        MllamaVisionConfig,
+    )
+
+    device = default_device(device)
+    with open(os.path.join(path, 'config.json')) as f:
+        hf = json.load(f)
+    tc, vc = hf['text_config'], hf['vision_config']
+    rs = tc.get('rope_scaling') or {}
+    llama3 = None
+    if rs.get('rope_type', rs.get('type')) == 'llama3':
+        llama3 = (float(rs['factor']), float(rs['low_freq_factor']),
+                  float(rs['high_freq_factor']),
+                  int(rs['original_max_position_embeddings']))
+    eos = tc.get('eos_token_id')
+    text_cfg = ModelConfig(
+        vocab_size=tc['vocab_size'], hidden_size=tc['hidden_size'],
+        num_layers=tc['num_hidden_layers'],
+        num_heads=tc['num_attention_heads'],
+        num_kv_heads=tc.get('num_key_value_heads', tc['num_attention_heads']),
+        head_dim=tc['hidden_size'] // tc['num_attention_heads'],
+        mlp_dim=tc['intermediate_size'],
+        max_position_embeddings=tc.get('max_position_embeddings', 4096),
+        rope_theta=tc.get('rope_theta', 500000.0), rope_llama3=llama3,
+        norm_eps=tc.get('rms_norm_eps', 1e-5),
+        bos_token_id=tc.get('bos_token_id', 1) or 1,
+        eos_token_id=(eos[0] if isinstance(eos, list) else eos or 2),
+        pad_token_id=hf.get('pad_token_id') or tc.get('pad_token_id') or 0,
+    )
+    ar = vc.get('supported_aspect_ratios') or [[1, 1]]
+    vision_cfg = MllamaVisionConfig(
+        hidden_size=vc['hidden_size'],
+        intermediate_size=vc['intermediate_size'],
+        num_layers=vc['num_hidden_layers'],
+        num_global_layers=vc['num_global_layers'],
+        num_heads=vc['attention_heads'],
+        image_size=vc['image_size'], patch_size=vc['patch_size'],
+        max_num_tiles=vc.get('max_num_tiles', 4),
+        max_aspect_ratio_id=len(ar),
+        intermediate_layers_indices=tuple(vc['intermediate_layers_indices']),
+        norm_eps=vc.get('norm_eps', 1e-5))
+    cfg = MllamaConfig(
+        text=text_cfg, vision=vision_cfg,
+        cross_attention_layers=tuple(tc['cross_attention_layers']),
+        image_token_id=hf.get('image_token_index', 128256))
+
+    t = _OnDevice(_mllama_tensors(path), device, dtype)
+    e, h, kh, d = (text_cfg.hidden_size, text_cfg.num_heads,
+                   text_cfg.num_kv_heads, text_cfg.head_dim)
+
+    def text_layer(i: int) -> dict:
+        p = f'language_model.layers.{i}.'
+        cross = i in cfg.cross_attention_layers
+        a = p + ('cross_attn.' if cross else 'self_attn.')
+        lp: dict[str, Any] = {
+            'attn_norm': {'w': t[p + 'input_layernorm.weight']},
+            'q': {'w': _qkv_in(e, h, d)(t[a + 'q_proj.weight'])},
+            'k': {'w': _qkv_in(e, kh, d)(t[a + 'k_proj.weight'])},
+            'v': {'w': _qkv_in(e, kh, d)(t[a + 'v_proj.weight'])},
+            'o': {'w': _o_in(e, h, d)(t[a + 'o_proj.weight'])},
+            'mlp_norm': {'w': t[p + 'post_attention_layernorm.weight']},
+            'gate': {'w': _T(t[p + 'mlp.gate_proj.weight'])},
+            'up': {'w': _T(t[p + 'mlp.up_proj.weight'])},
+            'down': {'w': _T(t[p + 'mlp.down_proj.weight'])},
+        }
+        if cross:
+            lp['q_norm'] = {'w': t[a + 'q_norm.weight']}
+            lp['k_norm'] = {'w': t[a + 'k_norm.weight']}
+            lp['attn_gate'] = t[p + 'cross_attn_attn_gate']
+            lp['mlp_gate'] = t[p + 'cross_attn_mlp_gate']
+        return lp
+
+    language_model = {
+        'embedding': t['language_model.embed_tokens.weight'],
+        'layers': [text_layer(i) for i in range(text_cfg.num_layers)],
+        'final_norm': {'w': t['language_model.norm.weight']},
+        'lm_head': _T(t['lm_head.weight']),
+    }
+
+    def vision_layer(prefix: str, i: int, gated: bool) -> dict:
+        p = f'vision_model.{prefix}.layers.{i}.'
+        lp: dict[str, Any] = {
+            'norm1': {'w': t[p + 'input_layernorm.weight'],
+                      'b': t[p + 'input_layernorm.bias']},
+            'q': {'w': _T(t[p + 'self_attn.q_proj.weight'])},
+            'k': {'w': _T(t[p + 'self_attn.k_proj.weight'])},
+            'v': {'w': _T(t[p + 'self_attn.v_proj.weight'])},
+            'o': {'w': _T(t[p + 'self_attn.o_proj.weight'])},
+            'norm2': {'w': t[p + 'post_attention_layernorm.weight'],
+                      'b': t[p + 'post_attention_layernorm.bias']},
+            'fc1': {'w': _T(t[p + 'mlp.fc1.weight']),
+                    'b': t[p + 'mlp.fc1.bias']},
+            'fc2': {'w': _T(t[p + 'mlp.fc2.weight']),
+                    'b': t[p + 'mlp.fc2.bias']},
+        }
+        if gated:
+            lp['gate_attn'] = t[p + 'gate_attn']
+            lp['gate_ffn'] = t[p + 'gate_ffn']
+        return lp
+
+    v = 'vision_model.'
+    vision_model = {
+        'patch_embed': {'w': t[v + 'patch_embedding.weight'].reshape(
+            vision_cfg.hidden_size, -1).T.contiguous()},
+        'class_embedding': t[v + 'class_embedding'],
+        'pos_embed': {
+            'gate': t[v + 'gated_positional_embedding.gate'],
+            'embedding': t[v + 'gated_positional_embedding.embedding'],
+            'tile': t[v + 'gated_positional_embedding.tile_embedding.weight'],
+        },
+        'pre_tile': {
+            'gate': t[v + 'pre_tile_positional_embedding.gate'],
+            'embedding': t[v + 'pre_tile_positional_embedding.embedding.'
+                           'weight'],
+        },
+        'post_tile': {
+            'gate': t[v + 'post_tile_positional_embedding.gate'],
+            'embedding': t[v + 'post_tile_positional_embedding.embedding.'
+                           'weight'],
+        },
+        'ln_pre': {'w': t[v + 'layernorm_pre.weight'],
+                   'b': t[v + 'layernorm_pre.bias']},
+        'ln_post': {'w': t[v + 'layernorm_post.weight'],
+                    'b': t[v + 'layernorm_post.bias']},
+        'local_layers': [vision_layer('transformer', i, False)
+                         for i in range(vision_cfg.num_layers)],
+        'global_layers': [vision_layer('global_transformer', i, True)
+                          for i in range(vision_cfg.num_global_layers)],
+    }
+    projector = {'w': _T(t['multi_modal_projector.weight']),
+                 'b': t['multi_modal_projector.bias']}
+    return {'vision_model': vision_model, 'language_model': language_model,
+            'projector': projector}, cfg
+
+
+def save_mllama_params(path: str, params: dict, cfg,
+                       dtype: torch.dtype = torch.float32) -> None:
+    """Write an Mllama checkpoint in HF format, every tensor in ``dtype``:
+    the inverse of ``load_mllama_params``, with the tensor names (the older
+    layout: ``language_model.model.*``, ``language_model.lm_head.weight``)
+    and ``config.json`` of JAX's ``save_mllama_params``
+    (``MllamaForConditionalGeneration``)."""
+    from align_anything_tpu_torch.models.mllama import check_supported  # noqa: PLC0415
+
+    check_supported(cfg)
+    os.makedirs(path, exist_ok=True)
+    tc, vc = cfg.text, cfg.vision
+    e, h, kh, d = tc.hidden_size, tc.num_heads, tc.num_kv_heads, tc.head_dim
+    out: dict[str, torch.Tensor] = {}
+
+    lm = params['language_model']
+    out['language_model.model.embed_tokens.weight'] = lm['embedding']
+    out['language_model.model.norm.weight'] = lm['final_norm']['w']
+    out['language_model.lm_head.weight'] = lm['lm_head'].T
+    for i, lp in enumerate(lm['layers']):
+        p = f'language_model.model.layers.{i}.'
+        cross = i in cfg.cross_attention_layers
+        a = p + ('cross_attn.' if cross else 'self_attn.')
+        out[p + 'input_layernorm.weight'] = lp['attn_norm']['w']
+        out[p + 'post_attention_layernorm.weight'] = lp['mlp_norm']['w']
+        out[a + 'q_proj.weight'] = lp['q']['w'].reshape(e, h * d).T
+        out[a + 'k_proj.weight'] = lp['k']['w'].reshape(e, kh * d).T
+        out[a + 'v_proj.weight'] = lp['v']['w'].reshape(e, kh * d).T
+        out[a + 'o_proj.weight'] = lp['o']['w'].reshape(h * d, e).T
+        out[p + 'mlp.gate_proj.weight'] = lp['gate']['w'].T
+        out[p + 'mlp.up_proj.weight'] = lp['up']['w'].T
+        out[p + 'mlp.down_proj.weight'] = lp['down']['w'].T
+        if cross:
+            out[a + 'q_norm.weight'] = lp['q_norm']['w']
+            out[a + 'k_norm.weight'] = lp['k_norm']['w']
+            out[p + 'cross_attn_attn_gate'] = lp['attn_gate']
+            out[p + 'cross_attn_mlp_gate'] = lp['mlp_gate']
+
+    vp, v = params['vision_model'], 'vision_model.'
+    out[v + 'patch_embedding.weight'] = vp['patch_embed']['w'].T.reshape(
+        vc.hidden_size, 3, vc.patch_size, vc.patch_size)
+    out[v + 'class_embedding'] = vp['class_embedding']
+    out[v + 'gated_positional_embedding.gate'] = vp['pos_embed']['gate']
+    out[v + 'gated_positional_embedding.embedding'] = \
+        vp['pos_embed']['embedding']
+    out[v + 'gated_positional_embedding.tile_embedding.weight'] = \
+        vp['pos_embed']['tile']
+    for nm in ('pre_tile', 'post_tile'):
+        out[v + f'{nm}_positional_embedding.gate'] = vp[nm]['gate']
+        out[v + f'{nm}_positional_embedding.embedding.weight'] = \
+            vp[nm]['embedding']
+    for nm, theirs in (('ln_pre', 'layernorm_pre'),
+                       ('ln_post', 'layernorm_post')):
+        out[v + f'{theirs}.weight'] = vp[nm]['w']
+        out[v + f'{theirs}.bias'] = vp[nm]['b']
+    for prefix, layers in (('transformer', vp['local_layers']),
+                           ('global_transformer', vp['global_layers'])):
+        for i, lp in enumerate(layers):
+            p = v + f'{prefix}.layers.{i}.'
+            out[p + 'input_layernorm.weight'] = lp['norm1']['w']
+            out[p + 'input_layernorm.bias'] = lp['norm1']['b']
+            out[p + 'post_attention_layernorm.weight'] = lp['norm2']['w']
+            out[p + 'post_attention_layernorm.bias'] = lp['norm2']['b']
+            for nm in ('q', 'k', 'v', 'o'):
+                out[p + f'self_attn.{nm}_proj.weight'] = lp[nm]['w'].T
+            out[p + 'mlp.fc1.weight'] = lp['fc1']['w'].T
+            out[p + 'mlp.fc1.bias'] = lp['fc1']['b']
+            out[p + 'mlp.fc2.weight'] = lp['fc2']['w'].T
+            out[p + 'mlp.fc2.bias'] = lp['fc2']['b']
+            if 'gate_attn' in lp:
+                out[p + 'gate_attn'] = lp['gate_attn']
+                out[p + 'gate_ffn'] = lp['gate_ffn']
+    out['multi_modal_projector.weight'] = params['projector']['w'].T
+    out['multi_modal_projector.bias'] = params['projector']['b']
+    write_safetensors(os.path.join(path, 'model.safetensors'), out,
+                      metadata={'format': 'pt'}, dtype=dtype)
+
+    text_hf = {
+        'model_type': 'mllama_text_model',
+        'vocab_size': tc.vocab_size, 'hidden_size': tc.hidden_size,
+        'num_hidden_layers': tc.num_layers,
+        'num_attention_heads': tc.num_heads,
+        'num_key_value_heads': tc.num_kv_heads,
+        'intermediate_size': tc.mlp_dim,
+        'max_position_embeddings': tc.max_position_embeddings,
+        'rope_theta': tc.rope_theta, 'rms_norm_eps': tc.norm_eps,
+        'cross_attention_layers': list(cfg.cross_attention_layers),
+        'bos_token_id': tc.bos_token_id, 'eos_token_id': tc.eos_token_id,
+        'pad_token_id': tc.pad_token_id,
+    }
+    if tc.rope_llama3 is not None:
+        factor, low, high, orig = tc.rope_llama3
+        text_hf['rope_scaling'] = {
+            'rope_type': 'llama3', 'factor': factor,
+            'low_freq_factor': low, 'high_freq_factor': high,
+            'original_max_position_embeddings': orig}
+    else:
+        text_hf['rope_scaling'] = {'rope_type': 'default'}
+    ar = [(a, b) for a in range(1, vc.max_num_tiles + 1)
+          for b in range(1, vc.max_num_tiles + 1)
+          if a * b <= vc.max_num_tiles]
+    hf_cfg = {
+        'architectures': ['MllamaForConditionalGeneration'],
+        'model_type': 'mllama',
+        'image_token_index': cfg.image_token_id,
+        'torch_dtype': str(dtype).removeprefix('torch.'),
+        'text_config': text_hf,
+        'vision_config': {
+            'model_type': 'mllama_vision_model',
+            'hidden_size': vc.hidden_size,
+            'intermediate_size': vc.intermediate_size,
+            'num_hidden_layers': vc.num_layers,
+            'num_global_layers': vc.num_global_layers,
+            'attention_heads': vc.num_heads,
+            'image_size': vc.image_size, 'patch_size': vc.patch_size,
+            'max_num_tiles': vc.max_num_tiles,
+            'supported_aspect_ratios': [list(x) for x in ar],
+            'intermediate_layers_indices':
+                list(vc.intermediate_layers_indices),
+            'vision_output_dim': vc.output_dim,
+            'norm_eps': vc.norm_eps, 'num_channels': 3,
         },
     }
     with open(os.path.join(path, 'config.json'), 'w') as f:

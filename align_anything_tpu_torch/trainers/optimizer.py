@@ -44,6 +44,8 @@ def freeze_labels(params: dict, frozen_modules: tuple[str, ...]) -> dict:
         if isinstance(tree, dict):
             return {k: label(v, frozen or k in frozen_modules)
                     for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [label(v, frozen) for v in tree]
         return 'frozen' if frozen else 'train'
     return label(params, False)
 

@@ -19,15 +19,18 @@ LLaVA-NeXT-Video ('llava_next_video'); so do Qwen2-VL ('qwen2_vl') and
 Qwen2.5-VL ('qwen2_5_vl'), whose images become patch rows
 (``PatchProcessor`` at the fixed 224 px grid, or ``DynamicPatchProcessor``
 under ``dynamic_resolution``: per-image grids ride the batch as
-``image_grid_thw``).  The JAX package's other vision-LM families (MLlama,
-MiniCPM-V, Idefics2) and their image processors are not ported yet
-(ROADMAP §1 item 12).
+``image_grid_thw``), and so does Mllama ('mllama', whose images become
+tiles through ``MllamaTileProcessor``: ``aspect_ratio_ids`` and
+``aspect_ratio_mask`` ride the batch, one image token a row).  The JAX
+package's other vision-LM families (MiniCPM-V, Idefics2) and their image
+processors are not ported yet (ROADMAP §1 item 12).
 
-ROADMAP §3 R27: the freeze flags name the module keys of the LLaVA tree
-(``freeze_vision_tower`` -> ``vision_tower``); a Qwen2-VL tree names its
-tower and merger ``visual``, so under the YAMLs' ``freeze_vision_tower:
-True`` nothing is frozen and the tower trains, as in JAX.  One line at
-start-up names each flag that misses.
+ROADMAP §3 R27 and R30: the freeze flags name the module keys of the LLaVA
+tree (``freeze_vision_tower`` -> ``vision_tower``); a Qwen2-VL tree names
+its tower and merger ``visual`` (R27), an Mllama tree its tower
+``vision_model`` (R30), so under the YAMLs' ``freeze_vision_tower: True``
+nothing is frozen and the tower trains, as in JAX.  One line at start-up
+names each flag that misses.
 """
 
 from __future__ import annotations
@@ -42,10 +45,12 @@ from align_anything_tpu_torch.data.image import (
     AnyResProcessor,
     ImageProcessor,
     ImageProcessorConfig,
+    MllamaTileProcessor,
     TI2TSupervisedDataset,
 )
 from align_anything_tpu_torch.losses import cross_entropy_loss
 from align_anything_tpu_torch.models import (
+    mllama,
     multimodal,
     qwen2_5_vl,
     qwen2_vl,
@@ -53,6 +58,7 @@ from align_anything_tpu_torch.models import (
 )
 from align_anything_tpu_torch.models.hf_loader import (
     LLAVA_MODEL_TYPES,
+    load_mllama_params,
     load_multimodal_params,
     load_qwen2_5_vl_params,
     load_qwen2_vl_params,
@@ -60,16 +66,20 @@ from align_anything_tpu_torch.models.hf_loader import (
 from align_anything_tpu_torch.trainers.cli import trainer_main
 from align_anything_tpu_torch.trainers.text_to_text.sft import SupervisedTrainer
 
-QWEN_VL_LOADERS = {'qwen2_vl': (load_qwen2_vl_params, qwen2_vl),
-                   'qwen2_5_vl': (load_qwen2_5_vl_params, qwen2_5_vl)}
+VISION_LM_LOADERS = {'qwen2_vl': (load_qwen2_vl_params, qwen2_vl),
+                     'qwen2_5_vl': (load_qwen2_5_vl_params, qwen2_5_vl),
+                     'mllama': (load_mllama_params, mllama)}
+# the fault that a freeze flag missing the family's tower is (ROADMAP §3)
+MISSED_FREEZE_FAULTS = {qwen2_vl: 'R27', qwen2_5_vl: 'R27', mllama: 'R30'}
 MM_BATCH_KEYS = ('image_grid_thw', 'aspect_ratio_ids', 'aspect_ratio_mask',
                  'select_idx', 'tgt_sizes')
 
 
 def mm_kwargs(batch: dict) -> dict:
     """Extra multimodal forward kwargs present in the batch (AnyRes's
-    ``select_idx``, Qwen2-VL's dynamic-resolution ``image_grid_thw``; the
-    tile metadata of the families not ported yet)."""
+    ``select_idx``, Qwen2-VL's dynamic-resolution ``image_grid_thw``,
+    Mllama's ``aspect_ratio_ids`` / ``aspect_ratio_mask``; MiniCPM-V's
+    ``tgt_sizes``, not ported yet)."""
     return {k: batch[k] for k in MM_BATCH_KEYS if batch.get(k) is not None}
 
 
@@ -92,12 +102,12 @@ def load_llava_lm(path: str, device: torch.device | str | None = None):
 def load_vision_lm(path: str, device: torch.device | str | None = None):
     """(params, cfg, model module) for a vision-LM checkpoint directory on
     ``device`` (default: the first CUDA device), by its ``model_type``, as
-    JAX's TI2T SFT and DPO dispatch: Qwen2-VL and Qwen2.5-VL, else the
-    LLaVA family (``load_llava_lm``); another ``model_type`` raises."""
+    JAX's TI2T SFT and DPO dispatch: Qwen2-VL, Qwen2.5-VL and Mllama, else
+    the LLaVA family (``load_llava_lm``); another ``model_type`` raises."""
     with open(os.path.join(path, 'config.json')) as f:
         model_type = json.load(f).get('model_type')
-    if model_type in QWEN_VL_LOADERS:
-        load, module = QWEN_VL_LOADERS[model_type]
+    if model_type in VISION_LM_LOADERS:
+        load, module = VISION_LM_LOADERS[model_type]
         params, cfg = load(path, device=device)
         return params, cfg, module
     return load_llava_lm(path, device=device)
@@ -126,13 +136,14 @@ def runtime_config(trainer, cfg):
 
 
 def report_missed_freeze_flags(trainer, params: dict) -> list[str]:
-    """ROADMAP §3 R27: one line for each freeze flag that is set but names
-    no module of ``params`` (so it freezes nothing, as in JAX); the lines
-    are printed and returned."""
+    """ROADMAP §3 R27 / R30: one line for each freeze flag that is set but
+    names no module of ``params`` (so it freezes nothing, as in JAX); the
+    lines are printed and returned."""
     tc = trainer.cfgs.train_cfgs
+    fault = MISSED_FREEZE_FAULTS.get(trainer.mm, 'R27')
     lines = [f'{flag}: True names {names}, which the {trainer.mm.__name__} '
              f'tree {tuple(params)} does not hold: nothing is frozen and '
-             'those weights train, as in JAX (ROADMAP §3 R27)'
+             f'those weights train, as in JAX (ROADMAP §3 {fault})'
              for flag, names in trainer.FREEZE_FLAG_MODULES
              if getattr(tc, flag, None)
              and not any(n in params for n in names)]
@@ -154,13 +165,16 @@ class TI2TTrainerMixin:
         self.params = self.trainable(params)
 
     def make_image_processor(self):
-        """Qwen2-VL / Qwen2.5-VL: ``DynamicPatchProcessor`` under
+        """Mllama: ``MllamaTileProcessor`` (JAX ``sft.py:107-112``).
+        Qwen2-VL / Qwen2.5-VL: ``DynamicPatchProcessor`` under
         ``dynamic_resolution`` (with ``min_pixels`` / ``max_pixels``), else
         the family's fixed-grid ``PatchProcessor`` (JAX ``sft.py:113-125``;
         the 2.5 tower's config serves the Qwen2-VL patchifier).  LLaVA:
         AnyRes tiling for a LLaVA-Next config (pinpoints), else the
         fixed-resolution CLIP processor."""
         tc = self.cfgs.train_cfgs
+        if self.mm is mllama:
+            return MllamaTileProcessor(self.model_cfg.vision)
         if self.mm in (qwen2_vl, qwen2_5_vl):
             if tc.dynamic_resolution:
                 return qwen2_vl.DynamicPatchProcessor(

@@ -37,16 +37,22 @@ def seed_everything(seed: int) -> torch.Generator:
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """``fn`` applied to every leaf of a nested dict; same structure out."""
+    """``fn`` applied to every leaf of a nested dict (lists of per-layer
+    dicts included, as Mllama's tree holds them); same structure out."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def param_leaves(tree: Any) -> list[torch.Tensor]:
-    """Tensor leaves of a nested dict, in a fixed (insertion) order."""
+    """Tensor leaves of a nested dict (and of its lists), in a fixed
+    (insertion) order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in param_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in param_leaves(v)]
     return [tree]
 
 

@@ -70,8 +70,9 @@ Phases (any failure raises and the run exits non-zero):
      SFT's step 1 against a plain recompute, ORPO and SimPO (the saves
      that no check reads are not written: ``unread_saves_skipped``);
  11. the reward model at Llama-3-8B widths cut to 2 layers through
-     ``trainer_main(RMTrainer, ...)`` (a bf16 checkpoint written from a
-     seed, 8 pairs in the 512 bucket, 4 steps): every loss and grad norm
+     ``trainer_main(RMTrainer, ...)`` (phase 9's bf16 checkpoint read at 2
+     layers through a hard link, 8 pairs in the 512 bucket, 4 steps):
+     every loss and grad norm
      finite, the attention kernels on every layer of every step, step 1's
      end scores against a plain recompute, the slice and ``score_head.npy``
      written, and ``rm_score`` over the export against the trained model;
@@ -98,7 +99,8 @@ Phases (any failure raises and the run exits non-zero):
      reward end scores against a plain recompute; the round's split,
      generated tokens/s and peak memory;
  16. Safe-RLHF at Qwen2.5-0.5B's full size (24 layers, D 64, 14 / 2
-     heads; six models; 8 prompts a round, micro-batch 4, 2 rounds): round
+     heads; six models, the cost model's backbone the reward model's
+     through a hard link; 8 prompts a round, micro-batch 4, 2 rounds): round
      1's KL exactly 0, ``log_lambda`` after round 1 against its closed
      form, every metric finite, the kernels' launches exact, round 1's
      log-prob sums, reward, cost and value scores against a plain
@@ -121,8 +123,9 @@ Phases (any failure raises and the run exits non-zero):
      tower trained (its full-mode backward launched) and with the tower and
      projector frozen (both bit-equal); launches exact;
  19. the TI2T reward model through ``trainer_main(TI2TRMTrainer, ...)`` at
-     LLaVA-1.5-7B widths, the text model cut to 2 layers, the 24-layer
-     tower frozen: 8 AA_TI2T preference rows with PNG images, 4 steps of 2
+     LLaVA-1.5-7B widths, the text model cut to 2 layers (phase 18's
+     checkpoint through a hard link), the 24-layer tower frozen: 8 AA_TI2T
+     preference rows with PNG images, 4 steps of 2
      pairs in the 1024 bucket; every loss finite, the tower bit-equal,
      step 1's end scores against a plain recompute, launches exact, 576
      image tokens a row (ROADMAP R12), the export and ``score_head.npy``
@@ -204,7 +207,8 @@ Phases (any failure raises and the run exits non-zero):
      of 127.0.0.1), dense, then paged with a 48-word system text as its
      cached prefix: 16 concurrent clients mixing ``/health``,
      ``/v1/models``, completions and chat, plain and streamed (SSE), with
-     prompts of 520-550 tokens (longer than the window 512); every reply
+     prompts of 520-550 tokens (longer than the window 512) and 32 new
+     tokens a request; every reply
      200 and every stream ending in ``[DONE]``; in fp32 the server's greedy
      ids equal a direct ``engine.generate`` of the same prompts and a
      streamed completion joins into the non-streamed text; bf16 timed:
@@ -272,13 +276,36 @@ Phases (any failure raises and the run exits non-zero):
      GRPO round (the rollout's prefill takes the clips; round 1's KL 0;
      the towers train, R13), and SFT over a fresh encoder on phase 10's
      text checkpoint; launches exact.
+ 38. (after phase 37) TI2T DPO through ``trainer_main(TI2TDPOTrainer,
+     ...)`` on Mllama at Llama-3.2-11B-Vision-Instruct's published widths
+     (the text cut to 5 of its 40 layers, layer 3 the cross layer; the
+     tower cut to 8 local and 2 global layers, the five taps remapped
+     inside them, so the feature stays 7680 wide), a bf16 checkpoint from
+     a seed (the gates drawn from it) written by ``save_mllama_params`` and
+     read by ``load_mllama_params``, 4 AA_TI2T pairs over PNGs of 560 x
+     560, 560 x 1120, 1120 x 1120 and 1120 x 560 (1, 2, 4 and 2 tiles), 2
+     pairs a step in the 1024 bucket, 2 steps: step 1's loss ln 2, one
+     image token a row, the cross mask from it onward over the row's valid
+     tiles, the tile metadata equal to the processor's run again on the
+     host, every module moved (the tower too: ROADMAP R30), launches exact
+     (the self-attention layers; the tower's attention and the cross layer
+     are plain PyTorch, as in JAX), step 1's log-prob sums against a plain
+     recompute; step time, tokens/s, MFU (the tower's FLOPs counted) and
+     peak memory; the checkpoint deleted after its last reader;
+ 39. at phase 10's text widths (2 layers, layer 1 cross) under a tower of
+     the published widths (2 local + 1 global layers): Mllama TI2T SFT and
+     its bf16 export read back through ``load_mllama_params``, KTO, ORPO
+     and SimPO one step each, launches exact; greedy ``generate`` of 16
+     tokens from 2 image prompts with ``init_cache_fn=mllama.init_cache``
+     (fp32 compute): every id the argmax of a no-cache forward over the
+     grown sequence.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
     python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3 qwen2vl
-                                     ta2t]
+                                     ta2t mllama]
                                       # instead: trace one DPO step of the
                                       # phase 7 and phase 8 configs, one
                                       # PPO round of phase 12's, one TI2T
@@ -288,9 +315,12 @@ JSON summary of each kernel.
                                       # generate call of phases 24-25's,
                                       # one Qwen2-VL DPO step of phase 34's
                                       # with its tower and the tower's
-                                      # attention alone, and one TA2T DPO
+                                      # attention alone, one TA2T DPO
                                       # step of phase 36's with its encoder
-                                      # and log-mel frontend alone (the
+                                      # and log-mel frontend alone, and one
+                                      # Mllama DPO step of phase 38's with
+                                      # its tower, the tower's attention
+                                      # and the cross layer alone (the
                                       # ones named; all by default)
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
@@ -1880,14 +1910,35 @@ def harness_full(dev, smi, bare: dict, tmp: str) -> dict:
         raise AssertionError('harness: non-finite loss or grad norm')
     check_launches('harness', launches, need)
     return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
-            'peak_gb': peak / 1e9}
+            'peak_gb': peak / 1e9, 'ckpt': ckpt}
 
 
 def leaves_by_path(tree, prefix: str = '') -> dict:
     if isinstance(tree, dict):
         return {p: t for k, v in tree.items()
                 for p, t in leaves_by_path(v, f'{prefix}/{k}').items()}
+    if isinstance(tree, list):
+        return {p: t for i, v in enumerate(tree)
+                for p, t in leaves_by_path(v, f'{prefix}/{i}').items()}
     return {prefix: tree.detach()}
+
+
+def linked_checkpoint(base: str, path: str, edit=None) -> str:
+    """A checkpoint directory ``path`` whose ``model.safetensors`` is a hard
+    link of ``base``'s (``os.link`` writes no data: the card's machine
+    counts disk writes) beside ``base``'s ``config.json``, changed by
+    ``edit(hf_config)`` (a shallower depth: the loaders read the layers a
+    config names and leave the rest of the file unread)."""
+    os.makedirs(path, exist_ok=True)
+    os.link(os.path.join(base, 'model.safetensors'),
+            os.path.join(path, 'model.safetensors'))
+    with open(os.path.join(base, 'config.json')) as f:
+        hf = json.load(f)
+    if edit is not None:
+        edit(hf)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf, f, indent=2)
+    return path
 
 
 def harness_small(dev, smi, tmp: str) -> None:
@@ -2079,9 +2130,12 @@ def prompt_rows(seed: int, n: int, words_range: tuple) -> list:
             for _ in range(n)]
 
 
-def rm_full(dev, smi, tmp: str, config=None) -> dict:
+def rm_full(dev, smi, tmp: str, config=None, base: str | None = None
+            ) -> dict:
     """Phase 11: the reward model at Llama-3-8B widths, 2 layers, through
-    ``trainer_main(RMTrainer, ...)``, then ``rm_score`` over its export."""
+    ``trainer_main(RMTrainer, ...)``, then ``rm_score`` over its export.
+    ``base``: phase 9's checkpoint (4 layers at these widths), whose first
+    2 layers are read through a hard link instead of a new 3 GB file."""
     from align_anything_tpu_torch.models import score_model  # noqa: PLC0415
     from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
         load_params, save_params)
@@ -2094,9 +2148,13 @@ def rm_full(dev, smi, tmp: str, config=None) -> dict:
     free_memory()
     resident = torch.cuda.memory_allocated()
     ckpt = os.path.join(tmp, 'llama8b_2layers')
-    save_params(ckpt, transformer.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(SEED + 70), device=dev),
-        cfg, dtype=torch.bfloat16)
+    if base is not None:
+        linked_checkpoint(base, ckpt, lambda hf: hf.update(
+            num_hidden_layers=cfg.num_layers))
+    else:
+        save_params(ckpt, transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 70),
+            device=dev), cfg, dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     # prompt 200 words, responses 60-300: 265-505 tokens, the 512 bucket
     rows = preference_rows(SEED + 71, RM_ROWS, 200, (60, 301))
@@ -2678,10 +2736,11 @@ def grpo_full(dev, smi, tmp: str, rm: dict) -> dict:
 
 def saferlhf_full(dev, smi, tmp: str) -> dict:
     """Phase 16: Safe-RLHF through ``trainer_main(SafeRLHFTrainer, ...)`` at
-    Qwen2.5-0.5B's full size: actor, reward and cost checkpoints written
-    from seeds (bf16), the reward and cost heads fresh fp32 heads from
-    seeds beside them, so each critic starts as its model; 16 prompts in
-    the 128 bucket, 8 a round, 128 new tokens, micro-batch 4, 2 rounds."""
+    Qwen2.5-0.5B's full size: actor and reward checkpoints written from
+    seeds (bf16), the cost model the reward model's backbone through a hard
+    link, the reward and cost heads fresh fp32 heads from seeds beside
+    them, so each critic starts as its model; 16 prompts in the 128
+    bucket, 8 a round, 128 new tokens, micro-batch 4, 2 rounds."""
     from align_anything_tpu_torch.models import score_model  # noqa: PLC0415
     from align_anything_tpu_torch.models.hf_loader import save_params  # noqa: PLC0415
     from align_anything_tpu_torch.ops.logprobs import token_logprobs  # noqa: PLC0415
@@ -2694,9 +2753,14 @@ def saferlhf_full(dev, smi, tmp: str) -> dict:
     ckpts = {}
     for i, name in enumerate(('actor', 'reward', 'cost')):
         ckpts[name] = os.path.join(tmp, f'qwen05b_{name}')
-        save_params(ckpts[name], transformer.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(SEED + 80 + i),
-            device=dev), cfg, dtype=torch.bfloat16)
+        if name == 'cost':
+            # the reward model's backbone through a hard link, under its
+            # own head: 1 GB less of disk writes
+            linked_checkpoint(ckpts['reward'], ckpts[name])
+        else:
+            save_params(ckpts[name], transformer.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED + 80 + i),
+                device=dev), cfg, dtype=torch.bfloat16)
         if name != 'actor':
             np.save(os.path.join(ckpts[name], 'score_head.npy'),
                     np.random.default_rng(SEED + 83 + i).standard_normal(
@@ -3061,8 +3125,8 @@ def ti2t_rows(images: list, seed: int, preference: bool) -> list:
 
 def run_ti2t(trainer_cls, task: str, argv: list,
              mesh_file: str | None = None) -> tuple:
-    """``run_trainer`` for a TI2T trainer, timing the LLaVA and Qwen-VL
-    checkpoints' loads (summed where the trainer loads several)."""
+    """``run_trainer`` for a TI2T trainer, timing the LLaVA, Qwen-VL and
+    Mllama checkpoints' loads (summed where the trainer loads several)."""
     from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
         sft as ti2t_sft)
 
@@ -3077,11 +3141,11 @@ def run_ti2t(trainer_cls, task: str, argv: list,
             return out
         return timed_load
 
-    qwen = {k: (timed(load), module)
-            for k, (load, module) in ti2t_sft.QWEN_VL_LOADERS.items()}
+    loaders = {k: (timed(load), module)
+               for k, (load, module) in ti2t_sft.VISION_LM_LOADERS.items()}
     with mock.patch.object(ti2t_sft, 'load_multimodal_params',
                            timed(ti2t_sft.load_multimodal_params)), \
-            mock.patch.dict(ti2t_sft.QWEN_VL_LOADERS, qwen):
+            mock.patch.dict(ti2t_sft.VISION_LM_LOADERS, loaders):
         trainer, steps, _ = run_trainer(trainer_cls, task, argv, mesh_file)
     return trainer, steps, timing
 
@@ -3368,12 +3432,13 @@ def dir_bytes(path: str) -> int:
                for root, _, files in os.walk(path) for f in files)
 
 
-def ti2t_rm_full(dev, smi, tmp: str) -> dict:
+def ti2t_rm_full(dev, smi, tmp: str, base: str | None = None) -> dict:
     """Phase 19: the TI2T reward model through ``trainer_main(
     TI2TRMTrainer, ...)`` at LLaVA-1.5-7B widths (text 2 layers, the
     24-layer tower frozen by rm.yaml) from a bf16 checkpoint written from a
-    seed; 8 AA_TI2T preference rows with PNG images, 2 pairs a step in the
-    1024 bucket, 4 steps, exported for phase 20."""
+    seed (``base``: phase 18's checkpoint, text 4 layers, read through a
+    hard link at 2); 8 AA_TI2T preference rows with PNG images, 2 pairs a
+    step in the 1024 bucket, 4 steps, exported for phase 20."""
     from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
         load_multimodal_params)
     from align_anything_tpu_torch.trainers.text_image_to_text.rm import (  # noqa: PLC0415
@@ -3383,7 +3448,12 @@ def ti2t_rm_full(dev, smi, tmp: str) -> dict:
     free_memory()
     cfg = llava_config(RL_LAYERS)
     ckpt = os.path.join(tmp, 'llava7b_rl')
-    w = write_llava(cfg, ckpt, SEED + 90, dev)
+    if base is not None:
+        linked_checkpoint(base, ckpt, lambda hf: hf['text_config'].update(
+            num_hidden_layers=cfg.text.num_layers))
+        w = {'bytes': 0}
+    else:
+        w = write_llava(cfg, ckpt, SEED + 90, dev)
     images = ti2t_images(tmp, TI2T_RM_ROWS, cfg.vision.image_size,
                          SEED + 91)
     data = write_jsonl(os.path.join(tmp, 'pref_llava_rm.jsonl'),
@@ -3449,7 +3519,8 @@ def ti2t_rm_full(dev, smi, tmp: str) -> dict:
         f'({resident / 1e9:.3f} GB resident before); modules moved {moved}; '
         f'flash launches fwd {launches["fwd"]} (need {need["fwd"]}) bwd '
         f'{launches["bwd"]} (need {need["bwd"]}); export {written}; bytes '
-        f'written {disk / 1e9:.3f} GB (checkpoint, export, images), '
+        f'written {disk / 1e9:.3f} GB (checkpoint'
+        f'{" linked" if base is not None else ""}, export, images), '
         f'{disk_written():.3f} GB by the run so far; card {smi}')
     if len(steps) != TI2T_RM_STEPS or shape != (2 * TI2T_RM_PAIRS,
                                                 TI2T_BUCKET):
@@ -5312,6 +5383,483 @@ def ta2t_small(dev, smi, tmp: str) -> dict:
     return {'launches': total}
 
 
+# phase 38: meta-llama/Llama-3.2-11B-Vision-Instruct's published
+# config.json (text_config: vocab 128256, hidden 4096, 40 layers with the
+# cross-attention layers [3, 8, 13, 18, 23, 28, 33, 38], 32 / 8 heads of
+# 128, intermediate 14336, rope_theta 500000 with llama3 scaling (factor
+# 8, low 1, high 4, original 8192), 131072 positions, rms_norm_eps 1e-5,
+# bos 128000, eos 128001 (the first of [128001, 128008, 128009]), pad
+# 128004; vision_config: hidden 1280, intermediate 5120, 32 local and 8
+# global layers, 16 heads, image 560, patch 14, 4 tiles, 8 aspect ratios,
+# taps [3, 7, 15, 23, 30], output 7680; image_token_index 128256).  Cut
+# for fp32 AdamW on one card: the text to 5 of its 40 layers with layer 3
+# the cross layer (the published first), the tower to 8 local and 2
+# global layers with the five taps remapped inside them (i x 8 // 32:
+# layers 0, 1, 3, 5, 7), so that the feature stays 7680 wide and the
+# projector 7680 -> 4096.  transformers initialises the cross layers' and
+# the tile embeddings' gates at 0, which would keep the image from the
+# text and the tower from any gradient; the checkpoint draws them from
+# the seed, as a trained model holds them non-zero.  The TI2T YAMLs'
+# freeze_vision_tower names 'vision_tower', which an Mllama tree does not
+# hold (its tower is 'vision_model'): the tower trains (ROADMAP §3 R30),
+# as in JAX.  4 pairs over PNGs of 560 x 560, 560 x 1120, 1120 x 1120 and
+# 1120 x 560 (1, 2, 4 and 2 tiles), 2 a step in the 1024 bucket.
+MLLAMA_11B = dict(vocab_size=128256, hidden_size=4096, num_heads=32,
+                  num_kv_heads=8, head_dim=128, mlp_dim=14336,
+                  max_position_embeddings=131072, rope_theta=500000.0,
+                  rope_llama3=(8.0, 1.0, 4.0, 8192), norm_eps=1e-5,
+                  bos_token_id=128000, eos_token_id=128001,
+                  pad_token_id=128004)
+MLLAMA_11B_VISION = dict(hidden_size=1280, intermediate_size=5120,
+                         num_heads=16, image_size=560, patch_size=14,
+                         max_num_tiles=4, max_aspect_ratio_id=8,
+                         norm_eps=1e-5)
+MLLAMA_IMAGE_TOKEN = 128256
+MLLAMA_TEXT_LAYERS, MLLAMA_CROSS = 5, (3,)
+MLLAMA_LOCAL, MLLAMA_GLOBAL, MLLAMA_TAPS = 8, 2, (0, 1, 3, 5, 7)
+MLLAMA_ROWS, MLLAMA_PAIRS, MLLAMA_BUCKET = 4, 2, 1024
+MLLAMA_STEPS = MLLAMA_ROWS // MLLAMA_PAIRS
+MLLAMA_SIZES = ((560, 560), (560, 1120), (1120, 1120), (1120, 560))
+MLLAMA_TILES = (1, 2, 4, 2)
+# phase 39: phase 10's text widths, 2 layers (layer 1 cross), under the
+# published tower widths cut to 2 local and 1 global layers (taps 0 and 1:
+# the feature 3840 wide)
+MLLAMA_SMALL_TOKEN = 32768
+MLLAMA_SMALL_BATCH = 2
+MLLAMA_GEN_NEW = 16
+
+
+def mllama_11b_config():
+    """Llama-3.2-11B-Vision-Instruct's published widths, cut as above."""
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+    from align_anything_tpu_torch.models.mllama import (  # noqa: PLC0415
+        MllamaConfig, MllamaVisionConfig)
+
+    return MllamaConfig(
+        text=ModelConfig(num_layers=MLLAMA_TEXT_LAYERS, **MLLAMA_11B),
+        vision=MllamaVisionConfig(
+            num_layers=MLLAMA_LOCAL, num_global_layers=MLLAMA_GLOBAL,
+            intermediate_layers_indices=MLLAMA_TAPS, **MLLAMA_11B_VISION),
+        cross_attention_layers=MLLAMA_CROSS,
+        image_token_id=MLLAMA_IMAGE_TOKEN)
+
+
+def mllama_small_config():
+    """Phase 39's config."""
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+    from align_anything_tpu_torch.models.mllama import (  # noqa: PLC0415
+        MllamaConfig, MllamaVisionConfig)
+
+    s = SMALL
+    text = ModelConfig(
+        vocab_size=s['vocab_size'], hidden_size=s['hidden'],
+        num_layers=s['layers'], num_heads=s['heads'],
+        num_kv_heads=s['kv_heads'], head_dim=s['hidden'] // s['heads'],
+        mlp_dim=s['mlp'], max_position_embeddings=s['max_pos'],
+        rope_theta=500000.0, rope_llama3=(8.0, 1.0, 4.0, 8192),
+        norm_eps=1e-5, bos_token_id=1, eos_token_id=2, pad_token_id=0)
+    return MllamaConfig(
+        text=text, vision=MllamaVisionConfig(
+            num_layers=2, num_global_layers=1,
+            intermediate_layers_indices=(0, 1), **MLLAMA_11B_VISION),
+        cross_attention_layers=(1,), image_token_id=MLLAMA_SMALL_TOKEN)
+
+
+def write_mllama(cfg, path: str, seed: int, dev) -> dict:
+    """An Mllama checkpoint of ``cfg`` with random weights from ``seed``
+    (the gates drawn from it too, N(0, 1)), written in bf16 by the port's
+    exporter: params per module, seconds and bytes."""
+    from align_anything_tpu_torch.models import mllama  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        save_mllama_params)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = mllama.init_params(cfg, gen, device=dev)
+    vp = params['vision_model']
+    gates = [vp[k]['gate'] for k in ('pos_embed', 'pre_tile', 'post_tile')]
+    gates += [lp[k] for lp in params['language_model']['layers']
+              for k in ('attn_gate', 'mlp_gate') if k in lp]
+    for g in gates:
+        g.copy_(torch.randn(g.shape, generator=gen, device=dev))
+    n_params = {m: sum(t.numel() for t in param_leaves(params[m]))
+                for m in params}
+    t0 = time.perf_counter()
+    save_mllama_params(path, params, cfg, dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    del params
+    free_memory()
+    return {'n_params': n_params, 'write_s': write_s,
+            'bytes': os.path.getsize(os.path.join(path, 'model.safetensors'))}
+
+
+def mllama_cross_mask_host(ids: np.ndarray, image_token: int,
+                           tiles: list) -> np.ndarray:
+    """The cross mask a row's tokens should carry, row by row in plain
+    Python: (B, L, 1, max_tiles) int, 1 from the row's image token onward
+    over its first ``tiles[r]`` tiles."""
+    out = np.zeros(ids.shape + (1, MLLAMA_11B_VISION['max_num_tiles']),
+                   np.int64)
+    for r, row in enumerate(ids.tolist()):
+        if image_token in row:
+            out[r, row.index(image_token):, 0, :tiles[r]] = 1
+    return out
+
+
+def mllama_dpo_assets(cfg, dev, tmp: str) -> tuple:
+    """Phase 38's checkpoint (seeded), its AA_TI2T preference rows over
+    PNG files and the command line: (checkpoint dir, what was written,
+    argv, the image files)."""
+    ckpt = os.path.join(tmp, 'mllama_11b')
+    w = write_mllama(cfg, ckpt, SEED + 380, dev)
+    images = png_images(tmp, MLLAMA_SIZES, SEED + 381)
+    data = write_jsonl(os.path.join(tmp, 'pref_mllama.jsonl'),
+                       ti2t_rows(images, SEED + 382, preference=True))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(MLLAMA_PAIRS), '--padding_buckets', f'[{MLLAMA_BUCKET}]']
+    return ckpt, w, argv, images
+
+
+def mllama_step_flops(cfg, n: dict, shape: tuple) -> tuple:
+    """(the step's FLOPs, the tower's part) of a DPO step that trains
+    everything: the text by bench.py's convention over the padded rows
+    (``dpo_flops_per_token`` over the self layers) plus the cross layers'
+    attention over each row's vision tokens (16 x S x hidden a token and
+    layer: policy forward and backward, reference forward); the tower's 8
+    x its matmul params (its layers, the patch embedding, the projector) a
+    vision token and its attention, 16 x S^2 x width a layer and row, over
+    the padded sequence of 4 tiles (the tile embeddings are lookups)."""
+    vc, tc = cfg.vision, cfg.text
+    p1 = vc.num_patches
+    s_pad = vc.max_num_tiles * (p1 + (8 - p1 % 8) % 8)
+    s_vis = vc.max_num_tiles * p1
+    n_layers = vc.num_layers + vc.num_global_layers
+    self_layers = tc.num_layers - len(cfg.cross_attention_layers)
+    tower_flops = shape[0] * (8 * n['tower_matmul'] * s_pad
+                              + 16 * s_pad ** 2 * vc.hidden_size * n_layers)
+    text_flops = shape[0] * shape[1] * (
+        dpo_flops_per_token(n['language_model'], shape[1], tc.hidden_size,
+                            self_layers)
+        + 16 * s_vis * tc.hidden_size * len(cfg.cross_attention_layers))
+    return text_flops + tower_flops, tower_flops
+
+
+def mllama_dpo_full(dev, smi, tmp: str) -> dict:
+    """Phase 38: TI2T DPO through ``trainer_main(TI2TDPOTrainer, ...)``
+    (``python -m ...text_image_to_text.dpo``) on Mllama at
+    Llama-3.2-11B-Vision widths, from a bf16 checkpoint written by the
+    port's ``save_mllama_params`` and read by ``load_mllama_params``."""
+    from align_anything_tpu_torch.data.image import MllamaTileProcessor  # noqa: PLC0415
+    from align_anything_tpu_torch.models import mllama  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_mllama_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    cfg = mllama_11b_config()
+    ckpt, w, argv, images = mllama_dpo_assets(cfg, dev, tmp)
+    n = w['n_params']
+    log(f'phase38 wrote the checkpoint (Llama-3.2-11B-Vision widths, text '
+        f'{cfg.text.num_layers} of 40 layers with cross layer '
+        f'{list(cfg.cross_attention_layers)}, tower {cfg.vision.num_layers} '
+        f'local + {cfg.vision.num_global_layers} global layers, taps '
+        f'{list(cfg.vision.intermediate_layers_indices)}; params '
+        f'language_model {n["language_model"] / 1e9:.3f} B, vision_model '
+        f'{n["vision_model"] / 1e9:.3f} B, projector '
+        f'{n["projector"] / 1e9:.4f} B; bf16 safetensors in Mllama layout): '
+        f'{w["bytes"] / 1e9:.3f} GB in {w["write_s"]:.2f} s; '
+        f'{MLLAMA_ROWS} AA_TI2T preference rows over PNG files of '
+        f'{MLLAMA_SIZES}; argv {" ".join(argv[2:])}')
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with recording_loss(TI2TDPOTrainer, 'preference_loss', first, (
+            'input_ids', 'attention_mask', 'response_mask', 'pixel_values',
+            'aspect_ratio_ids', 'aspect_ratio_mask')):
+        trainer, steps, timing = run_ti2t(
+            TI2TDPOTrainer, 'text_image_to_text/dpo', argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    frozen = trainer.frozen_modules()
+    start, _ = load_mllama_params(ckpt, device=dev)
+    moved = changed_modules(trainer.state.params,
+                            {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    ids = b['input_ids'].cpu().numpy()
+    n_image = (ids == cfg.image_token_id).sum(-1).tolist()
+    # the tile metadata of each row against the processor run again on the
+    # host, the row's image found by its pixels
+    proc = MllamaTileProcessor(cfg.vision)
+    want = [proc(p) for p in images]
+    px = b['pixel_values'].cpu().numpy()
+    row_image = [next((j for j, o in enumerate(want)
+                       if np.array_equal(px[r], o['pixel_values'])), None)
+                 for r in range(shape[0])]
+    meta_equal = None not in row_image and all(
+        np.array_equal(b['aspect_ratio_ids'][r].cpu().numpy(),
+                       want[j]['aspect_ratio_ids'])
+        and np.array_equal(b['aspect_ratio_mask'][r].cpu().numpy(),
+                           want[j]['aspect_ratio_mask'])
+        for r, j in enumerate(row_image))
+    tiles = [int(b['aspect_ratio_mask'][r].sum()) for r in range(shape[0])]
+    want_tiles = [MLLAMA_TILES[j] if j is not None else None
+                  for j in row_image]
+    xmask = mllama.default_cross_attention_mask(
+        mcfg, b['input_ids'], b['aspect_ratio_mask']).cpu().numpy()
+    host_mask = mllama_cross_mask_host(ids, cfg.image_token_id, tiles)
+    losses = [s['train/loss'] for s in steps]
+    step_s, tps = step_report('phase38', steps, shape, 'train/loss')
+    self_layers = cfg.text.num_layers - len(cfg.cross_attention_layers)
+    # a step: the self layers' forward for the policy and the reference,
+    # their backward; the remat policy ('save_flash') keeps the kernel's
+    # output, so the recompute launches no forward
+    need = {'fwd': MLLAMA_STEPS * 2 * self_layers,
+            'bwd': MLLAMA_STEPS * self_layers}
+    vc = cfg.vision
+    n['tower_matmul'] = (
+        (vc.num_layers + vc.num_global_layers)
+        * (4 * vc.hidden_size ** 2 + 2 * vc.hidden_size
+           * vc.intermediate_size)
+        + 3 * vc.patch_size ** 2 * vc.hidden_size + n['projector'])
+    step_flops, tower_flops = mllama_step_flops(cfg, n, shape)
+    mfu = step_flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f'phase38 Mllama TI2T DPO: batch {shape} with pixel_values '
+        f'{tuple(b["pixel_values"].shape)}, aspect_ratio_ids '
+        f'{b["aspect_ratio_ids"].flatten().tolist()}, valid tiles a row '
+        f'{tiles} (the images give {want_tiles}); tile metadata equal to the '
+        f'host processor\'s: {meta_equal}; image tokens a row {n_image}; the '
+        f'cross mask equal to the host\'s (from the image token on, over the '
+        f'valid tiles): {bool(np.array_equal(xmask, host_mask))}; frozen '
+        f'{frozen} (the tree holds {sorted(moved)}); remat '
+        f'{mcfg.text.remat}, compute {mcfg.text.compute_dtype}; trainer_main '
+        f'{total_s:.2f} s (load {timing["load_s"]:.2f} s, {len(steps)} '
+        f'steps); step time {step_s:.4f} s (step 2), {tps:.1f} tokens/s, MFU '
+        f'{mfu:.4f} ({step_flops / 1e12:.2f} TFLOP a step, the tower '
+        f'{tower_flops / 1e12:.2f}, against 989 TFLOP/s); peak memory '
+        f'{peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident before); '
+        f'modules moved {moved}; flash launches fwd {launches["fwd"]} (need '
+        f'{need["fwd"]}) bwd {launches["bwd"]} (need {need["bwd"]}); card '
+        f'{smi}')
+    if len(steps) != MLLAMA_STEPS or shape != (2 * MLLAMA_PAIRS,
+                                               MLLAMA_BUCKET):
+        raise AssertionError(f'Mllama DPO: {len(steps)} steps at {shape}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'Mllama DPO step 1 loss {losses[0]!r} != ln 2')
+    if not all_finite(steps):
+        raise AssertionError('Mllama DPO: a non-finite metric')
+    if n_image != [1] * shape[0]:
+        raise AssertionError(f'Mllama DPO: image tokens a row {n_image}')
+    if not (meta_equal and tiles == want_tiles):
+        raise AssertionError('Mllama DPO: the tile metadata is not the '
+                             'processor\'s')
+    if not np.array_equal(xmask, host_mask):
+        raise AssertionError('Mllama DPO: the cross mask is not the row\'s '
+                             'image token onward over its valid tiles')
+    if moved != {'vision_model': True, 'language_model': True,
+                 'projector': True}:
+        raise AssertionError(f'Mllama DPO: modules moved {moved}; under R30 '
+                             'the tower trains')
+    check_launches('Mllama DPO', launches, need, exact=True)
+
+    # step 1 recomputed from the checkpoint with the plain attention, in
+    # bf16 compute and in fp32
+    params, _ = load_mllama_params(ckpt, device=dev)
+    sums = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            sums[dtype] = masked_sums(mllama.token_logprobs(
+                params, mcfg.replace(compute_dtype=dtype), b['input_ids'],
+                attention_mask=b['attention_mask'],
+                pixel_values=b['pixel_values'],
+                aspect_ratio_ids=b['aspect_ratio_ids'],
+                aspect_ratio_mask=b['aspect_ratio_mask']),
+                b['response_mask'])
+    del params
+    free_memory()
+    log('phase38 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'],
+                                       sums['bfloat16'], sums['float32'])
+        + '; ' + check_sums('reference', first['ref_sums'], sums['bfloat16'],
+                            sums['float32']))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase38 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase (the '
+        f'checkpoint {w["bytes"] / 1e9:.3f} GB, deleted), '
+        f'{disk_written():.3f} GB by the run so far')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'mfu': mfu, 'peak_gb': peak / 1e9, 'images': images}
+
+
+def mllama_generation(cfg, ckpt: str, images: list, dev) -> dict:
+    """Greedy ``generate`` of ``MLLAMA_GEN_NEW`` tokens from two image
+    prompts with ``init_cache_fn=mllama.init_cache`` (the self cache, then
+    the cross K/V from the prefill), in fp32 compute: each generated id is
+    the argmax of a no-cache forward over the grown sequence."""
+    from align_anything_tpu_torch.data.image import MllamaTileProcessor  # noqa: PLC0415
+    from align_anything_tpu_torch.generation import generate  # noqa: PLC0415
+    from align_anything_tpu_torch.models import mllama  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_mllama_params)
+
+    params, loaded = load_mllama_params(ckpt, device=dev)
+    gcfg = loaded.replace(compute_dtype='float32')
+    proc = MllamaTileProcessor(gcfg.vision)
+    outs = [proc(p) for p in images]
+    media = {k: torch.as_tensor(np.stack([o[k] for o in outs]), device=dev)
+             for k in ('pixel_values', 'aspect_ratio_ids',
+                       'aspect_ratio_mask')}
+    rng = np.random.default_rng(SEED + 395)
+    top = min(30000, gcfg.vocab_size)
+    prompts = [[1] + list(rng.integers(3, top, 5)) + [gcfg.image_token_id]
+               + list(rng.integers(3, top, 9)) for _ in images]
+    ids = torch.as_tensor(prompts, device=dev)
+    mask = torch.ones_like(ids)
+    gen = GenerationConfig(max_new_tokens=MLLAMA_GEN_NEW, greedy=True,
+                           eos_token_id=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, gcfg, gen, ids, mask, media=media,
+                   prefill_forward=mllama.forward,
+                   step_forward=mllama.decode_forward,
+                   init_cache_fn=mllama.init_cache)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    seqs, p = out['sequences'], ids.shape[1]
+    agree = 0
+    with torch.no_grad():
+        for t in range(MLLAMA_GEN_NEW):
+            logits = mllama.forward(params, gcfg, seqs[:, :p + t],
+                                    **media).logits[:, -1]
+            agree += int((logits.argmax(-1) == seqs[:, p + t]).sum())
+    del params
+    return {'gen_s': gen_s, 'agree': agree,
+            'total': MLLAMA_GEN_NEW * len(images),
+            'tiles': media['aspect_ratio_mask'].sum(-1).flatten().tolist(),
+            'ids': seqs[:, p:].tolist()}
+
+
+def mllama_small(dev, smi, tmp: str, images: list) -> dict:
+    """Phase 39: at phase 10's text widths (2 layers, layer 1 cross) under
+    a tower of the published widths (2 local + 1 global layers), through
+    the entry points' ``trainer_main``: TI2T SFT and its bf16 export read
+    back through ``load_mllama_params``, KTO, ORPO and SimPO one step
+    each, then greedy ``generate`` with ``init_cache_fn``; ``images`` are
+    phase 38's PNG files."""
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_mllama_params, save_mllama_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
+        kto, orpo, simpo)
+    from align_anything_tpu_torch.trainers.text_image_to_text.sft import (  # noqa: PLC0415
+        TI2TSupervisedTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    cfg = mllama_small_config()
+    ckpt = os.path.join(tmp, 'mllama_small')
+    w = write_mllama(cfg, ckpt, SEED + 390, dev)
+    sft_data = write_jsonl(os.path.join(tmp, 'sft_mllama.jsonl'),
+                           ti2t_rows(images, SEED + 391, preference=False))
+    pref_data = write_jsonl(os.path.join(tmp, 'pref_mllama_small.jsonl'),
+                            ti2t_rows(images, SEED + 392, preference=True))
+    self_layers = cfg.text.num_layers - len(cfg.cross_attention_layers)
+    b = MLLAMA_SMALL_BATCH
+    common = ['--model_name_or_path', ckpt, '--train_template', 'AA_TI2T',
+              '--save_checkpoint', 'False', '--epochs', '1',
+              '--per_device_train_batch_size', str(b), '--padding_buckets',
+              f'[{MLLAMA_BUCKET}]', '--learning_rate', '1e-4']
+    one_step = ['--train_datasets', pref_data, '--train_size', str(b)]
+    sft_steps = len(images) // b
+    runs = (
+        # (tag, class, task, argv, launches: the self layers' forward and
+        # backward a step ('save_flash' keeps the kernel's output); KTO's
+        # reference too, and its KL estimate at start-up two text-only
+        # passes (R14))
+        ('SFT', TI2TSupervisedTrainer, 'text_image_to_text/sft',
+         [*common, '--train_datasets', sft_data],
+         {'fwd': sft_steps * self_layers, 'bwd': sft_steps * self_layers}),
+        ('KTO', kto.TI2TKTOTrainer, 'text_to_text/kto',
+         [*common, *one_step, '--per_device_kl_batch_size', str(b)],
+         {'fwd': 2 * self_layers + 2 * self_layers, 'bwd': self_layers}),
+        ('ORPO', orpo.TI2TORPOTrainer, 'text_to_text/orpo',
+         [*common, *one_step], {'fwd': self_layers, 'bwd': self_layers}),
+        ('SimPO', simpo.TI2TSimPOTrainer, 'text_to_text/simpo',
+         [*common, *one_step], {'fwd': self_layers, 'bwd': self_layers}))
+    total = {'fwd': 0, 'bwd': 0}
+    for tag, cls, task, argv, need in runs:
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        trainer, steps, _ = run_ti2t(cls, task, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = flash_counts()
+        losses = [m['train/loss'] for m in steps]
+        log(f'phase39 Mllama {tag}: model {trainer.mm.__name__}; '
+            f'{len(steps)} steps, train/loss {losses}; trainer_main '
+            f'{seconds:.2f} s; flash launches fwd {launches["fwd"]} (need '
+            f'{need["fwd"]}) bwd {launches["bwd"]} (need {need["bwd"]}); '
+            f'card {smi}')
+        if (not trainer.mm.__name__.endswith('.mllama') or not steps
+                or not all_finite(steps)):
+            raise AssertionError(f'Mllama {tag}: {trainer.mm.__name__}, no '
+                                 'step, or a non-finite metric')
+        check_launches(f'Mllama {tag}', launches, need, exact=True)
+        if tag == 'SFT':
+            out = os.path.join(tmp, 'export_mllama_small')
+            save_mllama_params(out, trainer.state.params, trainer.model_cfg,
+                               dtype=torch.bfloat16)
+            back, bcfg = load_mllama_params(out, device=dev)
+            want = leaves_by_path(trainer.state.params)
+            got = leaves_by_path(back)
+            same = set(got) == set(want) and all(
+                torch.equal(got[k].float(), want[k].to(torch.bfloat16)
+                            .float()) for k in want)
+            nbytes = dir_bytes(out)
+            same_cfg = (bcfg.vision == cfg.vision
+                        and bcfg.cross_attention_layers
+                        == cfg.cross_attention_layers
+                        and bcfg.image_token_id == cfg.image_token_id)
+            log(f'phase39 Mllama SFT bf16 export: {len(got)} leaves, '
+                f'{nbytes / 1e9:.4f} GB; read back through '
+                f'load_mllama_params equal to the trained params in bf16: '
+                f'{same}; the tower, cross layers and image token of the '
+                f'config kept: {same_cfg}')
+            shutil.rmtree(out, ignore_errors=True)
+            if not (same and same_cfg):
+                raise AssertionError('Mllama SFT: the export does not read '
+                                     'back')
+            del back
+        for k in total:
+            total[k] += launches[k]
+        del trainer
+        free_memory()
+    gen = mllama_generation(cfg, ckpt, images[:2], dev)
+    log(f'phase39 Mllama generate (fp32 compute, {MLLAMA_GEN_NEW} new tokens '
+        f'from 2 image prompts of {gen["tiles"]} tiles, init_cache_fn): '
+        f'{gen["gen_s"]:.3f} s; ids equal to the argmax of the no-cache '
+        f'forward over the grown sequence {gen["agree"]}/{gen["total"]}; '
+        f'ids {gen["ids"]}')
+    if gen['agree'] != gen['total']:
+        raise AssertionError('Mllama generate: ids off the no-cache argmax')
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase39 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase (the '
+        f'checkpoint {w["bytes"] / 1e9:.3f} GB, deleted)')
+    return {'launches': total}
+
+
 # phases 22-23: LoRA and QLoRA through the trainers' entry points.  Phase
 # 22 runs DPO at Llama-3-8B's full size, all 32 layers, from the port's
 # 'llama-3-8b' preset (fp32 weights drawn from the trainer's seed on the
@@ -6125,8 +6673,12 @@ def gemma3_generation(dev, smi, ckpt: str) -> dict:
 # word).  Every prompt starts with the same 48-word system text and runs
 # 470-500 words more: 520-550 tokens, longer than the window 512, and a
 # tail in the 512 bucket, so the cached prefix and the tail fit max_len
-# 1024 (the engine's match rule).
-HTTP_CLIENTS, HTTP_SLOTS, HTTP_NEW = 16, 8, 64
+# 1024 (the engine's match rule).  32 new tokens a request: the phase's
+# time is the host's work in four servers' decode loops (112.5-170.2 s of
+# the call at 64).  Not a shallower model: cut to 6 of its 26 layers, the
+# random model repeats the prompt's closing EOS and every request stops
+# after one token.
+HTTP_CLIENTS, HTTP_SLOTS, HTTP_NEW = 16, 8, 32
 HTTP_SYSTEM_WORDS, HTTP_WORDS = 48, (470, 501)
 
 
@@ -6933,6 +7485,112 @@ def profile_qwen2_vl(dev, smi, tmp: str) -> None:
     free_memory()
 
 
+def profile_mllama(dev, smi, tmp: str) -> None:
+    """``--profile mllama``: one Mllama DPO step of phase 38's config after
+    a warm-up step, traced whole; then, over that step's tiles and rows,
+    the tower with the projector, forward and backward (the policy's pass)
+    and forward without gradients (the reference's); the tower's plain
+    attention alone at its shapes (its 10 layers, the same two ways); and
+    the cross layer alone (the same two ways): their shares of the step's
+    device time."""
+    from align_anything_tpu_torch.models import mllama  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    cfg = mllama_11b_config()
+    ckpt, _, argv, _ = mllama_dpo_assets(cfg, dev, tmp)
+    cfgs, pc = parse_cfgs('text_image_to_text/dpo', argv)
+    trainer = TI2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    step_busy = report_trace('mllama dpo step', prof, wall, smi)
+    db = trainer.put_batch(batch)
+    params, mcfg = trainer.state.params, trainer.model_cfg
+    c, vc = mcfg.text, mcfg.vision
+    media = (db['pixel_values'], db['aspect_ratio_ids'],
+             db['aspect_ratio_mask'])
+
+    def tower(grad: bool):
+        out = mllama.image_features(params, mcfg, *media, torch.bfloat16,
+                                    remat=c.remat if grad else 'none')
+        if grad:
+            out.float().sum().backward()
+        return out
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    _, prof, wall = traced(lambda: tower(True))
+    t_tower = report_trace('mllama tower + projector, forward + backward',
+                           prof, wall, smi)
+    for t in param_leaves(params):
+        t.grad = None
+    states, prof, wall = traced(no_grad(lambda: tower(False)))
+    t_tower += report_trace('mllama tower + projector, forward, no grad',
+                            prof, wall, smi)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 385)
+    rows = db['pixel_values'].shape[0]
+    p1 = vc.num_patches
+    pp = p1 + (8 - p1 % 8) % 8
+    s = vc.max_num_tiles * pp
+    q, k, v = (torch.randn((rows, s, vc.num_heads, vc.head_dim),
+                           generator=gen, device=dev).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    valid = (db['aspect_ratio_mask'].reshape(rows, -1, 1).bool()
+             & (torch.arange(pp, device=dev) < p1))
+    invalid = 1.0 - valid.reshape(rows, s).float()
+    n_layers = vc.num_layers + vc.num_global_layers
+
+    def attention(grad: bool):
+        for _ in range(n_layers):
+            out = mllama.vision_attention(q, k, v, invalid)
+            if grad:
+                torch.autograd.grad(out.float().sum(), (q, k, v))
+
+    _, prof, wall = traced(lambda: attention(True))
+    t_attn = report_trace(f'mllama tower attention x {n_layers}, forward + '
+                          'backward', prof, wall, smi, top=8)
+    _, prof, wall = traced(no_grad(lambda: attention(False)))
+    t_attn += report_trace(f'mllama tower attention x {n_layers}, forward',
+                           prof, wall, smi, top=8)
+    lp = params['language_model']['layers'][mcfg.cross_attention_layers[0]]
+    x = torch.randn((rows, db['input_ids'].shape[1], c.hidden_size),
+                    generator=gen, device=dev).to(torch.bfloat16) \
+        .requires_grad_(True)
+    xmask = mllama.default_cross_attention_mask(
+        mcfg, db['input_ids'], db['aspect_ratio_mask'])
+    bias, full_row = mllama.prepare_cross_attention_mask(xmask, p1)
+    states = states.detach()
+
+    def cross(grad: bool):
+        out = mllama._cross_block(c, lp, x, states, bias, full_row)
+        if grad:
+            out.float().sum().backward()
+
+    _, prof, wall = traced(lambda: cross(True))
+    t_cross = report_trace('mllama cross layer, forward + backward', prof,
+                           wall, smi, top=8)
+    for t in param_leaves(params):
+        t.grad = None
+    _, prof, wall = traced(no_grad(lambda: cross(False)))
+    t_cross += report_trace('mllama cross layer, forward, no grad', prof,
+                            wall, smi, top=8)
+    log(f'profile mllama: device busy a step {step_busy:.4f} s; the tower '
+        f'with the projector (policy and reference passes) {t_tower:.4f} s '
+        f'({t_tower / step_busy:.4f}); its plain attention at D '
+        f'{vc.head_dim} {t_attn:.4f} s ({t_attn / step_busy:.4f}); the cross '
+        f'layer {t_cross:.4f} s ({t_cross / step_busy:.4f}) of the step\'s '
+        f'device time; card {smi}')
+    del trainer, params, prof, q, k, v, x, states
+    free_memory()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def profile_ta2t(dev, smi, tmp: str) -> None:
     """``--profile ta2t``: one TA2T DPO step of phase 36's config after a
     warm-up step, traced whole; then, on that step's clips, what the step
@@ -7066,7 +7724,7 @@ def main() -> int:
     libs = build_kernels()
     if sys.argv[1:2] == ['--profile']:
         which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora', 'gemma3',
-                                 'qwen2vl', 'ta2t']
+                                 'qwen2vl', 'ta2t', 'mllama']
         if 'dpo' in which:
             profile_dpo(dev, smi)
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
@@ -7075,7 +7733,8 @@ def main() -> int:
                              ('qlora', profile_qlora),
                              ('gemma3', profile_gemma3),
                              ('qwen2vl', profile_qwen2_vl),
-                             ('ta2t', profile_ta2t)):
+                             ('ta2t', profile_ta2t),
+                             ('mllama', profile_mllama)):
                 if name in which:
                     fn(dev, smi, tmp)
         finally:
@@ -7191,7 +7850,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         harness_small(dev, smi, tmp)
         free_memory()
-        rm = rm_full(dev, smi, tmp)
+        rm = rm_full(dev, smi, tmp, base=harness['ckpt'])
         ppo = ppo_full(dev, smi, tmp, rm)
         cost = rl_small(dev, smi, tmp)
         kto = kto_full(dev, smi, tmp)
@@ -7200,7 +7859,7 @@ def main() -> int:
         variants = rl_variants_small(dev, smi, tmp, cost)
         ti2t = ti2t_full(dev, smi, tmp)
         ti2t_sft = ti2t_small(dev, smi, tmp)
-        ti2t_rm = ti2t_rm_full(dev, smi, tmp)
+        ti2t_rm = ti2t_rm_full(dev, smi, tmp, base=ti2t['ckpt'])
         ti2t_ppo = ti2t_ppo_full(dev, smi, tmp, ti2t_rm)
         ti2t_rl = ti2t_rl_small(dev, smi, tmp, ti2t_sft)
         anyres = anyres_full(dev, smi, tmp, ti2t['ckpt'])
@@ -7210,6 +7869,8 @@ def main() -> int:
         qwen_small = qwen_vl_small(dev, smi, tmp)
         ta2t_dpo = ta2t_dpo_full(dev, smi, tmp)
         ta2t_sm = ta2t_small(dev, smi, tmp)
+        mllama_dpo = mllama_dpo_full(dev, smi, tmp)
+        mllama_sm = mllama_small(dev, smi, tmp, mllama_dpo['images'])
         qlora4 = qlora_full(dev, smi, tmp, 4, QLORA_STEPS)
         qlora8 = qlora_full(dev, smi, tmp, 8, QLORA_INT8_STEPS)
         lora = lora_small(dev, smi, tmp, cost)
@@ -7232,7 +7893,8 @@ def main() -> int:
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
                  ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, anyres, tv2t,
                  lnext_small, qwen_dpo, qwen_small, ta2t_dpo, ta2t_sm,
-                 qlora4, qlora8, lora, gemma, gemma_gen, remat, saves)
+                 mllama_dpo, mllama_sm, qlora4, qlora8, lora, gemma,
+                 gemma_gen, remat, saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -7293,7 +7955,11 @@ def main() -> int:
                              'forward twice a step, frozen) + phase 37 '
                              '(TA2T SFT, RM, PPO, GRPO and SFT over a '
                              'fresh encoder, small: the towers train in '
-                             'PPO and GRPO)'}
+                             'PPO and GRPO) + phase 38 (2 Mllama DPO steps '
+                             'at Llama-3.2-11B-Vision widths, text 5 '
+                             'layers: the 4 self-attention layers, the '
+                             'tower and cross layer run no kernel) + phase '
+                             '39 (Mllama SFT, KTO, ORPO and SimPO, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
