@@ -6,6 +6,7 @@ from align_anything_tpu_torch.models.config import (
     llama_config,
     opt_config,
     qwen2_config,
+    qwen3_moe_config,
     tiny_config,
 )
 from align_anything_tpu_torch.models.transformer import (
@@ -23,6 +24,7 @@ __all__ = [
     'llama_config',
     'opt_config',
     'qwen2_config',
+    'qwen3_moe_config',
     'tiny_config',
     'KVCache',
     'ModelOutput',

@@ -1,13 +1,18 @@
 """Model architecture configs: the JAX package's ``ModelConfig`` (same
-fields, same defaults), the OPT / Llama-3 / Qwen2 / tiny makers, the
-presets the port runs, and ``config_from_hf``.
+fields, same defaults), the OPT / Llama-3 / Qwen2 / Qwen3-MoE / tiny
+makers, the JAX presets, and ``config_from_hf``.
 
 One generic decoder covers the Llama-class text families, Gemma3's
-interleaved sliding-window layers included.  ``models/transformer.py``
-``check_supported`` raises ``NotImplementedError`` for the switches the
-port does not run (MoE, pipeline stages, m-rope), and ``config_from_hf``
-raises through it for a checkpoint that needs one.  The JAX
-``qwen3_moe_config`` and its MoE presets are left out with MoE.
+interleaved sliding-window layers and the top-k routed mixture of experts
+included.  ``models/transformer.py`` ``check_supported`` raises
+``NotImplementedError`` for the switches the port does not run (pipeline
+stages), and ``config_from_hf`` raises through it for a checkpoint that
+needs one.
+
+The MoE presets copy the JAX package's, not the published Qwen3-MoE
+config: ``qwen3-moe-30b-a3b`` has 64 experts (transformers'
+``Qwen3MoeConfig`` has 128), no q/k norm, and always renormalises the
+top-k weights (ROADMAP R33).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ class ModelConfig:
     rope_llama3: tuple[float, float, float, int] | None = None
     norm_eps: float = 1e-6
     final_logit_softcap: float | None = None
-    # Qwen2-VL m-rope sections (not ported yet)
+    # Qwen2-VL m-rope: per-section (t, h, w) position streams
     mrope_section: tuple[int, ...] | None = None
     # query/key normalization before RoPE: 'rmsnorm' (shared (D,) weight,
     # Qwen3) | 'layernorm_ph' (per-head affine, Chameleon)
@@ -60,9 +65,12 @@ class ModelConfig:
     rope_local_theta: float | None = None  # rope theta for sliding layers
     # per-layer attention type: 1 = sliding window, 0 = full (None = full)
     layer_is_sliding: tuple[int, ...] | None = None
+    # MoE dispatch: 'dense' (every expert on every token, the top-k weights
+    # select) | 'sparse' (tokens sorted by expert, one product per expert
+    # over its rows); any other value runs dense, as in JAX
     moe_impl: str = 'dense'
 
-    # mixture of experts (0 = dense)
+    # mixture of experts (0 = dense; Qwen3-MoE-class when > 0)
     num_experts: int = 0
     num_experts_per_tok: int = 2
     router_aux_coef: float = 0.0
@@ -129,6 +137,23 @@ def qwen2_config(vocab_size: int = 151936, hidden: int = 3584, layers: int = 28,
     )
 
 
+def qwen3_moe_config(vocab_size: int = 151936, hidden: int = 2048,
+                     layers: int = 24, heads: int = 32, kv_heads: int = 4,
+                     mlp: int = 768, num_experts: int = 64, top_k: int = 8,
+                     max_pos: int = 32768, **kw) -> ModelConfig:
+    """Qwen3-MoE family as the JAX package defines it (reference
+    models/qwen3_moe.py wrapper).  ``mlp`` is the per-expert intermediate
+    size; the router's balancing loss is weighed by ``router_aux_coef``."""
+    return ModelConfig(
+        vocab_size=vocab_size, hidden_size=hidden, num_layers=layers,
+        num_heads=heads, num_kv_heads=kv_heads, head_dim=hidden // heads,
+        mlp_dim=mlp, max_position_embeddings=max_pos,
+        rope_theta=1000000.0, num_experts=num_experts,
+        num_experts_per_tok=top_k, router_aux_coef=0.001,
+        bos_token_id=151643, eos_token_id=151645, pad_token_id=151643, **kw,
+    )
+
+
 def tiny_config(vocab_size: int = 512, hidden: int = 64, layers: int = 2,
                 heads: int = 4, kv_heads: int = 2, mlp: int = 128,
                 max_pos: int = 256, **kw) -> ModelConfig:
@@ -140,7 +165,6 @@ def tiny_config(vocab_size: int = 512, hidden: int = 64, layers: int = 2,
     )
 
 
-# the JAX presets without the MoE ones ('qwen3-moe-30b-a3b', 'tiny-moe')
 PRESETS = {
     'opt-125m': lambda: opt_config(),
     'opt-350m': lambda: opt_config(hidden=1024, layers=24, heads=16, mlp=4096),
@@ -151,7 +175,10 @@ PRESETS = {
     'qwen2-7b': lambda: qwen2_config(),
     'qwen2-0.5b': lambda: qwen2_config(hidden=896, layers=24, heads=14,
                                        kv_heads=2, mlp=4864),
+    'qwen3-moe-30b-a3b': lambda: qwen3_moe_config(),
     'tiny': lambda: tiny_config(),
+    'tiny-moe': lambda: tiny_config(num_experts=4, num_experts_per_tok=2,
+                                    router_aux_coef=0.01),
 }
 
 

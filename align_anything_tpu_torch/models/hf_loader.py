@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -154,6 +155,12 @@ def _T(w: torch.Tensor) -> torch.Tensor:
 
 def _same(w: torch.Tensor) -> torch.Tensor:
     return w
+
+
+def _reversed(w: torch.Tensor) -> torch.Tensor:
+    """numpy's ``.T``: all dims reversed (a 3-D MoE expert leaf too, where
+    ``torch.Tensor.T`` takes 2-D only)."""
+    return w.permute(*range(w.ndim - 1, -1, -1))
 
 
 def _qkv_in(e: int, heads: int, d: int):
@@ -717,7 +724,9 @@ def save_params(path: str, params: dict, config: ModelConfig,
                 hf_config_extra: dict | None = None,
                 dtype: torch.dtype = torch.float32) -> None:
     """Write params back as a single HF-layout safetensors checkpoint, every
-    tensor in ``dtype`` (float32, as the JAX module writes, by default)."""
+    tensor in ``dtype`` (float32, as the JAX module writes, by default).
+    An MoE tree is written as JAX writes it and does not load back
+    (``_dump_llama_like``)."""
     os.makedirs(path, exist_ok=True)
     if config.true_vocab_size is not None and config.true_vocab_size != config.vocab_size:
         params = dict(params)
@@ -1422,6 +1431,16 @@ def _dump_opt(p: dict, c: ModelConfig) -> dict:
 
 
 def _dump_llama_like(p: dict, c: ModelConfig) -> dict:
+    """The HF tensors of a Llama-class decoder tree.  An MoE tree's come out
+    as JAX writes them: each layer's expert stacks under the dense MLP
+    names with every dim reversed and no router, beside a config without
+    experts, so the export does not load back (ROADMAP R34); a warning
+    says so."""
+    if c.num_experts:
+        warnings.warn(f'an MoE language model (num_experts={c.num_experts})'
+                      ' is written as the JAX package writes it, without the'
+                      ' router or the experts in config.json, and does not '
+                      'load back (ROADMAP R34)', stacklevel=3)
     e, h, kh, d = c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim
     lp = p['layers']
     pre = 'model.layers.{i}.'
@@ -1442,9 +1461,9 @@ def _dump_llama_like(p: dict, c: ModelConfig) -> dict:
                         lambda w: w.reshape(h * d, e).T))
     out.update(_unstack(lp['mlp_norm']['w'], pre + 'post_attention_layernorm.weight',
                         _same))
-    out.update(_unstack(lp['gate']['w'], pre + 'mlp.gate_proj.weight', lambda w: w.T))
-    out.update(_unstack(lp['up']['w'], pre + 'mlp.up_proj.weight', lambda w: w.T))
-    out.update(_unstack(lp['down']['w'], pre + 'mlp.down_proj.weight', lambda w: w.T))
+    out.update(_unstack(lp['gate']['w'], pre + 'mlp.gate_proj.weight', _reversed))
+    out.update(_unstack(lp['up']['w'], pre + 'mlp.up_proj.weight', _reversed))
+    out.update(_unstack(lp['down']['w'], pre + 'mlp.down_proj.weight', _reversed))
     if c.qkv_bias:
         for name in ('q', 'k', 'v'):
             out.update(_unstack(lp[name]['b'], pre + f'self_attn.{name}_proj.bias',

@@ -65,8 +65,19 @@ def init_lora_params(cfg: ModelConfig, generator: torch.Generator,
                      device: torch.device | str | None = None) -> dict:
     """A ~ N(0, 1/r) per peft convention, drawn from ``generator`` (which
     must live on ``device``, default the first CUDA device), and B = 0, so
-    the adapted model starts equal to its base.  fp32 leaves."""
+    the adapted model starts equal to its base.  fp32 leaves.
+
+    On an MoE config the expert modules (``up_proj``, ``gate_proj``,
+    ``down_proj``) raise: their adapters are shaped for a dense MLP, and
+    JAX's then fail to reshape onto the (X, E, F) experts (``TypeError``).
+    The attention modules adapt as on a dense model."""
     device = default_device(device)
+    experts = [m for m in target_modules
+               if cfg.num_experts and _TARGETS[m][0] in ('up', 'gate', 'down')]
+    if experts:
+        raise ValueError(f'LoRA targets {experts} on an MoE model: the '
+                         'experts take no adapter (the JAX package fails '
+                         'there too); adapt the attention modules')
     lora: dict = {}
     for module in target_modules:
         (n, cin), (_, cout) = _target_shapes(cfg, module)

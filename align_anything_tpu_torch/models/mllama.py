@@ -145,8 +145,13 @@ class MllamaConfig:
 
 
 def check_supported(cfg: MllamaConfig) -> None:
-    """Raise for the text-decoder options the port does not run yet."""
+    """Raise for the text-decoder options the port does not run yet, and
+    for MoE: the JAX trunk builds dense MLP leaves and its self layers then
+    fail to find the router (``KeyError``), so the port refuses it."""
     transformer.check_supported(cfg.text)
+    if cfg.text.num_experts:
+        raise NotImplementedError('Mllama with an MoE text decoder '
+                                  '(num_experts) fails in the JAX package')
 
 
 # ---------------------------------------------------------------------------
@@ -643,11 +648,11 @@ def forward(params: dict, cfg: MllamaConfig, input_ids: torch.Tensor,
         if cache is not None:
             x = transformer._decoder_layer(c, lp, x, positions, sin, cos,
                                            attention_mask,
-                                           cache['self'][str(i)], 0)
+                                           cache['self'][str(i)], 0)[0]
         else:
             x = _layer_call(remat, up_shape, transformer._decoder_layer, c,
                             lp, x, positions, sin, cos, attention_mask, None,
-                            cache_offset)
+                            cache_offset)[0]
 
     new_cache = None
     if cache is not None:
@@ -715,7 +720,7 @@ def decode_forward(params: dict, cfg: MllamaConfig,
             continue
         x = transformer._decoder_layer(c, lp, x, positions, sin, cos,
                                        attention_mask, cache['self'][str(i)],
-                                       cache_offset)
+                                       cache_offset)[0]
     x = transformer._norm(c, lm['final_norm'], x)
     return ModelOutput(logits=_logits(c, lm, x), last_hidden_state=x,
                        cache=cache)

@@ -125,26 +125,33 @@ def _fuse_int4(leaves: list[Int4Weight]) -> Int4Weight:
 
 # layer-weight key -> contraction axes in the layer-stacked layout
 # (q/k/v (n,e,h,d) contract e; o (n,h,d,e) contracts h,d; up/gate (n,e,f)
-# contract e; down (n,f,e) contracts f)
+# contract e; down (n,f,e) contracts f; router (n,e,x) contracts e)
 _LAYER_AXES = {
     'q': (1,), 'k': (1,), 'v': (1,),
     'o': (1, 2),
     'up': (1,), 'gate': (1,), 'down': (1,),
+    'router': (1,),
 }
+# MoE experts add an (n, X, ...) expert dim: up/gate (n,x,e,f) contract e;
+# down (n,x,f,e) contracts f
+_MOE_AXES = {'up': (2,), 'gate': (2,), 'down': (2,)}
 
 
 def quantize_decoder_int8(params: dict, num_experts: int = 0,
                           compute: bool = False) -> dict:
     """int8-quantize a decoder param tree's matmul weights and ``lm_head``
-    (embedding, norms and biases stay fp, the split bnb makes).
-    ``compute=True`` marks them for the int8 product in the decoder."""
-    if num_experts:
-        raise NotImplementedError('MoE decoders are not ported yet')
+    (embedding, norms and biases stay fp, the split bnb makes); an MoE
+    tree's experts on their contraction axis 2 and its router too.
+    ``compute=True`` marks them for the int8 product in the decoder (the
+    MoE layer dequantizes its experts and router where it reads them, as
+    JAX's does)."""
     out: dict[str, Any] = dict(params)
     layers = dict(params['layers'])
     for name, axes in _LAYER_AXES.items():
         if name not in layers:
             continue
+        if num_experts and name in _MOE_AXES:
+            axes = _MOE_AXES[name]
         sub = dict(layers[name])
         sub['w'] = quantize_int8(sub['w'], axes, compute=compute)
         layers[name] = sub
@@ -163,13 +170,23 @@ def quantize_decoder_int4(params: dict, num_experts: int = 0,
     kernel ('o' dequantizes: its groups run over heads only, not over the
     flattened contraction).  ``fuse=True``: merge q/k/v into one ``qkv``
     leaf and gate/up into ``gate_up`` (bias-free models only), one kernel
-    launch instead of three."""
-    if num_experts:
-        raise NotImplementedError('MoE decoders are not ported yet')
+    launch instead of three.
+
+    An MoE tree (``num_experts``) keeps its experts fp (the grouped layout
+    takes contraction axis 0 or 1 only; theirs is 2) and quantizes its
+    router, as JAX's does.  ``fuse=True`` there raises: JAX then tries to
+    fuse the fp gate and up leaves and fails (``AttributeError``, ROADMAP
+    R31)."""
+    if num_experts and fuse:
+        raise ValueError('quantize_decoder_int4(fuse=True) on an MoE tree: '
+                         'its experts stay fp and do not fuse; the JAX '
+                         'package fails here too (ROADMAP R31)')
     out: dict[str, Any] = dict(params)
     layers = dict(params['layers'])
     for name, axes in _LAYER_AXES.items():
         if name not in layers:
+            continue
+        if num_experts and name in _MOE_AXES:
             continue
         sub = dict(layers[name])
         sub['w'] = quantize_int4(sub['w'], axes, group_size=group_size,

@@ -39,6 +39,16 @@ cache paths.
 m-rope (``mrope_section``, the Qwen2-VL trunk): (3, B, L) positions rotate
 q and k with ``ops/rope.apply_mrope``; (B, L) positions take plain rope, as
 the decode steps do.
+
+Mixture of experts (``num_experts``, Qwen3-MoE-class): a top-k router
+replaces the MLP (``_moe_mlp``), with the dense dispatch (every expert on
+every token, the top-k weights select) or, under ``moe_impl='sparse'``, the
+sparse one (``_moe_sparse``: tokens sorted by expert, one product per
+expert over its rows, ``ragged_dot``).  Every path returns the switch-style
+balancing loss of each layer, and ``ModelOutput.aux_loss`` is its mean over
+layers, taken over every token, pads included, as in JAX (ROADMAP R32).
+The sparse dispatch reads the per-expert row counts on the host once a
+layer (one ``bincount`` and one ``.tolist()``).
 """
 
 from __future__ import annotations
@@ -86,8 +96,6 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(c: ModelConfig) -> None:
     """Raise for the config options the port does not run yet."""
     missing = []
-    if c.num_experts:
-        missing.append('MoE (num_experts)')
     if c.pp_stages > 1:
         missing.append('pipeline stages (pp_stages)')
     if c.remat not in REMAT_POLICIES:
@@ -117,6 +125,7 @@ class ModelOutput:
     logits: torch.Tensor                 # (B, L, V) float32
     last_hidden_state: torch.Tensor      # (B, L, E)
     cache: KVCache | None = None
+    aux_loss: torch.Tensor | None = None  # MoE router balancing loss
 
 
 def init_cache(config: ModelConfig, batch_size: int, max_len: int,
@@ -166,11 +175,18 @@ def init_params(config: ModelConfig, generator: torch.Generator,
         'v': {'w': dense(n, e, kh, d, fan_in=e)},
         'o': {'w': dense(n, h, d, e, fan_in=h * d)},
         'mlp_norm': _norm_params(c, n, e, device),
-        'up': {'w': dense(n, e, f, fan_in=e)},
-        'down': {'w': dense(n, f, e, fan_in=f)},
     }
-    if c.gated_mlp:
-        layers['gate'] = {'w': dense(n, e, f, fan_in=e)}
+    if c.num_experts:
+        x_ = c.num_experts
+        layers['router'] = {'w': dense(n, e, x_, fan_in=e)}
+        layers['up'] = {'w': dense(n, x_, e, f, fan_in=e)}
+        layers['gate'] = {'w': dense(n, x_, e, f, fan_in=e)}
+        layers['down'] = {'w': dense(n, x_, f, e, fan_in=f)}
+    else:
+        layers['up'] = {'w': dense(n, e, f, fan_in=e)}
+        layers['down'] = {'w': dense(n, f, e, fan_in=f)}
+        if c.gated_mlp:
+            layers['gate'] = {'w': dense(n, e, f, fan_in=e)}
     if c.qkv_bias:
         layers['q']['b'] = torch.zeros((n, h, d), device=device)
         layers['k']['b'] = torch.zeros((n, kh, d), device=device)
@@ -390,9 +406,10 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
                    layer_cache: tuple[torch.Tensor, torch.Tensor] | None,
                    cache_offset, layer_flag: int = 0,
                    rope_alt: tuple[torch.Tensor, torch.Tensor] | None = None
-                   ) -> torch.Tensor:
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One pre-norm decoder block.  x: (B, L, E).  ``layer_cache`` is this
-    layer's (K, V) view (B, KH, S, D), written in place.
+    layer's (K, V) view (B, KH, S, D), written in place.  Returns the new x
+    and the layer's MoE balancing loss (None for a dense MLP).
 
     ``layer_flag`` / ``rope_alt``: Gemma3-style interleaved attention, as in
     JAX: 1 marks a sliding-window layer, which takes the local rope table
@@ -519,26 +536,184 @@ def _decoder_layer(c: ModelConfig, lp: dict, x: torch.Tensor,
 
     h = _norm(c, lp['mlp_norm'], x)
     act = _ACT[c.activation]
-    if 'gate_up' in lp:
-        # fused gate+up leaf (quantize_decoder_int4(fuse=True))
-        gu = _wmm('ble,ez->blz', h, lp['gate_up']['w'], dtype)
-        f = gu.shape[-1] // 2
-        up = act(gu[..., :f]) * gu[..., f:]
+    aux = None
+    if c.num_experts:
+        down, aux = _moe_mlp(c, lp, h, act)
     else:
-        up = _wmm('ble,ef->blf', h, lp['up']['w'], dtype)
-        if 'b' in lp['up']:
-            up = up + lp['up']['b'].to(dtype)
-        if c.gated_mlp:
-            gate = _wmm('ble,ef->blf', h, lp['gate']['w'], dtype)
-            up = act(gate) * up
+        if 'gate_up' in lp:
+            # fused gate+up leaf (quantize_decoder_int4(fuse=True))
+            gu = _wmm('ble,ez->blz', h, lp['gate_up']['w'], dtype)
+            f = gu.shape[-1] // 2
+            up = act(gu[..., :f]) * gu[..., f:]
         else:
-            up = act(up)
-    down = _wmm('blf,fe->ble', up, lp['down']['w'], dtype)
-    if 'b' in lp['down']:
-        down = down + lp['down']['b'].to(dtype)
+            up = _wmm('ble,ef->blf', h, lp['up']['w'], dtype)
+            if 'b' in lp['up']:
+                up = up + lp['up']['b'].to(dtype)
+            if c.gated_mlp:
+                gate = _wmm('ble,ef->blf', h, lp['gate']['w'], dtype)
+                up = act(gate) * up
+            else:
+                up = act(up)
+        down = _wmm('blf,fe->ble', up, lp['down']['w'], dtype)
+        if 'b' in lp['down']:
+            down = down + lp['down']['b'].to(dtype)
     if c.sandwich_norms:
         down = _norm(c, lp['post_mlp_norm'], down)
-    return x + down
+    return x + down, aux
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+def _route(c: ModelConfig, lp: dict, h: torch.Tensor) -> tuple:
+    """The top-k router (JAX ``_moe_mlp``'s head): logits in the compute
+    dtype, then fp32 softmax, the top ``num_experts_per_tok`` probabilities
+    renormalised to sum to 1.  Returns (top_w (B, L, K) fp32, top_idx
+    (B, L, K), weights (B, L, X) fp32: top_w at the chosen experts and 0
+    elsewhere, the switch-style balancing loss X * sum_x f_x P_x)."""
+    router = dequantize_weight(lp['router']['w'], h.dtype, stacked=False)
+    probs = torch.softmax(torch.einsum('ble,ex->blx', h, router).float(),
+                          dim=-1)
+    # the top k of a stable descending sort: equal probabilities keep the
+    # lower expert first, as jax.lax.top_k does (torch.topk promises no
+    # order among ties, and bf16 logits over many experts do tie)
+    top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = c.num_experts_per_tok
+    top_w, top_idx = top_w[..., :k], top_idx[..., :k]
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    weights = (F.one_hot(top_idx, c.num_experts).to(probs.dtype)
+               * top_w[..., None]).sum(-2)
+    token_frac = (weights > 0).float().mean(dim=(0, 1))
+    aux = c.num_experts * (token_frac * probs.mean(dim=(0, 1))).sum()
+    return top_w, top_idx, weights, aux
+
+
+def _moe_mlp(c: ModelConfig, lp: dict, h: torch.Tensor, act
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed mixture of experts (Qwen3-MoE-class), JAX
+    ``_moe_mlp``.  h (B, L, E) -> (output (B, L, E), balancing loss).
+
+    'dense' (the default, and any value but 'sparse'): every expert runs on
+    every token and the top-k weights select; 'sparse': ``_moe_sparse``.
+    Quantized expert and router leaves are dequantized where they are read
+    (JAX ``.astype(dtype)``)."""
+    dtype = h.dtype
+    top_w, top_idx, weights, aux = _route(c, lp, h)
+    if c.moe_impl == 'sparse':
+        return _moe_sparse(c, lp, h, act, top_w, top_idx), aux
+    b, l, e = h.shape
+    n, x_, f = b * l, c.num_experts, c.mlp_dim
+    hf = h.reshape(n, e)
+    # up and gate as one (E, X*F) product each, the (B, L, X, F) outputs of
+    # JAX's 'ble,xef->blxf' (the remat policies know them by that weight
+    # shape, ``_up_shape``)
+    up = (hf @ _experts_in(lp['up']['w'], dtype)).view(n, x_, f)
+    gate = (hf @ _experts_in(lp['gate']['w'], dtype)).view(n, x_, f)
+    mid = act(gate) * up                                      # (N, X, F)
+    # 'blxf,xfe->blxe': one product per expert, batched over X
+    down = dequantize_weight(lp['down']['w'], dtype, stacked=False)
+    out = torch.bmm(mid.transpose(0, 1), down)                # (X, N, E)
+    # 'blxe,blx->ble': batched over the tokens
+    y = torch.bmm(weights.to(dtype).view(n, 1, x_), out.transpose(0, 1))
+    return y.view(b, l, e), aux
+
+
+def _experts_in(leaf, dtype: torch.dtype) -> torch.Tensor:
+    """A layer's (X, E, F) expert leaf as one (E, X*F) matrix in ``dtype``
+    (one cast-and-transpose copy)."""
+    w = _experts(leaf, dtype)
+    x_, e, f = w.shape
+    out = torch.empty((e, x_, f), dtype=dtype, device=w.device)
+    out.copy_(w.permute(1, 0, 2))
+    return out.view(e, x_ * f)
+
+
+def _moe_sparse(c: ModelConfig, lp: dict, h: torch.Tensor, act,
+                top_w: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
+    """The sparse dispatch (JAX ``_moe_sparse``): the N*K (token, expert)
+    rows sorted by expert (a stable sort, as JAX's ``argsort``), one
+    product per expert over its rows (``ragged_dot``), then the rows
+    gathered back to (token, k) order and summed over K with their weights.
+    The combine is a gather and a sum, not JAX's scatter-add
+    (``.at[token_of].add``): on the card ``index_add_`` adds with atomics,
+    so its bf16 sums would differ from run to run."""
+    dtype = h.dtype
+    b, l, e = h.shape
+    k, n = c.num_experts_per_tok, b * l
+    flat = top_idx.reshape(-1)                               # (N*K,)
+    order = torch.argsort(flat, stable=True)
+    sorted_rows = h.reshape(n, e)[order // k]                # (N*K, E)
+    # the layer's one host sync: the per-expert row counts
+    sizes = torch.bincount(flat, minlength=c.num_experts).tolist()
+    up = ragged_dot(sorted_rows, _experts(lp['up']['w'], dtype), sizes)
+    gate = ragged_dot(sorted_rows, _experts(lp['gate']['w'], dtype), sizes)
+    down = ragged_dot(act(gate) * up, _experts(lp['down']['w'], dtype),
+                      sizes)                                 # (N*K, E)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.numel(), device=order.device)
+    rows = down[back].view(n, k, e)
+    y = (rows * top_w.reshape(n, k).to(dtype)[..., None]).sum(dim=1)
+    return y.view(b, l, e)
+
+
+def _experts(leaf, dtype: torch.dtype) -> torch.Tensor:
+    """A layer's expert leaf as a tensor: an fp leaf as it is (``ragged_dot``
+    casts the experts it uses), a quantized one dequantized to ``dtype``."""
+    return leaf if isinstance(leaf, torch.Tensor) else dequantize_weight(
+        leaf, dtype, stacked=False)
+
+
+@torch.library.custom_op('aat_torch::ragged_dot', mutates_args=())
+def ragged_dot(x: torch.Tensor, w: torch.Tensor,
+               group_sizes: list[int]) -> torch.Tensor:
+    """``jax.lax.ragged_dot``: x (M, K) holds ``len(group_sizes)`` groups of
+    consecutive rows; group g's rows times ``w[g].to(x.dtype)`` (w (G, K,
+    N)) -> (M, N) in x's dtype, one ``torch.mm`` per non-empty group (rows
+    past the groups are 0).  A custom op, so the remat policies see it as
+    JAX's policies see ``ragged_dot``: not a dot, never saved."""
+    out = x.new_zeros((x.shape[0], w.shape[2]))
+    start = 0
+    for g, rows in enumerate(group_sizes):
+        if rows:
+            torch.mm(x[start:start + rows], w[g].to(x.dtype),
+                     out=out[start:start + rows])
+        start += rows
+    return out
+
+
+def _ragged_dot_fake(x, w, group_sizes):
+    return x.new_empty((x.shape[0], w.shape[2]))
+
+
+def _ragged_dot_setup(ctx, inputs, output):
+    x, w, group_sizes = inputs
+    ctx.save_for_backward(x, w)
+    ctx.group_sizes = group_sizes
+
+
+def _ragged_dot_backward(ctx, grad):
+    x, w = ctx.saved_tensors
+    sizes = ctx.group_sizes
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        gx = ragged_dot(grad, w.transpose(1, 2), sizes)
+    if ctx.needs_input_grad[1]:
+        # the cast's gradient: computed in x's dtype, returned in w's
+        gw = torch.zeros(w.shape, dtype=x.dtype, device=w.device)
+        start = 0
+        for g, rows in enumerate(sizes):
+            if rows:
+                torch.mm(x[start:start + rows].T, grad[start:start + rows],
+                         out=gw[g])
+            start += rows
+        gw = gw.to(w.dtype)
+    return gx, gw, None
+
+
+ragged_dot.register_fake(_ragged_dot_fake)
+ragged_dot.register_autograd(_ragged_dot_backward,
+                             setup_context=_ragged_dot_setup)
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +780,13 @@ def _policy_saves(remat: str, up_shape: tuple[int, int], op, args) -> bool:
         return matmul and tuple(
             _weight_operand(op, args).shape[-2:]) != up_shape
     return False      # 'save_flash' and 'save_attn' keep no matmul output
+
+
+def _up_shape(c: ModelConfig) -> tuple[int, int]:
+    """The weight shape by which ``dots_mlp_lean`` finds the up and gate
+    projections: (hidden, mlp_dim), or (hidden, num_experts * mlp_dim) for
+    the dense MoE dispatch's (E, X*F) products."""
+    return (c.hidden_size, c.mlp_dim * (c.num_experts or 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -676,24 +858,29 @@ def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
 
     remat = (cache is None and c.remat != 'none'
              and torch.is_grad_enabled())
+    auxes = []
     for li in range(c.num_layers):
         lp = layer_params(params['layers'], li)
         layer_cache = None if cache is None else cache.layer(li)
         if remat:
-            x = ckpt.checkpoint(
+            x, aux = ckpt.checkpoint(
                 _decoder_layer, c, lp, x, positions, sin, cos, attention_mask,
                 None, cache_offset, flags[li], rope_alt, use_reentrant=False,
-                context_fn=_remat_context(c.remat,
-                                          (c.hidden_size, c.mlp_dim)))
+                context_fn=_remat_context(c.remat, _up_shape(c)))
         else:
-            x = _decoder_layer(c, lp, x, positions, sin, cos, attention_mask,
-                               layer_cache, cache_offset, flags[li], rope_alt)
+            x, aux = _decoder_layer(c, lp, x, positions, sin, cos,
+                                    attention_mask, layer_cache, cache_offset,
+                                    flags[li], rope_alt)
+        auxes.append(aux)
+    aux_loss = torch.stack(auxes).mean() if c.num_experts else None
 
     x = _norm(c, params['final_norm'], x)
     if not need_logits:
         return ModelOutput(logits=torch.zeros((b, 0, 0), device=dev),
-                           last_hidden_state=x, cache=cache)
+                           last_hidden_state=x, cache=cache,
+                           aux_loss=aux_loss)
     logits = _head_logits(c, params, x)
     if c.true_vocab_size is not None and c.true_vocab_size != c.vocab_size:
         logits = logits[..., :c.true_vocab_size]
-    return ModelOutput(logits=logits, last_hidden_state=x, cache=cache)
+    return ModelOutput(logits=logits, last_hidden_state=x, cache=cache,
+                       aux_loss=aux_loss)

@@ -11,9 +11,12 @@ With LoRA (``--use_lora``, QLoRA with ``--use_bnb``) the train state holds
 the adapters over the frozen, possibly quantized, base, ``save`` exports
 the merged model, and, as in JAX, ``load_checkpoint`` resumes nothing.
 
-Left out with the modules they need: the pipeline stages and the 1F1B
-schedule (one device), and the MoE router's aux term (``check_supported``
-raises for MoE).
+An MoE model adds ``router_aux_coef`` times the decoder's router
+balancing loss to the loss and logs it as ``train/router_aux_loss`` (JAX
+``sft.py:69-71``).
+
+Left out with the module it needs: the pipeline stages and the 1F1B
+schedule (one device).
 """
 
 from __future__ import annotations
@@ -75,7 +78,11 @@ class SupervisedTrainer(TrainerBase):
         out = transformer.forward(params, self.model_cfg, batch['input_ids'],
                                   attention_mask=batch['attention_mask'])
         loss = cross_entropy_loss(out.logits, batch['labels'])['loss']
-        return loss, {'train/loss': loss.detach()}
+        metrics = {'train/loss': loss.detach()}
+        if out.aux_loss is not None and self.model_cfg.router_aux_coef:
+            loss = loss + self.model_cfg.router_aux_coef * out.aux_loss
+            metrics['train/router_aux_loss'] = out.aux_loss.detach()
+        return loss, metrics
 
     def init_engines(self) -> None:
         total = self.total_training_steps(self.train_iterator)

@@ -46,8 +46,10 @@ Phases (any failure raises and the run exits non-zero):
      DPO micro-batch (L 2048, 4 / 1 heads of 256) with the window 512 and
      without, at phase 31's decoder (``llava_next``: L 4096 at
      LLaVA's heads), at phase 34's (``qwen2_vl_2b``: L 1024 at
-     Qwen2-VL-2B's 12 / 2 heads) and at phase 36's tower
-     (``qwen2_audio_tower``: full attention at L 1500, 20 heads of 64);
+     Qwen2-VL-2B's 12 / 2 heads), at phase 36's tower
+     (``qwen2_audio_tower``: full attention at L 1500, 20 heads of 64) and
+     at phase 41's decoder (``qwen3_moe``: L 1024 at qwen3-moe-30b-a3b's
+     32 / 4 heads of 64);
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -185,7 +187,8 @@ Phases (any failure raises and the run exits non-zero):
      state (1.2 GB) saved at step 3 with ``wait=True`` and at step 6 with
      ``wait=False``: the save call's time and the loop's step time with
      each, and each save restored bit-equal to the state at its call.
- 28. (beside phase 4, on phase 3's params) phase 4's 48 requests through
+ 28. (beside phase 4, on phase 3's params) the first 32 of phase 4's
+     requests (its first two batches) through
      the paged pool (page size 16): (a) the full pool, ``1 + 32 x 16``
      pages, (b) half of it, where every request still finishes with fewer
      than 32 live at once, then bench.py's prefix pattern (a 48-token shared
@@ -299,6 +302,32 @@ Phases (any failure raises and the run exits non-zero):
      tokens from 2 image prompts with ``init_cache_fn=mllama.init_cache``
      (fp32 compute): every id the argmax of a no-cache forward over the
      grown sequence.
+ 40. (after phase 39) MoE serving at the repo's 'qwen3-moe-30b-a3b' preset
+     (JAX's: 64 experts of 768, top 8, hidden 2048, 32 / 4 heads of 64,
+     vocab 151936) at its full 24 layers, seeded random weights,
+     int4-COMPUTE as ``quantize_decoder_int4`` leaves an MoE tree (experts
+     fp32; router, q / k / v / o and head int4): 8 requests of 112-128
+     prompt tokens and 32 new ones through ``generate`` and the continuous
+     engine, dense and paged cache, each ``moe_impl``; in fp32 over the
+     dequantized tree the three paths' greedy ids equal, in bf16 tokens/s,
+     K2's launches and peak memory; the prefill logits and aux loss of the
+     sparse dispatch against the dense one in bf16 (within 3x the bf16
+     noise) and in fp32 (99 % of positions within 1e-3 x max|logit|);
+ 41. SFT through ``trainer_main(SupervisedTrainer, ...)`` from that preset
+     at its widths, cut to 4 layers: 2 rows x 1024, 2 steps with each
+     ``moe_impl``, remat 'save_flash': step 1's loss,
+     ``train/router_aux_loss`` and per-module gradient norms through the
+     kernels against the plain attention (``check_sums``, in fp32 and in
+     bf16), the two dispatches' step-1 losses against each other, the
+     router and every expert moved, launches exact; step time, tokens/s,
+     MFU and peak memory; then ``bench.py``'s ``bench_moe_extra`` config
+     (32 experts of 1408, top 2, 4 layers at width 1024, 8 x 512 tokens)
+     timed, dense against sparse dispatch;
+ 42. at small widths (hidden 256, 2 layers, 4 experts, top 2): the int8
+     tree (experts on their axis 2) and the forward over it, int4
+     ``fuse=True`` refused (ROADMAP R31), SFT through ``trainer_main``
+     with its export (written as JAX writes it, with the R34 warning) and
+     a resume from its step-2 train state, one DPO step (ln 2).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
@@ -347,6 +376,7 @@ fields), and times each kernel at phase 6's two timed shapes.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -399,6 +429,12 @@ TOL = {'bfloat16': 1e-2, 'float32': 1e-4}   # x max|plain|
 # bit-for-bit repeat; the decode step is timed at TIMED_ROWS
 CHECK_ROWS = (1, 16, 17, 32, 33, 128)
 TIMED_ROWS = (1, 32, 128)
+# (name, K, N) of every int4 matmul K2 takes on phase 40's path at
+# qwen3-moe-30b-a3b's widths (q, k and v, the head; the experts stay fp):
+# checked, untimed, at CHECK_ROWS and at phase 40's 8 decode slots
+MOE_K2_SHAPES = [('moe_q', 2048, 2048), ('moe_kv', 2048, 256),
+                 ('moe_head', 2048, 151936)]
+MOE_CHECK_ROWS = (1, 8, 16, 17, 32, 33, 128)
 # the A/B's relerr (max|o - o0| / max|fp32 reference|): v1 and v2 round
 # the scale to bf16 where v0 does not, so they sit a few bf16 ulps from
 # v0 at the max; v2 without its correction reads about 1
@@ -457,6 +493,11 @@ FLASH_SHAPES = [
     # ragged tail: 1500 = 23 x 64 + 28), the DPO step's 4 rows
     ('qwen2_audio_tower', 4, 1500, 20, 20, 64, False, None, 0, None,
      torch.bfloat16, True),
+    # phase 41's decoder: qwen3-moe-30b-a3b's heads (32 / 4 of 64, a GQA
+    # group of 8) over its SFT rows in the 1024 bucket, trailing pads on
+    # two rows
+    ('qwen3_moe', 2, 1024, 32, 4, 64, True, None, 2, None, torch.bfloat16,
+     True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
 # version round P (and dS) to bf16 at K1a's places, but the forward kernel
@@ -494,14 +535,16 @@ def check_kernel(dev) -> dict:
     step_ms = {'kernel': 0.0, 'plain': 0.0, 'bound': 0.0, 'library': 0.0}
     bound_kind: dict = {}           # 'bytes' / 'operations' -> ms
     n_layers = llama_config().num_layers
-    for name, k, n in SHAPES:
+    for name, k, n, rows, timed in (
+            [(*s, CHECK_ROWS, True) for s in SHAPES]
+            + [(*s, MOE_CHECK_ROWS, False) for s in MOE_K2_SHAPES]):
         w = torch.randn((k, n), generator=gen, device=dev,
                         dtype=torch.bfloat16) * (k ** -0.5)
         qw = q.quantize_int4(w, (0,), group_size=GROUP, compute=True)
         del w
         g = k // GROUP
         vals, sc = qw.values, qw.scales.reshape(g, n)
-        for m in CHECK_ROWS:
+        for m in rows:
             x = torch.randn((m, k), generator=gen, device=dev,
                             dtype=torch.bfloat16)
             splits = k2.split_plan(m, k, n, GROUP // 2, sms)
@@ -521,7 +564,7 @@ def check_kernel(dev) -> dict:
                         f'out={str(dtype)[6:]:9s} splits={splits:<3d} '
                         f'max_abs_err={err:.3e} max|plain|={scale:.3e} '
                         f'tol={tol:g} repeats bit for bit: {same}')
-                if m in TIMED_ROWS:
+                if timed and m in TIMED_ROWS:
                     kms = time_ms(lambda: k2.int4_matmul_cuda(
                         x, vals, sc, dtype), 10, flush)
                     pms = time_ms(lambda: k2.int4_matmul_reference(
@@ -540,7 +583,7 @@ def check_kernel(dev) -> dict:
                 worst = max(worst, err)
                 # one decode step at 32 slots: 32 layers' bf16 matmuls and
                 # the fp32-out head
-                if m == DECODE_SLOTS and (
+                if timed and m == DECODE_SLOTS and (
                         (name == 'head') == (dtype == torch.float32)):
                     reps = 1 if name == 'head' else n_layers
                     lms, note = int4_library_ms(x, vals, sc, flush)
@@ -874,6 +917,12 @@ def recompute_step(params, cfg, prompt, out, dev):
 PREFIX_LEN = 48
 PREFIX_BUCKETS = (64, 96, 128)
 HALF_POOL = 1 + 16 * (MAX_LEN // 16)
+# phase 28 serves phase 4's first two batches: one wave of decode at 32
+# slots on the full pool (48 requests took two, and the phase 75.1 s on
+# an H100 80GB HBM3 at 700 W; 32 take 45.4-49.8 s); the half pool (b) and
+# the paged prefix run on 16 slots (d) still admit requests into released
+# slots and pages
+PAGED_REQUESTS = 2 * PER_BATCH
 # prefix-cached against uncached first logits in fp32: max|diff| /
 # max|logit|; fp32 rounding over 32 layers sits orders of magnitude below
 PREFIX_TOL = 1e-4
@@ -940,7 +989,8 @@ def serve_timed(engine, params, requests: list, gen_cfg, dev,
             'ttft': [first[r] for r in range(len(requests))],
             'prefill_s': sum(a.elapsed_time(b) for a, b in marks) / 1e3,
             'steps': engine.stats['total_steps'],
-            'live': live_at_once(engine.stats)}
+            'live': live_at_once(engine.stats),
+            'late': sum(s > 0 for s in engine.stats['admit_step'].values())}
 
 
 def recompute_paged_step(params, cfg, prompt, out, dev):
@@ -1090,10 +1140,11 @@ def page_ops_ms(cfg, dev) -> dict:
 
 
 def paged_serving(params, cfg, requests: dict, dev, smi) -> dict:
-    """Phase 28: phase 4's requests through (a) the paged pool, (b) half of
-    it, (c) dense and (d) paged with a 48-token shared prefix."""
+    """Phase 28: phase 4's first ``PAGED_REQUESTS`` requests through (a) the
+    paged pool, (b) half of it, (c) dense and (d) paged on 16 slots with a
+    48-token shared prefix."""
     t_phase = time.perf_counter()
-    reqs = [requests[rid] for rid in sorted(requests)]
+    reqs = [requests[rid] for rid in sorted(requests)][:PAGED_REQUESTS]
     prefix = np.random.default_rng(SEED + 280).integers(
         5, cfg.vocab_size - 1, size=PREFIX_LEN).tolist()
     pre_reqs = [dict(r, input_ids=prefix + r['input_ids'][
@@ -1107,12 +1158,14 @@ def paged_serving(params, cfg, requests: dict, dev, smi) -> dict:
                               prompt_buckets=(128,)), reqs),
         'c_dense_prefix': (dict(cache_mode='dense',
                                 prompt_buckets=PREFIX_BUCKETS), pre_reqs),
-        'd_paged_prefix': (dict(cache_mode='paged',
+        # half the slots: the second batch enters slots and pages that
+        # finished requests released, beside the pages of the prefix
+        'd_paged_prefix': (dict(cache_mode='paged', num_slots=PER_BATCH,
                                 prompt_buckets=PREFIX_BUCKETS), pre_reqs)}
     rows, launches = {}, 0
     for i, (name, (kw, rq)) in enumerate(runs.items()):
-        engine = ContinuousBatchingEngine(cfg, num_slots=DECODE_SLOTS,
-                                          max_len=MAX_LEN, **kw)
+        engine = ContinuousBatchingEngine(
+            cfg, max_len=MAX_LEN, **{'num_slots': DECODE_SLOTS, **kw})
         if name.endswith('prefix'):
             engine.register_prefix(params, prefix)
         r = serve_timed(engine, params, rq, gen_cfg, dev, SEED + 281 + i)
@@ -1121,7 +1174,7 @@ def paged_serving(params, cfg, requests: dict, dev, smi) -> dict:
         log(f'phase28 {name}: {len(rq)} requests, {r["tokens"]} tokens in '
             f'{r["seconds"]:.3f} s = {r["tokens"] / r["seconds"]:.1f} '
             f'tokens/s; decode steps {r["steps"]}; most live at once '
-            f'{r["live"]}; '
+            f'{r["live"]}, admitted after step 0 {r["late"]}; '
             + (f'pages {engine.num_pages}' if kw['cache_mode'] == 'paged'
                else 'dense cache') + '; time to '
             f'first token {quantiles(r["ttft"])}; prefill {r["prefill_s"]:.3f}'
@@ -1156,6 +1209,9 @@ def paged_serving(params, cfg, requests: dict, dev, smi) -> dict:
         del engine
     if not rows['b_paged_half']['live'] < DECODE_SLOTS:
         raise AssertionError('phase28: the half pool ran every slot at once')
+    if not rows['d_paged_prefix']['late'] >= PAGED_REQUESTS - PER_BATCH:
+        raise AssertionError('phase28: the prefix run admitted no request '
+                             'into a released slot')
     half, full = rows['b_paged_half'], rows['a_paged']
     log(f'phase28 half pool against full: peak {half["peak_gb"]:.3f} / '
         f'{full["peak_gb"]:.3f} GB, tokens/s '
@@ -1355,6 +1411,26 @@ def plain_flash():
     """The flash kernels patched to their plain versions."""
     return mock.patch.multiple(
         fa, flash_attention_fwd_cuda=fa.flash_attention_fwd_reference,
+        flash_attention_bwd_cuda=fa.flash_attention_bwd_reference)
+
+
+def nudged_plain_flash(seed: int = SEED + 99):
+    """The flash kernels patched to their plain versions, each element of
+    the forward's bf16 output moved by at most one ulp, up or down at
+    random (x (1 +- 2^-8), rounded): a second sample of the plain pass's
+    own bf16 noise, without a bias."""
+    gens: dict = {}
+
+    def fwd(*args, **kwargs):
+        out, lse = fa.flash_attention_fwd_reference(*args, **kwargs)
+        gen = gens.setdefault(out.device, torch.Generator(
+            device=out.device).manual_seed(seed))
+        sign = torch.randint(0, 2, out.shape, generator=gen,
+                             device=out.device) * 2 - 1
+        return (out.float() * (1 + sign * 2 ** -8)).to(out.dtype), lse
+
+    return mock.patch.multiple(
+        fa, flash_attention_fwd_cuda=fwd,
         flash_attention_bwd_cuda=fa.flash_attention_bwd_reference)
 
 
@@ -5881,6 +5957,657 @@ LORA_FLAGS = {'lora': ('--use_lora', 'True'),
               'int8': ('--use_lora', 'True', '--use_bnb', 'True')}
 
 
+# phases 40-42: the mixture-of-experts decoder.  Phase 40 serves the
+# repo's 'qwen3-moe-30b-a3b' preset at its full 24 layers (the JAX
+# package's preset: 64 experts of 768, top 8, no q/k norm; not
+# transformers' Qwen3MoeConfig, ROADMAP R33) with seeded random weights;
+# phase 41 trains it by SFT at its widths, depth cut to 4 layers (fp32
+# params, grads and AdamW moments of 24 layers, 129.6 GB, do not fit), and
+# times bench.py's MoE config; phase 42 runs the rest at small widths.
+MOE_PRESET = 'qwen3-moe-30b-a3b'
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW = 8, (112, 129), 32
+MOE_SLOTS, MOE_MAX_LEN = 8, 256
+MOE_CHECKED_NEW = 3
+MOE_SFT_LAYERS, MOE_SFT_ROWS, MOE_SFT_BATCH = 4, 4, 2
+# bench.py:589 bench_moe_extra: 32 experts of 1408, top 2, 4 layers at
+# width 1024, 8 x 512 tokens, ms per forward without logits
+MOE_BENCH = dict(vocab_size=32000, hidden_size=1024, num_layers=4,
+                 num_heads=16, num_kv_heads=8, head_dim=64, mlp_dim=1408,
+                 num_experts=32, num_experts_per_tok=2,
+                 compute_dtype='bfloat16', eos_token_id=2, pad_token_id=0)
+MOE_BENCH_SHAPE, MOE_BENCH_STEPS = (8, 512), 10
+# phase 40's fp32 prefill, sparse against dense dispatch: the share of
+# positions whose row of logits agrees within MOE_FP32_TOL x max|logit|
+MOE_FP32_TOL, MOE_FP32_SHARE = 1e-3, 0.99
+# phase 42: tiny-moe's routing (4 experts, top 2, coefficient 0.01) at
+# hidden 256 with heads of 64 (tiny-moe's own heads of 16 are below K1's
+# smallest head dim)
+MOE_SMALL = dict(vocab_size=4096, hidden=256, layers=2, heads=4, kv_heads=2,
+                 mlp=128, num_experts=4, top_k=2, max_pos=2048)
+MOE_SMALL_PRESET = 'moe-small'
+
+
+def k2_held_to_plain(run) -> dict:
+    """``run()`` with every K2 launch held against its plain version on the
+    same inputs (phase 2's limit, TOL x max|plain|): (M, K, N) -> the worst
+    max|kernel - plain| / max|plain|.  The kernel's output is what the path
+    reads on; these launches are not counted as the path's."""
+    real = k2.int4_matmul_cuda
+    worst: dict = {}
+
+    def held(x, values, scales, dtype):
+        out = real(x, values, scales, dtype)
+        ref = k2.int4_matmul_reference(x, values, scales, dtype).float()
+        err = float((out.float() - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        key = (x.shape[0], x.shape[1], out.shape[1])
+        worst[key] = max(worst.get(key, 0.0), err)
+        if not (torch.isfinite(out).all()
+                and err <= TOL[str(dtype).split('.')[-1]]):
+            raise AssertionError(f'K2 disagrees with its plain version at '
+                                 f'(M, K, N) {key} {dtype}: {err:.3e}')
+        return out
+
+    # the kernel counts its launches on the module's name, here ``held``
+    held.launches = 0
+    with mock.patch.object(k2, 'int4_matmul_cuda', held):
+        run()
+    return worst
+
+
+def moe_serving(dev, smi) -> dict:
+    """Phase 40: the 'qwen3-moe-30b-a3b' preset at its full 24 layers,
+    int4-COMPUTE as JAX's serving path quantizes it (experts fp32, the
+    router, q/k/v/o and the head int4): 8 requests of 112-128 prompt tokens
+    and 32 new ones through ``generate`` and the continuous engine (dense
+    and paged cache), each ``moe_impl``.  bf16 over the int4-COMPUTE tree:
+    timed, K2 counted.  fp32 over the same tree dequantized: the greedy ids
+    of the three paths equal (over the int4-COMPUTE tree they need not:
+    K2 takes a matmul of at most 128 rows, so the paged engine's
+    one-request prefill runs K2 on bf16-rounded activations where
+    ``generate``'s batched prefill runs the dense product; a dense model
+    differs there too).  Every K2 launch of a short paged run held against
+    the plain int4 product on its own inputs.  The prefill logits and aux
+    loss of the two dispatches against each other in bf16 and fp32."""
+    from align_anything_tpu_torch.generation.engine import generate  # noqa: PLC0415
+    from align_anything_tpu_torch.models.config import PRESETS  # noqa: PLC0415
+
+    t_phase = time.perf_counter()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = PRESETS[MOE_PRESET]().replace(compute_dtype='bfloat16')
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 400), device=dev)
+    n_params = sum(t.numel() for t in param_leaves(params))
+    params = q.quantize_decoder_int4(params, num_experts=cfg.num_experts,
+                                     compute=True)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    kinds = {name: type(sub['w']).__name__
+             for name, sub in params['layers'].items() if 'w' in sub}
+    log(f'phase40 built {MOE_PRESET} ({cfg.num_layers} layers, hidden '
+        f'{cfg.hidden_size}, {cfg.num_heads} / {cfg.num_kv_heads} heads of '
+        f'{cfg.head_dim}, {cfg.num_experts} experts of {cfg.mlp_dim}, top '
+        f'{cfg.num_experts_per_tok}, vocab {cfg.vocab_size}): {n_params / 1e9:.3f} '
+        f'B params, int4-COMPUTE as quantize_decoder_int4 leaves it '
+        f'({kinds}; head {type(params["lm_head"]).__name__}), resident '
+        f'{resident / 1e9:.3f} GB, in {time.perf_counter() - t0:.1f} s')
+    if any(kinds[k] != 'Tensor' for k in ('up', 'gate', 'down')) or \
+            kinds['router'] != 'Int4Weight':
+        raise AssertionError(f'phase40: unexpected quantized tree {kinds}')
+    rng = np.random.default_rng(SEED + 401)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(
+        rng.integers(*MOE_PROMPT))).tolist() for _ in range(MOE_REQUESTS)]
+    ids, mask = left_padded(prompts, cfg.pad_token_id, dev)
+    gen_cfg = GenerationConfig(max_new_tokens=MOE_NEW, greedy=True,
+                               eos_token_id=-1, pad_token_id=cfg.pad_token_id)
+    need_per_step = 3 * cfg.num_layers + 1        # q, k, v and the head
+    # the same weights dense: only q/k/v/o, the router and the head (1.3 B
+    # params) are new tensors, the experts are shared
+    plain = q.dequantize_decoder(params)
+    k2_total, rows = 0, {}
+    for impl in ('dense', 'sparse'):
+        for dtype in ('float32', 'bfloat16'):
+            c = cfg.replace(moe_impl=impl, compute_dtype=dtype)
+            tree = plain if dtype == 'float32' else params
+            # fp32: the three paths' greedy ids; bf16: the engine timed
+            names = (('generate', 'dense', 'paged') if dtype == 'float32'
+                     else ('dense', 'paged'))
+            for name in names:
+                free_memory()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                k2.int4_matmul_cuda.launches = 0
+                t0 = time.perf_counter()
+                steps = None
+                if name == 'generate':
+                    toks = generate(tree, c, gen_cfg, ids,
+                                    mask)['completions'].tolist()
+                else:
+                    engine = ContinuousBatchingEngine(
+                        c, num_slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                        prompt_buckets=(128,), cache_mode=name)
+                    toks = engine.generate(tree, prompts, gen_cfg)
+                    steps = engine.stats['total_steps']
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                n = k2.int4_matmul_cuda.launches
+                k2_total += n
+                r = {'tokens': toks, 's': dt, 'k2': n, 'steps': steps,
+                     'tokens_per_s': MOE_REQUESTS * MOE_NEW / dt,
+                     'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+                rows[(impl, dtype, name)] = r
+                log(f'phase40 {impl} {dtype} {name}: {MOE_REQUESTS} requests'
+                    f' x {MOE_NEW} tokens in {dt:.3f} s = '
+                    f'{r["tokens_per_s"]:.1f} tokens/s; decode steps '
+                    f'{steps}; K2 launches {n}; peak memory '
+                    f'{r["peak_gb"]:.3f} GB; card {smi}')
+                if not (len(toks) == MOE_REQUESTS
+                        and all(len(t) == MOE_NEW for t in toks)
+                        and all(0 <= x < cfg.vocab_size
+                                for t in toks for x in t)):
+                    raise AssertionError(f'phase40 {impl} {dtype} {name}: a '
+                                         'request fell short or left the '
+                                         'vocab')
+                if (dtype == 'bfloat16' and steps is not None
+                        and n < steps * need_per_step):
+                    raise AssertionError(
+                        f'phase40 {impl} {dtype} {name}: K2 launched {n} '
+                        f'times, expected >= {steps * need_per_step}')
+        want = rows[(impl, 'float32', 'generate')]['tokens']
+        for name in ('dense', 'paged'):
+            got = rows[(impl, 'float32', name)]['tokens']
+            same = sum(g == w for g, w in zip(got, want))
+            log(f'phase40 {impl}: continuous {name} greedy ids equal '
+                f'generate\'s (fp32 compute, dequantized tree): '
+                f'{same}/{MOE_REQUESTS} requests')
+            if got != want:
+                raise AssertionError(f'phase40 {impl}: the continuous {name} '
+                                     'engine\'s greedy ids differ from '
+                                     'generate\'s')
+        timed = [rows[(impl, 'bfloat16', name)]['tokens']
+                 for name in ('dense', 'paged')]
+        log(f'phase40 {impl}: bf16 int4-COMPUTE, the paged engine\'s greedy '
+            f'ids equal the dense engine\'s for '
+            f'{sum(a == b for a, b in zip(*timed))}/{MOE_REQUESTS} requests '
+            '(logged only: its one-request prefill runs K2)')
+    # K2 on this path's own inputs: the paged engine's first tokens again
+    # (bf16 int4-COMPUTE, dense dispatch), each launch held against the
+    # plain int4 product: the one-request prefills at M 128 and the decode
+    # steps at M 8, on q, k, v and the head
+    again: list = []
+    c = cfg.replace(moe_impl='dense', compute_dtype='bfloat16')
+    worst = k2_held_to_plain(lambda: again.extend(ContinuousBatchingEngine(
+        c, num_slots=MOE_SLOTS, max_len=MOE_MAX_LEN, prompt_buckets=(128,),
+        cache_mode='paged').generate(params, prompts, GenerationConfig(
+            max_new_tokens=MOE_CHECKED_NEW, greedy=True, eos_token_id=-1,
+            pad_token_id=cfg.pad_token_id))))
+    timed = rows[('dense', 'bfloat16', 'paged')]['tokens']
+    same = sum(a == b[:MOE_CHECKED_NEW] for a, b in zip(again, timed))
+    log(f'phase40 K2 held to its plain version on the path\'s inputs (paged '
+        f'engine, {MOE_CHECKED_NEW} new tokens): worst max|kernel - plain| / '
+        f'max|plain| per (M, K, N) {worst} (limit {TOL["bfloat16"]:g} bf16, '
+        f'{TOL["float32"]:g} fp32); first {MOE_CHECKED_NEW} ids equal the '
+        f'timed run\'s for {same}/{MOE_REQUESTS} requests')
+    e = cfg.hidden_size
+    need = {(MOE_SLOTS, e, n) for n in (cfg.num_heads * cfg.head_dim,
+                                        cfg.num_kv_heads * cfg.head_dim,
+                                        cfg.vocab_size)}
+    if not need <= set(worst) or max(m for m, _, _ in worst) <= MOE_SLOTS:
+        raise AssertionError(f'phase40: K2 missed a shape of the path: saw '
+                             f'{sorted(worst)}')
+    if same != MOE_REQUESTS:
+        raise AssertionError('phase40: the checked run\'s ids differ from '
+                             'the timed run\'s')
+    # the prefill through the training forward (K1 over the left pads):
+    # the dense and sparse dispatch against each other in bf16, within 3x
+    # the dense pass's own distance from fp32 compute
+    reset_flash_counts()
+    pre = {}
+    valid = mask.bool()
+    with torch.no_grad():
+        for impl in ('dense', 'sparse'):
+            for dtype in ('bfloat16', 'float32'):
+                out = transformer.forward(
+                    params, cfg.replace(moe_impl=impl, compute_dtype=dtype),
+                    ids, attention_mask=mask)
+                pre[(impl, dtype)] = (out.logits[valid].float(),
+                                      out.aux_loss.double().cpu())
+                del out
+    launches = flash_counts()
+    check_launches('phase40 prefill', launches,
+                   {'fwd': 4 * cfg.num_layers}, exact=True)
+    dense, sparse, fp32, sparse32 = (pre[k] for k in (
+        ('dense', 'bfloat16'), ('sparse', 'bfloat16'), ('dense', 'float32'),
+        ('sparse', 'float32')))
+    same_top = float((dense[0].argmax(-1) == sparse[0].argmax(-1))
+                     .float().mean())
+    # the sparse dispatch in the place of the kernels, the dense one in
+    # the place of the plain version
+    log(check_scores(
+        'phase40 prefill logits, the sparse dispatch against the dense one '
+        '(bf16)', sparse[0], dense[0], fp32[0]) + f'; same greedy token at '
+        f'{100 * same_top:.2f} % of {int(valid.sum())} positions')
+    log(check_scores(
+        f'phase40 aux loss, the sparse dispatch {float(sparse[1]):.6f} '
+        f'against the dense one {float(dense[1]):.6f} (fp32 '
+        f'{float(fp32[1]):.6f})', sparse[1].reshape(1), dense[1].reshape(1),
+        fp32[1].reshape(1)))
+    # in fp32 the two dispatches differ only in their order of summation,
+    # except at a token whose k-th and (k+1)-th router probabilities tie
+    # within that noise, where the top k flips: most positions agree tight
+    row = (sparse32[0] - fp32[0]).abs().amax(-1) / fp32[0].abs().max()
+    share = float((row <= MOE_FP32_TOL).float().mean())
+    aux32 = abs(float(sparse32[1]) - float(fp32[1]))
+    log(f'phase40 prefill logits, sparse against dense dispatch (fp32): '
+        f'{100 * share:.2f} % of positions within {MOE_FP32_TOL:g} x '
+        f'max|logit| (limit {100 * MOE_FP32_SHARE:g} %), worst position '
+        f'{float(row.max()):.3e}, median {float(row.median()):.3e}; aux '
+        f'loss {float(sparse32[1]):.9f} against {float(fp32[1]):.9f} '
+        f'(diff {aux32:.3e}, limit {MOE_FP32_TOL:g} x)')
+    if not (share >= MOE_FP32_SHARE
+            and aux32 <= MOE_FP32_TOL * abs(float(fp32[1]))):
+        raise AssertionError('phase40: the sparse dispatch disagrees with '
+                             'the dense one in fp32')
+    del pre, dense, sparse, fp32, sparse32, params, plain
+    free_memory()
+    log(f'phase40 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': {'fwd': launches['fwd'], 'bwd': 0},
+            'k2_launches': k2_total, 'rows': rows}
+
+
+def moe_step1(trainer, batch: dict, compute_dtype: str | None = None
+              ) -> torch.Tensor:
+    """Step 1's quantities through ``trainer.loss_fn`` at its params: the
+    cross-entropy, the router aux loss and the gradient norm of each
+    module (router, experts, attention, embedding, head), float64 on the
+    host; the gradients are cleared after."""
+    params = trainer.state.params
+    cfg = trainer.model_cfg
+    if compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=compute_dtype)
+    for p in param_leaves(params):
+        p.grad = None
+    with mock.patch.object(trainer, 'model_cfg', cfg):
+        loss, metrics = trainer.loss_fn(params, batch)
+    loss.backward()
+    lay = params['layers']
+    groups = [lay[k]['w'] for k in ('router', 'up', 'gate', 'down', 'q', 'k',
+                                    'v', 'o')]
+    groups += [params['embedding'], params['lm_head']]
+    vals = [float(metrics['train/loss']),
+            float(metrics['train/router_aux_loss'])]
+    vals += [float(g.grad.double().norm()) for g in groups]
+    for p in param_leaves(params):
+        p.grad = None
+    return torch.tensor(vals, dtype=torch.float64)
+
+
+MOE_STEP1_KEYS = ('loss', 'router_aux_loss', 'grad router', 'grad up',
+                  'grad gate', 'grad down', 'grad q', 'grad k', 'grad v',
+                  'grad o', 'grad embedding', 'grad lm_head')
+
+
+def moe_sft(dev, smi, tmp: str) -> dict:
+    """Phase 41: SFT through ``trainer_main(SupervisedTrainer, ...)`` from
+    the 'qwen3-moe-30b-a3b' preset at its widths, cut to 4 layers, 2 rows
+    x 1024 tokens a step, 2 steps with each ``moe_impl``, the trainer's
+    default remat ('save_flash'); step 1 against the plain attention
+    (``check_sums``), the two dispatches against each other, the router
+    and every expert moved; then bench.py's MoE config timed."""
+    from align_anything_tpu_torch.models import config as model_config  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.sft import (  # noqa: PLC0415
+        SupervisedTrainer)
+
+    t_phase = time.perf_counter()
+    free_memory()
+    rng = np.random.default_rng(SEED + 410)
+    # 300 + 100 + 300-559 words: 710-970 tokens, the 1024 bucket
+    data = write_jsonl(os.path.join(tmp, 'sft_moe.jsonl'), [
+        {'instruction': words(rng, 300), 'input': words(rng, 100),
+         'output': words(rng, int(rng.integers(300, 560)))}
+        for _ in range(MOE_SFT_ROWS)])
+    argv = ['--model_name_or_path', MOE_PRESET, '--train_datasets', data,
+            '--train_template', 'Alpaca', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(MOE_SFT_BATCH)]
+    launches = {'fwd': 0, 'bwd': 0}
+    runs = {}
+    for impl in ('dense', 'sparse'):
+        first: dict = {}
+        real = SupervisedTrainer.train_step
+
+        def probe(self, batch, first=first, real=real):
+            if not first:
+                b = self.put_batch(batch)
+                saved = flash_counts()
+                first['kernel'] = moe_step1(self, b)
+                first['kernel32'] = moe_step1(self, b, 'float32')
+                with plain_flash():
+                    first['plain'] = moe_step1(self, b)
+                    first['fp32'] = moe_step1(self, b, 'float32')
+                with nudged_plain_flash():
+                    first['nudged'] = moe_step1(self, b)
+                # the comparison's launches are not the path's
+                fa.flash_attention_fwd_cuda.launches = saved['fwd']
+                fa.flash_attention_bwd_cuda.launches = saved['bwd']
+                lay = self.state.params['layers']
+                first['start'] = {k: lay[k]['w'].detach().clone()
+                                  for k in ('router', 'up', 'gate', 'down')}
+                first['embedding_sum'] = float(
+                    self.state.params['embedding'].detach().double().sum())
+                first['shape'] = tuple(b['input_ids'].shape)
+                first['cfg'] = self.model_cfg
+            return real(self, batch)
+
+        cut = functools.partial(model_config.qwen3_moe_config,
+                                layers=MOE_SFT_LAYERS, moe_impl=impl)
+        free_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        with mock.patch.dict(model_config.PRESETS, {MOE_PRESET: cut}), \
+                mock.patch.object(SupervisedTrainer, 'train_step', probe):
+            trainer, steps, _ = run_trainer(SupervisedTrainer,
+                                            'text_to_text/sft', argv)
+        torch.cuda.synchronize()
+        n = flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        lay = trainer.state.params['layers']
+        moved = {k: [bool(not torch.equal(lay[k]['w'][i], w[i]))
+                     for i in range(MOE_SFT_LAYERS)]
+                 for k, w in first['start'].items()}
+        mcfg = first['cfg']
+        n_params = sum(t.numel() for t in param_leaves(trainer.state.params))
+        del trainer, lay, first['start']
+        free_memory()
+        for kind in launches:
+            launches[kind] += n[kind]
+        losses = [m['train/loss'] for m in steps]
+        auxes = [m['train/router_aux_loss'] for m in steps]
+        seconds = [m['perf/step_time_s'] for m in steps]
+        shape = first['shape']
+        # the last step: step 1's time on the loop's clock holds the
+        # step-1 comparison's four passes (``probe``) and the first call
+        step_s = seconds[-1]
+        tps = shape[0] * shape[1] / step_s
+        # FLOPs a trained token of the top-k model does (PaLM's 6N + 12 L h
+        # layers, N the matmul params a token passes through: attention, the
+        # router, K of the X experts, the head); the dense dispatch runs
+        # every expert, X / K times the experts' share of that
+        e, f, x_, k_ = (mcfg.hidden_size, mcfg.mlp_dim, mcfg.num_experts,
+                        mcfg.num_experts_per_tok)
+        attn = e * (mcfg.num_heads + 2 * mcfg.num_kv_heads) * mcfg.head_dim \
+            + mcfg.num_heads * mcfg.head_dim * e
+        active = mcfg.num_layers * (attn + e * x_ + k_ * 3 * e * f) \
+            + e * mcfg.vocab_size
+        flops = 6 * active + 12 * shape[1] * e * mcfg.num_layers
+        mfu = flops * tps / PEAK_FLOPS[torch.bfloat16]
+        for i, m in enumerate(steps):
+            log(f'phase41 {impl} step {i + 1}: loss={losses[i]:.9f} '
+                f'router_aux_loss={auxes[i]:.9f} grad_norm='
+                f'{m["train/grad_norm"]:.6e} seconds={seconds[i]:.4f}')
+        need = {'fwd': len(steps) * MOE_SFT_LAYERS,
+                'bwd': len(steps) * MOE_SFT_LAYERS}
+        log(f'phase41 {impl}: {n_params / 1e9:.3f} B params '
+            f'({mcfg.num_layers} layers, remat {mcfg.remat}, compute '
+            f'{mcfg.compute_dtype}, moe_impl {mcfg.moe_impl}); batch {shape};'
+            f' step {step_s:.4f} s (step {len(steps)}), {tps:.1f} '
+            f'tokens/s, MFU {mfu:.4f} ({flops / 1e9:.3f} GFLOP a token, top-'
+            f'{k_} active {active / 1e9:.3f} B); peak memory '
+            f'{peak / 1e9:.3f} GB; flash launches fwd {n["fwd"]} bwd '
+            f'{n["bwd"]} (need {need}); card {smi}')
+        log(f'phase41 {impl} moved (router, experts; per layer): {moved}')
+        if len(steps) != 2 or not all_finite(steps):
+            raise AssertionError(f'phase41 {impl}: {len(steps)} steps or a '
+                                 'non-finite metric')
+        if shape != (MOE_SFT_BATCH, 1024) or mcfg.remat != 'save_flash' \
+                or mcfg.moe_impl != impl:
+            raise AssertionError(f'phase41 {impl}: batch {shape}, remat '
+                                 f'{mcfg.remat}, moe_impl {mcfg.moe_impl}')
+        if not all(all(v) for v in moved.values()):
+            raise AssertionError(f'phase41 {impl}: a router or expert leaf '
+                                 f'did not move: {moved}')
+        check_launches(f'phase41 {impl}', n, need, exact=True)
+        ker, plain, fp32 = first['kernel'], first['plain'], first['fp32']
+        for key, a, b, c, d in zip(MOE_STEP1_KEYS, ker, plain,
+                                   first['kernel32'], fp32):
+            log(f'phase41 {impl} step 1 {key}: kernel {float(a):.9e} plain '
+                f'{float(b):.9e}; fp32 compute: kernel {float(c):.9e} plain '
+                f'{float(d):.9e}')
+        # fp32 compute (K1's CUDA-core kernels at D 64): the router's top k
+        # does not flip on rounding there, so every quantity is held to
+        # the flat limit
+        log(f'phase41 {impl} ' + check_sums(
+            'step 1 loss, router_aux_loss and per-module gradient norms '
+            'through the kernels against the plain attention, fp32 compute',
+            first['kernel32'], fp32))
+        if abs(losses[0] - float(ker[0])) > 1e-6 * abs(float(ker[0])) or \
+                abs(auxes[0] - float(ker[1])) > 1e-6 * abs(float(ker[1])):
+            raise AssertionError(f'phase41 {impl}: the logged step 1 '
+                                 f'({losses[0]}, {auxes[0]}) is not the '
+                                 f'recomputed ({float(ker[0])}, '
+                                 f'{float(ker[1])})')
+        runs[impl] = dict(first, steps=steps, step_s=step_s, tps=tps,
+                          mfu=mfu, peak_gb=peak / 1e9, launches=n)
+    d, s = runs['dense'], runs['sparse']
+    if d['embedding_sum'] != s['embedding_sum']:
+        raise AssertionError('phase41: the two runs started from different '
+                             'params')
+    # bf16: an ulp of an attention output moves bf16 router logits across
+    # ties, and the top k of a token flips (of every pad token at once:
+    # they share one input).  The aux loss and the gradients behind it
+    # move by 1e-3 to 1e-2 (a 1-ulp perturbation of the attention moved a
+    # 4-layer model's aux by up to 1.5e-3 on the CPU), beyond the one
+    # sample of bf16 noise that plain against fp32 gives.  So the bf16
+    # limit takes the larger of two samples of that noise, both of this
+    # dispatch's plain pass: against fp32, and against itself with each
+    # attention output nudged by at most one ulp (``nudged_plain_flash``)
+    for impl, run in (('dense', d), ('sparse', s)):
+        ref = max((run['fp32'], run['nudged']),
+                  key=lambda r, run=run: relative_gap(run['plain'], r))
+        log(f'phase41 {impl} ' + check_sums(
+            'step 1 loss, router_aux_loss and per-module gradient norms '
+            'through the kernels against the plain attention, bf16 (noise: '
+            'the larger of plain against fp32, '
+            f'{relative_gap(run["plain"], run["fp32"]):.3e}, and against '
+            'the plain pass with its attention output nudged by at most one '
+            f'ulp, {relative_gap(run["plain"], run["nudged"]):.3e})',
+            run['kernel'], run['plain'], ref))
+    log('phase41 ' + check_sums(
+        'step 1 loss and router_aux_loss, sparse against dense dispatch',
+        s['kernel'][:2], d['kernel'][:2], d['fp32'][:2]))
+    bench = moe_bench(dev, smi)
+    for kind in launches:
+        launches[kind] += bench['launches'][kind]
+    log(f'phase41 done in {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'runs': runs, 'bench': bench}
+
+
+def moe_bench(dev, smi) -> dict:
+    """``bench.py``'s ``bench_moe_extra`` config (bench.py:589): the
+    forward without logits of 8 x 512 tokens through 4 layers of 32 experts
+    (top 2) at width 1024, dense against sparse dispatch, ms a forward."""
+    from align_anything_tpu_torch.models.config import ModelConfig  # noqa: PLC0415
+
+    cfg = ModelConfig(**MOE_BENCH)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 415), device=dev)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, MOE_BENCH_SHAPE), device=dev)
+    mask = torch.ones_like(ids)
+    reset_flash_counts()
+    out = {}
+    with torch.no_grad():
+        for impl in ('dense', 'sparse'):
+            c = cfg.replace(moe_impl=impl)
+            transformer.forward(params, c, ids, attention_mask=mask,
+                                need_logits=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MOE_BENCH_STEPS):
+                transformer.forward(params, c, ids, attention_mask=mask,
+                                    need_logits=False)
+            torch.cuda.synchronize()
+            out[impl] = (time.perf_counter() - t0) / MOE_BENCH_STEPS * 1e3
+    launches = flash_counts()
+    check_launches('phase41 bench_moe_extra', launches,
+                   {'fwd': 2 * (MOE_BENCH_STEPS + 1) * cfg.num_layers},
+                   exact=True)
+    log(f'phase41 bench_moe_extra (bench.py:589, {MOE_BENCH_SHAPE[0]} x '
+        f'{MOE_BENCH_SHAPE[1]} tokens, {cfg.num_layers} layers, '
+        f'{cfg.num_experts} experts of {cfg.mlp_dim}, top '
+        f'{cfg.num_experts_per_tok}, width {cfg.hidden_size}): moe_dense '
+        f'{out["dense"]:.3f} ms a forward, moe_sparse {out["sparse"]:.3f} ms, '
+        f'dense / sparse {out["dense"] / out["sparse"]:.3f}; card {smi}')
+    del params
+    free_memory()
+    return {'launches': {'fwd': launches['fwd'], 'bwd': 0},
+            'dense_ms': out['dense'], 'sparse_ms': out['sparse']}
+
+
+def moe_small(dev, smi, tmp: str) -> dict:
+    """Phase 42 at small widths (``MOE_SMALL``): the forward over the int8
+    tree, the R31 refusal, SFT through ``trainer_main`` with its HF export
+    (R34's warning; ``tests/test_torch_moe.py`` holds the contents to JAX's)
+    and a resume from its step-2 train state, and one DPO step."""
+    import warnings  # noqa: PLC0415
+
+    from align_anything_tpu_torch.models import config as model_config  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_to_text.dpo import (  # noqa: PLC0415
+        DPOTrainer)
+    from align_anything_tpu_torch.trainers.text_to_text.sft import (  # noqa: PLC0415
+        SupervisedTrainer)
+
+    t_phase = time.perf_counter()
+    disk0 = disk_written()
+    # the special ids inside the small vocab (Qwen's sit past it)
+    cfg = model_config.qwen3_moe_config(**MOE_SMALL).replace(
+        router_aux_coef=0.01, bos_token_id=1, eos_token_id=2,
+        pad_token_id=0)
+    reset_flash_counts()
+    # (a) the int8 tree: experts on axis 2, the router on axis 1; the
+    # forward over it equals the forward over its dequantized copy
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 420), device=dev)
+    qt = q.quantize_decoder_int8(params, num_experts=cfg.num_experts)
+    dense_tree = q.dequantize_decoder(qt)
+    ids = torch.as_tensor(np.random.default_rng(SEED + 421).integers(
+        3, cfg.vocab_size, (2, 256)), device=dev)
+    mask = torch.ones_like(ids)
+    mask[1, 200:] = 0
+    with torch.no_grad():
+        for impl in ('dense', 'sparse'):
+            c = cfg.replace(moe_impl=impl)
+            got = transformer.forward(qt, c, ids, attention_mask=mask)
+            want = transformer.forward(dense_tree, c, ids,
+                                       attention_mask=mask)
+            err = float((got.logits - want.logits).abs().max())
+            scale = float(want.logits.abs().max())
+            log(f'phase42 int8 tree, {impl}: forward against its '
+                f'dequantized copy max|diff| {err:.3e} (max|logit| '
+                f'{scale:.3e}, limit 1e-5 x); aux {float(got.aux_loss):.6f} '
+                f'/ {float(want.aux_loss):.6f}')
+            if not (err <= 1e-5 * scale and torch.isfinite(got.logits).all()
+                    and float(got.aux_loss) == float(want.aux_loss)):
+                raise AssertionError(f'phase42 int8 {impl}: the forward '
+                                     'over the int8 tree disagrees')
+    # (b) R31: int4 fuse=True refuses an MoE tree
+    try:
+        q.quantize_decoder_int4(params, num_experts=cfg.num_experts,
+                                fuse=True)
+    except ValueError as e:
+        if 'R31' not in str(e):
+            raise
+        log('phase42 R31: quantize_decoder_int4(fuse=True) refused')
+    else:
+        raise AssertionError('phase42: int4 fuse=True ran on an MoE tree')
+    del params, qt, dense_tree
+    free_memory()
+
+    rng = np.random.default_rng(SEED + 422)
+    sft = write_jsonl(os.path.join(tmp, 'sft_moe_small.jsonl'), [
+        {'instruction': words(rng, 40), 'input': words(rng, 10),
+         'output': words(rng, int(rng.integers(20, 120)))}
+        for _ in range(4)])
+    pref = write_jsonl(os.path.join(tmp, 'pref_moe_small.jsonl'),
+                       preference_rows(SEED + 423, 4, 60, (20, 121)))
+
+    def argv(data, template, out, *extra):
+        return ['--model_name_or_path', MOE_SMALL_PRESET, '--train_datasets',
+                data, '--train_template', template,
+                *(('--output_dir', os.path.join(tmp, out)) if out else ()),
+                '--per_device_train_batch_size', '2', *extra]
+
+    with mock.patch.dict(model_config.PRESETS, {MOE_SMALL_PRESET: lambda:
+                                                cfg}):
+        # (c) 4 steps (2 epochs), the train state saved at step 2 and the
+        # export at the end; then a resume from step 2
+        with unread_saves_skipped(state_steps=(2,), slice_steps=(4,)), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            full, full_steps, _ = run_trainer(
+                SupervisedTrainer, 'text_to_text/sft',
+                argv(sft, 'Alpaca', 'moe_full', '--epochs', '2',
+                     '--save_checkpoint', 'True', '--save_interval', '2'))
+        # the export's contents are held to JAX's in tests/test_torch_moe.py
+        r34 = [str(w.message) for w in caught if 'R34' in str(w.message)]
+        log(f'phase42 SFT: losses {[m["train/loss"] for m in full_steps]}, '
+            f'router_aux_loss '
+            f'{[m["train/router_aux_loss"] for m in full_steps]}; export '
+            f'(R34): {len(r34)} warning(s)')
+        if not (len(full_steps) == 4 and all_finite(full_steps) and r34
+                and os.path.isfile(os.path.join(
+                    tmp, 'moe_full', 'slice_4', 'model.safetensors'))):
+            raise AssertionError('phase42: the MoE SFT run or its export '
+                                 'failed')
+        os.makedirs(os.path.join(tmp, 'moe_resumed', 'checkpoints'))
+        shutil.copytree(
+            os.path.join(tmp, 'moe_full', 'checkpoints', 'step_2'),
+            os.path.join(tmp, 'moe_resumed', 'checkpoints', 'step_2'))
+        with unread_saves_skipped(), warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            resumed, resumed_steps, _ = run_trainer(
+                SupervisedTrainer, 'text_to_text/sft',
+                argv(sft, 'Alpaca', 'moe_resumed', '--epochs', '2',
+                     '--save_checkpoint', 'False', '--load_checkpoint',
+                     'True'))
+        want = [(m['train/loss'], m['train/router_aux_loss'],
+                 m['train/grad_norm']) for m in full_steps[2:]]
+        have = [(m['train/loss'], m['train/router_aux_loss'],
+                 m['train/grad_norm']) for m in resumed_steps]
+        a, b = (leaves_by_path(t.state.params) for t in (full, resumed))
+        bit_equal = have == want and all(torch.equal(a[p], b[p]) for p in a)
+        rel = max((abs(h - w) / abs(w) for hw, ww in zip(have, want)
+                   for h, w in zip(hw, ww)), default=math.inf)
+        log(f'phase42 resume from step 2: steps 3-4 {have} vs uninterrupted '
+            f'{want}; bit-equal (metrics and params) {bit_equal}; max rel '
+            f'diff {rel:.3e} (limit {DPO_SUM_TOL:g})')
+        if len(have) != 2 or not (bit_equal or rel <= DPO_SUM_TOL):
+            raise AssertionError('phase42: the MoE resume disagrees with the '
+                                 'uninterrupted run')
+        del full, resumed, a, b
+        free_memory()
+        # (d) one DPO step on the MoE model
+        _, dpo_steps, _ = run_trainer(
+            DPOTrainer, 'text_to_text/dpo',
+            argv(pref, 'PKUSafeRLHF', None, '--epochs', '1',
+                 '--save_checkpoint', 'False', '--train_size', '2'))
+    launches = flash_counts()
+    log(f'phase42 DPO: {len(dpo_steps)} step(s), loss '
+        f'{[m["train/loss"] for m in dpo_steps]} (ln 2 = {math.log(2):.9f}); '
+        f'flash launches of the phase {launches}')
+    if not (len(dpo_steps) == 1
+            and abs(dpo_steps[0]['train/loss'] - math.log(2)) <= 1e-6):
+        raise AssertionError('phase42: MoE DPO step 1 is not ln 2')
+    check_launches('phase42', launches, {'fwd': 1, 'bwd': 1})
+    free_memory()
+    log(f'phase42 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - disk0:.4f} GB written by the phase')
+    return {'launches': launches}
+
+
 def base_tensors(tree) -> list:
     """Every tensor of a (possibly quantized) param tree."""
     if isinstance(tree, dict):
@@ -7871,6 +8598,9 @@ def main() -> int:
         ta2t_sm = ta2t_small(dev, smi, tmp)
         mllama_dpo = mllama_dpo_full(dev, smi, tmp)
         mllama_sm = mllama_small(dev, smi, tmp, mllama_dpo['images'])
+        moe_serve = moe_serving(dev, smi)
+        moe_train = moe_sft(dev, smi, tmp)
+        moe_sm = moe_small(dev, smi, tmp)
         qlora4 = qlora_full(dev, smi, tmp, 4, QLORA_STEPS)
         qlora8 = qlora_full(dev, smi, tmp, 8, QLORA_INT8_STEPS)
         lora = lora_small(dev, smi, tmp, cost)
@@ -7889,12 +8619,12 @@ def main() -> int:
     mm_ppo = fstats['timed']['ti2t_ppo']
     timed = {name: fstats['timed'][name]
              for name in ('gemma3_1b', 'gemma3_1b_w512', 'llava_next',
-                          'qwen2_vl_2b', 'qwen2_audio_tower')}
+                          'qwen2_vl_2b', 'qwen2_audio_tower', 'qwen3_moe')}
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
                  ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, anyres, tv2t,
                  lnext_small, qwen_dpo, qwen_small, ta2t_dpo, ta2t_sm,
-                 mllama_dpo, mllama_sm, qlora4, qlora8, lora, gemma,
-                 gemma_gen, remat, saves)
+                 mllama_dpo, mllama_sm, moe_serve, moe_train, moe_sm, qlora4,
+                 qlora8, lora, gemma, gemma_gen, remat, saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -7914,7 +8644,10 @@ def main() -> int:
                       'padded (phase 34\'s Qwen2-VL-2B DPO decoder), SDPA '
                       'causal, no padding; qwen2_audio_tower: B4 L1500 '
                       'H20 KH20 D64 full (phase 36\'s Qwen2-Audio-7B '
-                      'encoder over 30 s clips), SDPA full',
+                      'encoder over 30 s clips), SDPA full; qwen3_moe: B2 '
+                      'L1024 H32 KH4 D64 causal, 2 rows padded (phase '
+                      '41\'s qwen3-moe-30b-a3b SFT decoder), SDPA causal, '
+                      'no padding',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
@@ -7959,13 +8692,20 @@ def main() -> int:
                              'at Llama-3.2-11B-Vision widths, text 5 '
                              'layers: the 4 self-attention layers, the '
                              'tower and cross layer run no kernel) + phase '
-                             '39 (Mllama SFT, KTO, ORPO and SimPO, small)'}
+                             '39 (Mllama SFT, KTO, ORPO and SimPO, small) '
+                             '+ phase 40 (qwen3-moe-30b-a3b at 24 layers: '
+                             'three prefill forwards without a cache) + '
+                             'phase 41 (2 + 2 SFT steps at its widths, 4 '
+                             'layers, and 22 forwards of bench.py\'s MoE '
+                             'config) + phase 42 (MoE SFT, its resume and '
+                             'one DPO step, small)'}
     print(json.dumps({'kernels': [{
         'name': 'int4_matmul', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
         'replaces': 'align_anything_tpu/ops/int4_matmul.py:124',
         'also_replaces': 'align_anything_tpu/ops/int4_matmul.py:153',
-        'launches': launches + paged['launches'] + int4_8b['launches'],
+        'launches': (launches + paged['launches'] + int4_8b['launches']
+                     + moe_serve['k2_launches']),
         'max_abs_err': kstats['max_abs_err'],
         'ms': kstats['ms'], 'plain_ms': kstats['plain_ms'],
         'bound_ms': kstats['bound_ms'], 'bound_by': kstats['bound_by'],
@@ -7973,10 +8713,14 @@ def main() -> int:
         'ms_is': 'one decode step at 32 slots: 4x32 layer matmuls + head; '
                  'library_ms: torch._weight_int4pack_mm',
         'launches_are': 'phase 4 (48 requests served, dense) + phase 28 '
-                        '(the same requests paged, on half the pool, and '
+                        '(the first 32 of them paged, on half the pool, and '
                         'with a shared prefix dense and paged) + phase 29 '
                         '(bench_int4_7b run, int4 dense and paged at 128 '
-                        'slots, o flattened; int8 runs no K2)'}, *({
+                        'slots, o flattened; int8 runs no K2) + phase 40 '
+                        '(qwen3-moe-30b-a3b at 24 layers: q, k, v and the '
+                        'head of 8 requests through generate and the '
+                        'continuous engine, dense and paged, each '
+                        'moe_impl, fp32 and bf16 compute)'}, *({
         'name': f'int4_matmul_{tag}', 'route': 'cuda',
         'source': 'align_anything_tpu_torch/csrc/int4_matmul.cu',
         'replaces': f'scripts/bench/bench_int4_kernel_ab.py:{line}',

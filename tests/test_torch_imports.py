@@ -70,6 +70,13 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'trainers.text_audio_to_text.ppo',
              'trainers.text_audio_to_text.grpo', 'models.mllama'):
     assert 'align_anything_tpu_torch.' + name in names, name
+# the mixture-of-experts functions of the decoder and its configs
+from align_anything_tpu_torch.models import config, transformer
+for fn in (transformer._moe_mlp, transformer._moe_sparse,
+           transformer._route, transformer.ragged_dot,
+           config.qwen3_moe_config):
+    assert callable(fn)
+assert {'qwen3-moe-30b-a3b', 'tiny-moe'} <= set(config.PRESETS)
 banned = ('jax', 'align_anything_tpu', 'yaml', 'safetensors',
           'transformers', 'datasets', 'orbax')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)

@@ -62,6 +62,10 @@ VARIANTS = {
                   final_logit_softcap=30.0, tie_word_embeddings=True,
                   true_vocab_size=120),
 }
+# the tree test covers the mixture of experts too (tiny-moe's routing);
+# its forward and caches are held to JAX in tests/test_torch_moe.py
+TREE_VARIANTS = {**VARIANTS, 'moe': dict(num_experts=4, num_experts_per_tok=2,
+                                         router_aux_coef=0.01)}
 
 
 def _cfgs(jx, **kw):
@@ -223,14 +227,26 @@ def test_per_row_decode_offsets_match_uniform(jx, model):
     dict(num_experts=2, pp_stages=2), dict(num_experts=8, moe_impl='sparse'),
 ])
 def test_unported_options_raise(option):
+    """Pipeline stages and unknown remat policies raise; MoE runs since it
+    was ported (``tests/test_torch_moe.py``), both dispatches, and an MoE
+    config with pipeline stages still raises."""
     cfg = tiny_config().replace(**option)
+    if option.get('num_experts') and 'pp_stages' not in option:
+        params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                                device='cpu')
+        assert params['layers']['router']['w'].shape == (
+            cfg.num_layers, cfg.hidden_size, cfg.num_experts)
+        out = tt.forward(params, cfg, torch.tensor([[1, 2, 3]]))
+        assert out.logits.shape == (1, 3, cfg.vocab_size)
+        assert torch.isfinite(out.aux_loss)
+        return
     with pytest.raises(NotImplementedError):
         tt.init_params(cfg, torch.Generator().manual_seed(0), device='cpu')
 
 
-@pytest.mark.parametrize('variant', list(VARIANTS))
+@pytest.mark.parametrize('variant', list(TREE_VARIANTS))
 def test_init_params_tree_matches_jax(jx, variant):
-    jcfg, tcfg = _cfgs(jx, **VARIANTS[variant])
+    jcfg, tcfg = _cfgs(jx, **TREE_VARIANTS[variant])
     ref = np_tree(jx.t.init_params(jcfg, jx.jax.random.PRNGKey(0)))
     got = tt.init_params(tcfg, torch.Generator().manual_seed(0),
                          device='cpu')

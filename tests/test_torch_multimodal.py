@@ -292,17 +292,38 @@ def test_dpo_gradient_matches_jax():
 
 def test_unported_branches_raise():
     """A LLaVA config over a text model the port does not run yet raises
-    at init: MoE (ROADMAP §1 item 13).  An m-rope trunk (Qwen2-VL's rope)
-    runs since it was ported (``tests/test_torch_qwen2_vl.py``); the AnyRes
-    and video branches run (``tests/test_torch_llava_next.py``,
-    ``tests/test_torch_llava_next_video.py``)."""
+    at init: pipeline stages.  An m-rope trunk (Qwen2-VL's rope) runs since
+    it was ported (``tests/test_torch_qwen2_vl.py``); the AnyRes and video
+    branches run (``tests/test_torch_llava_next.py``,
+    ``tests/test_torch_llava_next_video.py``); an MoE language model runs,
+    as in JAX, and its logits and aux loss with an image equal JAX's (1e-4
+    of max|logit|; the aux loss to 1e-5), both dispatches."""
     _, tc = _configs()
     params = tmm.init_params(tc.replace(mrope_section=(2, 1, 1)),
                              torch.Generator().manual_seed(0), device='cpu')
     assert set(params) == {'language_model', 'vision_tower', 'projector'}
-    with pytest.raises(NotImplementedError, match='MoE'):
-        tmm.init_params(tc.replace(num_experts=4),
+    with pytest.raises(NotImplementedError, match='pipeline'):
+        tmm.init_params(tc.replace(pp_stages=2),
                         torch.Generator().manual_seed(0), device='cpu')
+    ids, mask, px = _batch()
+    for impl in ('dense', 'sparse'):
+        jc, tc = _configs(num_experts=4, num_experts_per_tok=2,
+                          moe_impl=impl)
+        params = _params(jc)
+        tparams = from_jax_tree(params, device='cpu')
+        assert tparams['language_model']['layers']['router']['w'].shape == (
+            TEXT['num_layers'], TEXT['hidden_size'], 4)
+        want = jmm.forward(params, jc, jnp.asarray(ids),
+                           attention_mask=jnp.asarray(mask),
+                           pixel_values=jnp.asarray(px))
+        got = tmm.forward(tparams, tc, torch.from_numpy(ids),
+                          attention_mask=torch.from_numpy(mask),
+                          pixel_values=torch.from_numpy(px))
+        real = mask.astype(bool)
+        _close(got.logits[torch.from_numpy(real)],
+               np.asarray(want.logits)[real])
+        np.testing.assert_allclose(float(got.aux_loss), float(want.aux_loss),
+                                   rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

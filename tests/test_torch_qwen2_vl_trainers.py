@@ -19,6 +19,8 @@ config class (R1).  The YAMLs' ``freeze_vision_tower: True`` names
 both packages (R27).
 """
 
+import contextlib
+import io
 import json
 import math
 
@@ -178,6 +180,13 @@ def _pair_steps(assets, algo, tmp_path, monkeypatch, extra, n):
     jtrainer = _jax(assets, algo, tmp_path / 'jax', monkeypatch, extra)
     trainer = _port(assets, algo, tmp_path / 'port', extra)
     start = {p: v.copy() for p, v in _leaves(trainer.state.params).items()}
+    got, _ = _run_pair(trainer, jtrainer, algo, n)
+    return trainer, jtrainer, got, start
+
+
+def _run_pair(trainer, jtrainer, algo, n):
+    """``n`` steps of both trainers, their metrics and params compared;
+    returns both metric lists."""
     want = _steps(jtrainer, n)
     got = _steps(trainer, n)
     if algo in ('dpo', 'kto'):
@@ -190,23 +199,53 @@ def _pair_steps(assets, algo, tmp_path, monkeypatch, extra, n):
         assert got[0].pop('train/reward_accuracy') == 0.0
     _compare(got, want)
     _params_match(trainer, jtrainer)
-    return trainer, jtrainer, got, start
+    return got, want
 
 
 CASES = {'sft': ('sft', ()), 'sft_dynamic': ('sft', DYNAMIC),
          'dpo': ('dpo', ()), 'dpo_dynamic': ('dpo', DYNAMIC)}
 
 
+@pytest.fixture(scope='module')
+def dpo_run(qwen2_vl_assets, tmp_path_factory):
+    """The fixed-grid DPO pair of trainers, built once in this file (the
+    steps test and R27's read it): both trainers before and after two
+    steps, the port's start-up output, and each tower before the steps."""
+    printed = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, \
+            contextlib.redirect_stdout(printed):
+        jtrainer = _jax(qwen2_vl_assets, 'dpo',
+                        tmp_path_factory.mktemp('dpo_jax'), mp)
+        trainer = _port(qwen2_vl_assets, 'dpo',
+                        tmp_path_factory.mktemp('dpo_port'))
+    jstart = {p: np.array(v) for p, v in _leaves(
+        jtrainer.state.params['visual']).items()}
+    start = {p: v.copy() for p, v in _leaves(trainer.state.params).items()}
+    held = {id(p) for g in trainer.state.optimizer.param_groups
+            for p in g['params']}
+    tower_held = all(id(t) in held
+                     for t in param_leaves(trainer.state.params['visual']))
+    got, want = _run_pair(trainer, jtrainer, 'dpo', 2)
+    return dict(trainer=trainer, jtrainer=jtrainer, got=got, want=want,
+                start=start, jstart=jstart, tower_held=tower_held,
+                printed=printed.getvalue())
+
+
 @pytest.mark.parametrize('case', list(CASES))
 def test_qwen2_vl_steps_match_jax(qwen2_vl_assets, tmp_path, monkeypatch,
-                                  case):
+                                  request, case):
     """Two steps of 8 rows (pairs): every metric JAX reports and every
     param after them; DPO's step 1 at ln 2; the dynamic batches carry
     ``image_grid_thw`` with several grids and each row's own token
     count; the tower moves (R27)."""
     algo, extra = CASES[case]
-    trainer, jtrainer, got, start = _pair_steps(
-        qwen2_vl_assets, algo, tmp_path, monkeypatch, extra, 2)
+    if case == 'dpo':
+        run = request.getfixturevalue('dpo_run')
+        trainer, jtrainer, got, start = (run['trainer'], run['jtrainer'],
+                                         run['got'], run['start'])
+    else:
+        trainer, jtrainer, got, start = _pair_steps(
+            qwen2_vl_assets, algo, tmp_path, monkeypatch, extra, 2)
     assert trainer.mm is tq
     assert got[0]['train/loss'] != got[1]['train/loss']
     if algo == 'dpo':
@@ -253,34 +292,28 @@ def test_qwen2_vl_dpo_family_step_matches_jax(qwen2_vl_assets, tmp_path,
     assert all(np.isfinite(v) for v in got[0].values())
 
 
-def test_r27_freeze_flag_misses_the_tower(qwen2_vl_assets, tmp_path,
-                                          monkeypatch, capsys):
+def test_r27_freeze_flag_misses_the_tower(dpo_run):
     """ROADMAP §3 R27, in both packages: the DPO YAML's
     ``freeze_vision_tower: True`` freezes nothing on a Qwen2-VL tree (it
     names ``vision_tower``; the tower is ``visual``): every leaf of the
     tower and merger gets an optimizer state and moves, and the port's
-    start-up prints one line that names the flag and the key."""
-    jtrainer = _jax(qwen2_vl_assets, 'dpo', tmp_path / 'jax', monkeypatch)
-    trainer = _port(qwen2_vl_assets, 'dpo', tmp_path / 'port')
-    printed = capsys.readouterr().out
+    start-up prints one line that names the flag and the key.  The DPO
+    trainers are the steps test's (``dpo_run``)."""
+    trainer, jtrainer = dpo_run['trainer'], dpo_run['jtrainer']
+    printed = dpo_run['printed']
     assert "freeze_vision_tower: True names ('vision_tower',)" in printed
     assert 'R27' in printed
     for t in (trainer, jtrainer):
         assert t.cfgs.train_cfgs.freeze_vision_tower is True
         assert t.frozen_modules() == ('vision_tower',)
         assert set(t.state.params) == {'language_model', 'visual'}
-    jstart = {p: np.array(v) for p, v in _leaves(
-        jtrainer.state.params['visual']).items()}
-    start = {p: v.copy() for p, v in _leaves(
-        trainer.state.params['visual']).items()}
-    held = {id(p) for g in trainer.state.optimizer.param_groups
-            for p in g['params']}
-    assert all(id(t) in held
-               for t in param_leaves(trainer.state.params['visual']))
-    _steps(jtrainer, 1)
-    _steps(trainer, 1)
-    for before, after in ((jstart, _leaves(jtrainer.state.params['visual'])),
+    assert dpo_run['tower_held']
+    start = {p[len('/visual'):]: v for p, v in dpo_run['start'].items()
+             if p.startswith('/visual')}
+    for before, after in ((dpo_run['jstart'],
+                           _leaves(jtrainer.state.params['visual'])),
                           (start, _leaves(trainer.state.params['visual']))):
+        assert set(after) == set(before)
         assert all(not np.array_equal(after[p], before[p]) for p in before)
 
 
