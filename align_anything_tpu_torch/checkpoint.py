@@ -182,6 +182,20 @@ def _prune_old(root: str, keep: int, exclude: str | None = None) -> None:
         shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
 
+def check_hf_slice(model_config: Any) -> None:
+    """Raise where ``save_hf_slice`` has no writer for the family of
+    ``model_config``: Idefics2 (a config with a ``perceiver``), whose JAX
+    export fails (ROADMAP §3 R36)."""
+    if hasattr(model_config, 'perceiver'):
+        raise NotImplementedError(
+            'no Idefics2 export: the JAX package sends an Idefics2Config to '
+            'its LLaVA writer, which fails (AttributeError: no num_heads on '
+            'its vision config), and has no Idefics2 writer (ROADMAP §3 '
+            'R36); run without an output_dir, which also means no '
+            'train-state checkpoint, no resume and no log directory until '
+            'the writer is ported')
+
+
 def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
                   tokenizer: Any | None = None) -> str:
     """HF-format ``slice_{step}`` export (reference output-layout parity) of
@@ -189,8 +203,10 @@ def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
     Qwen2-Audio (a config with ``audio`` and ``text``), Mllama (a config
     with ``cross_attention_layers``), Qwen2.5-VL (a tower with
     ``window_size``), Qwen2-VL (a tower with ``spatial_merge_size``), else
-    LLaVA, in JAX's order of checks.  The JAX module's other multimodal
-    savers (MiniCPM-V / MiniCPM-o) are not ported."""
+    LLaVA, in JAX's order of checks.  An Idefics2 config raises
+    (``check_hf_slice``).  The JAX module's other multimodal savers
+    (MiniCPM-V / MiniCPM-o) are not ported."""
+    check_hf_slice(model_config)
     from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
         save_audio_params,
         save_mllama_params,

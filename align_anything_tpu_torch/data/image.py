@@ -21,8 +21,13 @@ up to ``max_num_tiles`` tiles of the canvas that fits it best, with its
 ``aspect_ratio_ids`` and ``aspect_ratio_mask``, and one image token
 (``num_tokens`` 1: the image reaches the text by cross-attention).
 
-Not ported yet, with the models and trainers that use them (ROADMAP §1 item
-12): ``MiniCPMVSliceProcessor`` and ``Idefics2NaViTProcessor``.
+``Idefics2NaViTProcessor`` is Idefics2's variable aspect ratio: an image
+resized between the shortest and longest edges becomes its patch rows,
+packed into a fixed count of slots, with ``tgt_sizes``, its patch grid,
+and the perceiver's latent count as its ``num_tokens``.
+
+Not ported yet, with the model and trainers that use it (ROADMAP §1 item
+12): ``MiniCPMVSliceProcessor``.
 """
 
 from __future__ import annotations
@@ -229,6 +234,71 @@ class AnyResProcessor:
         out_sel[:num_tokens] = select
         return {'pixel_values': crops, 'select_idx': out_sel,
                 'num_tokens': num_tokens}
+
+
+def ensure_divide(length: float, patch_size: int) -> int:
+    """Round to the nearest multiple of ``patch_size``, at least one
+    patch."""
+    return max(round(length / patch_size) * patch_size, patch_size)
+
+
+class Idefics2NaViTProcessor:
+    """Idefics2's variable-aspect preprocessing (NaViT) on the host, as
+    JAX's: resize so the longest edge is at most ``longest_edge`` (the
+    tower's image size by default) and the shortest at least
+    ``shortest_edge``, keeping the aspect, both rounded to patch multiples
+    (``ensure_divide``) and clamped to the square grid; normalize with the
+    0.5 / 0.5 mean and std; pack the patches row-major, each flattened
+    channel-major as the conv's OIHW kernel.
+
+    Returns ``{'pixel_values': (max_patches, 3*p*p), 'tgt_sizes': (2,)
+    the (h, w) patch grid, 'num_tokens': n_latents}``: the perceiver
+    compresses any grid to ``n_latents`` tokens."""
+
+    dynamic = True
+
+    def __init__(self, vcfg, n_latents: int = 64,
+                 shortest_edge: int = 378, longest_edge: int | None = None):
+        self.patch_size = vcfg.patch_size
+        self.longest = longest_edge or vcfg.image_size
+        self.shortest = min(shortest_edge, self.longest)
+        self.n_latents = n_latents
+        self.max_patches = (self.longest // vcfg.patch_size) ** 2
+        self.mean = np.full((3,), 0.5, np.float32)
+        self.std = np.full((3,), 0.5, np.float32)
+
+    @property
+    def num_patches(self) -> int:
+        return self.n_latents
+
+    def _target_size(self, h: int, w: int) -> tuple[int, int]:
+        if w >= h and w > self.longest:
+            h, w = int(self.longest * h / w), self.longest
+        elif h > w and h > self.longest:
+            h, w = self.longest, int(self.longest * w / h)
+        h, w = max(h, self.shortest), max(w, self.shortest)
+        p = self.patch_size
+        clamp = (self.longest // p) * p
+        return (min(ensure_divide(h, p), clamp),
+                min(ensure_divide(w, p), clamp))
+
+    def __call__(self, image: Any) -> dict[str, Any]:
+        from PIL import Image as PILImage  # noqa: PLC0415
+
+        p = self.patch_size
+        arr = ImageProcessor._to_array(image)
+        th, tw = self._target_size(*arr.shape[:2])
+        arr = np.asarray(PILImage.fromarray(arr).resize(
+            (tw, th), PILImage.BILINEAR))
+        x = (arr.astype(np.float32) / 255.0 - self.mean) / self.std
+        hg, wg = th // p, tw // p
+        x = x.transpose(2, 0, 1).reshape(3, hg, p, wg, p)
+        patches = x.transpose(1, 3, 0, 2, 4).reshape(hg * wg, 3 * p * p)
+        pixel = np.zeros((self.max_patches, 3 * p * p), np.float32)
+        pixel[:patches.shape[0]] = patches
+        return {'pixel_values': pixel,
+                'tgt_sizes': np.asarray([hg, wg], np.int32),
+                'num_tokens': self.n_latents}
 
 
 class MllamaTileProcessor:

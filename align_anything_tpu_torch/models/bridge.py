@@ -20,7 +20,10 @@ Qwen2-Audio's ``language_model`` / ``audio_tower`` (the convolutions as
 (K, C_in, C_out), the layers stacked) / ``projector``, and Mllama's
 ``vision_model`` / ``language_model`` / ``projector``, whose layers are
 lists of per-layer dicts (``local_layers``, ``global_layers``, the text
-``layers``: self and cross layers differ), carried across as lists.  ``trainable_from_jax_tree`` makes a
+``layers``: self and cross layers differ), carried across as lists, and
+Idefics2's ``language_model`` / ``vision_model`` / ``connector``, the last
+two nested by HF module path with torch Linear weights, their layers keyed
+by index strings.  ``trainable_from_jax_tree`` makes a
 trainable fp32 tree and its frozen reference copy for the train step;
 ``lora_from_jax_tree`` the trainable adapters of ``models/lora.py``.
 """

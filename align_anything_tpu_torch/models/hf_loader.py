@@ -29,9 +29,10 @@ trunk's ``mrope_section`` from ``rope_scaling``; the tower under
 Qwen2-Audio (the Whisper-style tower under ``audio_tower``), and
 ``load_mllama_params`` / ``save_mllama_params`` for Mllama
 (Llama-3.2-Vision: the tiled tower under ``vision_model``, the trunk with
-its cross-attention layers, lists of per-layer dicts).  Not ported yet
-(ROADMAP §1 item 12): the other multimodal families (Idefics2, MiniCPM,
-Emu3's fused codec layout).
+its cross-attention layers, lists of per-layer dicts).  Idefics2's
+loader is ``models/idefics2.py`` ``load_idefics2_params`` (over this
+module's codec).  Not ported yet (ROADMAP §1 item 12): the other
+multimodal families (MiniCPM, Emu3's fused codec layout).
 """
 
 from __future__ import annotations

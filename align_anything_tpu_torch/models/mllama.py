@@ -18,9 +18,11 @@ the flash-attention kernel (``ops/flash_attention.py``) in training and the
 cache paths of the decoder in generation.  The tower's attention (head dim
 80, an additive bias) and the cross-attention are plain PyTorch, as JAX
 computes them in plain ``jnp``.  The tower's attention runs in query
-chunks (``vision_attention``): at 4 tiles of 1608 patches its fp32 logits
-would take 2.65 GB a row and layer at once; chunked, a chunk's at a time,
-and its backward recomputes each chunk.  The result is the same function.
+chunks (``ops/attention.py`` ``chunked_masked_attention``, whose bias
+``q_gate`` x ``k_invalid`` is the both-invalid bias with both set to the
+invalid mask): at 4 tiles of 1608 patches its fp32 logits would take
+2.65 GB a row and layer at once; chunked, a chunk's at a time, and its
+backward recomputes each chunk.  The result is the same function.
 
 The tree keeps the JAX package's keys and its lists of per-layer dicts
 (``vision_model.local_layers`` / ``global_layers``,
@@ -41,28 +43,23 @@ the whole generation, and the last prompt row's cross bias;
 prefill_forward=forward, step_forward=decode_forward)``).
 """
 
-# no ``from __future__ import annotations``: torch.library.custom_op reads
-# the schema of ``vision_attention`` from the live annotations
-
 import dataclasses
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint as ckpt
 
 from align_anything_tpu_torch.models import transformer
 from align_anything_tpu_torch.models.config import ModelConfig
 from align_anything_tpu_torch.models.transformer import ModelOutput
+from align_anything_tpu_torch.ops.attention import chunked_masked_attention
 from align_anything_tpu_torch.ops.logprobs import hidden_to_token_logprobs
 from align_anything_tpu_torch.ops.norms import layer_norm
 from align_anything_tpu_torch.ops.rope import rope_table
 from align_anything_tpu_torch.utils.tools import default_device
 
 FP32_MIN = torch.finfo(torch.float32).min
-# fp32 logits elements of one query chunk of the tower's attention (1 GiB)
-VISION_ATTN_CHUNK_ELEMS = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,94 +251,8 @@ def init_params(cfg: MllamaConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
-# remat
-# ---------------------------------------------------------------------------
-
-def _layer_call(remat: str, up_shape: tuple[int, int], fn, *args):
-    """``fn(*args)``, under ``torch.utils.checkpoint`` with the remat
-    policy ``remat`` when gradients are being recorded (as
-    ``transformer.forward`` runs its layers); ``up_shape`` is the layer's
-    (hidden, mlp) weight shape, which 'dots_mlp_lean' reads."""
-    if remat == 'none' or not torch.is_grad_enabled():
-        return fn(*args)
-    return ckpt.checkpoint(fn, *args, use_reentrant=False,
-                           context_fn=transformer._remat_context(remat,
-                                                                 up_shape))
-
-
-# ---------------------------------------------------------------------------
 # vision
 # ---------------------------------------------------------------------------
-
-def _attend_chunk(q: torch.Tensor, kf: torch.Tensor, v: torch.Tensor,
-                  inv_q: torch.Tensor, inv_k: torch.Tensor) -> torch.Tensor:
-    """The tower's attention for a chunk of queries, as JAX computes it
-    for all of them (``mllama.py:268-285``): fp32 logits, the additive
-    both-invalid bias, fp32 softmax, probabilities rounded to the compute
-    dtype before PV.  q (B, c, H, hd); kf (B, S, H, hd) fp32; v (B, S, H,
-    hd); inv_q (B, c), inv_k (B, S) 1.0 where invalid."""
-    hd = q.shape[-1]
-    logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), kf) * hd ** -0.5
-    bias = (inv_q[:, :, None] * inv_k[:, None, :] * FP32_MIN)[:, None]
-    probs = torch.softmax(logits + bias, dim=-1).to(q.dtype)
-    return torch.einsum('bhqk,bkhd->bqhd', probs, v)
-
-
-def _chunk_rows(b: int, s: int, h: int) -> int:
-    return max(8, min(s, VISION_ATTN_CHUNK_ELEMS // max(b * h * s, 1)))
-
-
-@torch.library.custom_op('aat_torch::mllama_vision_attention',
-                         mutates_args=())
-def vision_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     invalid: torch.Tensor) -> torch.Tensor:
-    """Full attention of the tower over (B, S, H, hd) q, k, v with the
-    bias ``-inf`` where query and key are both ``invalid`` (B, S) fp32,
-    in query chunks of ``VISION_ATTN_CHUNK_ELEMS`` logits.  A custom op,
-    so that a remat policy sees one op (it recomputes it) and not the
-    chunks' matmuls; its backward recomputes each chunk."""
-    b, s, h, _ = q.shape
-    c = _chunk_rows(b, s, h)
-    kf = k.float()
-    return torch.cat([_attend_chunk(q[:, i:i + c], kf, v,
-                                    invalid[:, i:i + c], invalid)
-                      for i in range(0, s, c)], dim=1)
-
-
-@vision_attention.register_fake
-def _(q, k, v, invalid):
-    return torch.empty_like(q)
-
-
-def _vision_attention_setup(ctx, inputs, output):
-    ctx.save_for_backward(*inputs)
-
-
-def _vision_attention_backward(ctx, dout):
-    q, k, v, invalid = ctx.saved_tensors
-    b, s, h, _ = q.shape
-    c = _chunk_rows(b, s, h)
-    dq = torch.empty_like(q)
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-    with torch.enable_grad():
-        kk = k.detach().requires_grad_(True)
-        vv = v.detach().requires_grad_(True)
-        for i in range(0, s, c):
-            qc = q[:, i:i + c].detach().requires_grad_(True)
-            out = _attend_chunk(qc, kk.float(), vv, invalid[:, i:i + c],
-                                invalid)
-            gq, gk, gv = torch.autograd.grad(out, (qc, kk, vv),
-                                             dout[:, i:i + c])
-            dq[:, i:i + c] = gq
-            dk += gk.float()
-            dv += gv.float()
-    return dq, dk.to(k.dtype), dv.to(v.dtype), None
-
-
-vision_attention.register_autograd(_vision_attention_backward,
-                                   setup_context=_vision_attention_setup)
-
 
 def _vision_layer(vcfg: MllamaVisionConfig, lp: dict, x: torch.Tensor,
                   invalid: torch.Tensor) -> torch.Tensor:
@@ -354,7 +265,8 @@ def _vision_layer(vcfg: MllamaVisionConfig, lp: dict, x: torch.Tensor,
     q, k, v = (torch.einsum('bsd,de->bse', h, lp[n]['w'].to(dtype))
                .reshape(b, s, vcfg.num_heads, vcfg.head_dim)
                for n in ('q', 'k', 'v'))
-    attn = vision_attention(q, k, v, invalid).reshape(b, s, d)
+    attn = chunked_masked_attention(q, k, v, invalid, invalid).reshape(
+        b, s, d)
     attn = torch.einsum('bse,ed->bsd', attn, lp['o']['w'].to(dtype))
     if gated:
         attn = torch.tanh(lp['gate_attn'].to(dtype)) * attn
@@ -430,7 +342,8 @@ def vision_forward(params: dict, vcfg: MllamaVisionConfig,
     x = x.reshape(bm, mt * pp, d)
     taps = []
     for i, lp in enumerate(vp['local_layers']):
-        x = _layer_call(remat, up_shape, _vision_layer, vcfg, lp, x, invalid)
+        x = transformer.layer_call(remat, up_shape, _vision_layer, vcfg,
+                                   lp, x, invalid)
         if i in vcfg.intermediate_layers_indices:
             taps.append(x)
 
@@ -442,7 +355,8 @@ def vision_forward(params: dict, vcfg: MllamaVisionConfig,
         + (post * torch.tanh(vp['post_tile']['gate'])).to(dtype)
     x = x.reshape(bm, mt * pp, d)
     for lp in vp['global_layers']:
-        x = _layer_call(remat, up_shape, _vision_layer, vcfg, lp, x, invalid)
+        x = transformer.layer_call(remat, up_shape, _vision_layer, vcfg,
+                                   lp, x, invalid)
 
     x = x.reshape(bm, mt, pp, d)[:, :, :p1]
     inter = torch.stack(taps, dim=-1)                     # (bm, S, d, K)
@@ -642,17 +556,18 @@ def forward(params: dict, cfg: MllamaConfig, input_ids: torch.Tensor,
                 x = _cross_layer(c, lp, x, k, v, cross_bias, full_row)
                 new_cross[str(i)] = (k, v)
             else:
-                x = _layer_call(remat, up_shape, _cross_block, c, lp, x,
-                                cross_states, cross_bias, full_row)
+                x = transformer.layer_call(remat, up_shape, _cross_block, c,
+                                           lp, x, cross_states, cross_bias,
+                                           full_row)
             continue
         if cache is not None:
             x = transformer._decoder_layer(c, lp, x, positions, sin, cos,
                                            attention_mask,
                                            cache['self'][str(i)], 0)[0]
         else:
-            x = _layer_call(remat, up_shape, transformer._decoder_layer, c,
-                            lp, x, positions, sin, cos, attention_mask, None,
-                            cache_offset)[0]
+            x = transformer.layer_call(
+                remat, up_shape, transformer._decoder_layer, c, lp, x,
+                positions, sin, cos, attention_mask, None, cache_offset)[0]
 
     new_cache = None
     if cache is not None:

@@ -804,6 +804,17 @@ def _remat_context(remat: str, up_shape: tuple[int, int]):
                              policy)
 
 
+def layer_call(remat: str, up_shape: tuple[int, int], fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with the remat
+    policy ``remat`` when gradients are being recorded (as ``forward`` runs
+    its layers); ``up_shape`` is the layer's (hidden, mlp) weight shape,
+    which 'dots_mlp_lean' reads."""
+    if remat == 'none' or not torch.is_grad_enabled():
+        return fn(*args)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           context_fn=_remat_context(remat, up_shape))
+
+
 def forward(params: dict, config: ModelConfig, input_ids: torch.Tensor,
             attention_mask: torch.Tensor | None = None,
             positions: torch.Tensor | None = None,

@@ -2,6 +2,10 @@
 
 - ``xla_attention``: einsum attention with an explicit mask and fp32
   softmax, the plain reference (the JAX package's numerics reference).
+- ``chunked_masked_attention``: full attention under an additive bias
+  ``q_gate`` x ``k_invalid`` x fp32 min, in query chunks with a backward
+  that recomputes each chunk (the vision towers' attention, whose fp32
+  logits over thousands of patches would not fit at once).
 - ``splash_attention`` / the ``'flash'`` and ``'splash'`` paths of
   ``causal_attention`` and ``windowed_causal_attention`` (Gemma3's
   interleaved layers): the hand-written kernel of ``ops/flash_attention.py``
@@ -15,7 +19,8 @@ were v5e tuning: here every self-attention call the kernel supports goes
 to it, at any L.
 """
 
-from __future__ import annotations
+# no ``from __future__ import annotations``: torch.library.custom_op reads
+# the schema of ``chunked_masked_attention`` from the live annotations
 
 import torch
 
@@ -23,6 +28,9 @@ from align_anything_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -2.3819763e38  # close to bf16 -inf without overflow
 IMPLS = ('auto', 'flash', 'splash', 'xla', 'ring')
+FP32_MIN = torch.finfo(torch.float32).min
+# fp32 logits elements of one query chunk of chunked_masked_attention (1 GiB)
+CHUNKED_ATTN_ELEMS = 1 << 28
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -57,6 +65,81 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum('bhls,bshd->blhd', probs, v.to(q.dtype))
+
+
+def _masked_attend_chunk(q: torch.Tensor, kf: torch.Tensor, v: torch.Tensor,
+                         q_gate: torch.Tensor,
+                         k_invalid: torch.Tensor) -> torch.Tensor:
+    """A chunk of queries of ``chunked_masked_attention``, as JAX computes
+    Mllama's tower attention for all of them (``mllama.py:268-285``): fp32
+    logits, the additive bias ``q_gate`` x ``k_invalid`` x fp32 min, fp32
+    softmax, probabilities rounded to q's dtype before PV.  q (B, c, H,
+    D); kf (B, S, H, D) fp32; v (B, S, H, D); q_gate (B, c), k_invalid
+    (B, S) fp32."""
+    d = q.shape[-1]
+    logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), kf) * d ** -0.5
+    bias = (q_gate[:, :, None] * k_invalid[:, None, :] * FP32_MIN)[:, None]
+    probs = torch.softmax(logits + bias, dim=-1).to(q.dtype)
+    return torch.einsum('bhqk,bkhd->bqhd', probs, v)
+
+
+def _chunk_rows(b: int, s: int, h: int) -> int:
+    return max(8, min(s, CHUNKED_ATTN_ELEMS // max(b * h * s, 1)))
+
+
+@torch.library.custom_op('aat_torch::chunked_masked_attention',
+                         mutates_args=())
+def chunked_masked_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_gate: torch.Tensor,
+                             k_invalid: torch.Tensor) -> torch.Tensor:
+    """Full (non-causal) attention over (B, S, H, D) q, k, v with the bias
+    fp32 min where ``q_gate`` (B, S) and ``k_invalid`` (B, S), both fp32,
+    are 1: a key mask with ``q_gate`` all ones (Idefics2's tower), HF's
+    both-invalid outer product with ``q_gate = k_invalid`` (Mllama's).
+    Runs in query chunks of ``CHUNKED_ATTN_ELEMS`` fp32 logits.  A custom
+    op, so that a remat policy sees one op (it recomputes it) and not the
+    chunks' matmuls; its backward recomputes each chunk."""
+    b, s, h, _ = q.shape
+    c = _chunk_rows(b, s, h)
+    kf = k.float()
+    return torch.cat([_masked_attend_chunk(q[:, i:i + c], kf, v,
+                                           q_gate[:, i:i + c], k_invalid)
+                      for i in range(0, s, c)], dim=1)
+
+
+@chunked_masked_attention.register_fake
+def _(q, k, v, q_gate, k_invalid):
+    return torch.empty_like(q)
+
+
+def _chunked_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _chunked_backward(ctx, dout):
+    q, k, v, q_gate, k_invalid = ctx.saved_tensors
+    b, s, h, _ = q.shape
+    c = _chunk_rows(b, s, h)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        kk = k.detach().requires_grad_(True)
+        vv = v.detach().requires_grad_(True)
+        for i in range(0, s, c):
+            qc = q[:, i:i + c].detach().requires_grad_(True)
+            out = _masked_attend_chunk(qc, kk.float(), vv,
+                                       q_gate[:, i:i + c], k_invalid)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kk, vv),
+                                             dout[:, i:i + c])
+            dq[:, i:i + c] = gq
+            dk += gk.float()
+            dv += gv.float()
+    return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+chunked_masked_attention.register_autograd(_chunked_backward,
+                                           setup_context=_chunked_setup)
 
 
 def splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

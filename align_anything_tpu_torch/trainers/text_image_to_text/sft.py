@@ -21,16 +21,27 @@ Qwen2.5-VL ('qwen2_5_vl'), whose images become patch rows
 under ``dynamic_resolution``: per-image grids ride the batch as
 ``image_grid_thw``), and so does Mllama ('mllama', whose images become
 tiles through ``MllamaTileProcessor``: ``aspect_ratio_ids`` and
-``aspect_ratio_mask`` ride the batch, one image token a row).  The JAX
-package's other vision-LM families (MiniCPM-V, Idefics2) and their image
-processors are not ported yet (ROADMAP §1 item 12).
+``aspect_ratio_mask`` ride the batch, one image token a row), and so does
+Idefics2 ('idefics2', whose images become packed patch rows through
+``Idefics2NaViTProcessor``: ``tgt_sizes`` rides the batch, and each image
+expands to the perceiver's latent count).  The JAX package's last
+vision-LM family here (MiniCPM-V) and its image processor are not ported
+yet (ROADMAP §1 item 12).
 
-ROADMAP §3 R27 and R30: the freeze flags name the module keys of the LLaVA
-tree (``freeze_vision_tower`` -> ``vision_tower``); a Qwen2-VL tree names
-its tower and merger ``visual`` (R27), an Mllama tree its tower
-``vision_model`` (R30), so under the YAMLs' ``freeze_vision_tower: True``
-nothing is frozen and the tower trains, as in JAX.  One line at start-up
-names each flag that misses.
+ROADMAP §3 R27, R30 and R37: the freeze flags name the module keys of the
+LLaVA tree (``freeze_vision_tower`` -> ``vision_tower``, ``freeze_mm_proj``
+-> ``projector``); a Qwen2-VL tree names its tower and merger ``visual``
+(R27), an Mllama tree its tower ``vision_model`` (R30), an Idefics2 tree
+its tower ``vision_model`` and its projection and perceiver ``connector``
+(R37), so under the YAMLs' ``freeze_vision_tower: True`` nothing is frozen
+and the tower trains, as in JAX.  One line at start-up names each flag
+that misses.
+
+ROADMAP §3 R36: no Idefics2 export is ported (JAX's fails), so a run with
+an ``output_dir`` on an Idefics2 checkpoint raises at start-up.  The
+train-state checkpoint, the resume and the log directory all live under
+``output_dir``, so an Idefics2 run has none of them until the writer is
+ported.
 """
 
 from __future__ import annotations
@@ -41,8 +52,10 @@ import sys
 
 import torch
 
+from align_anything_tpu_torch import checkpoint as ckpt_lib
 from align_anything_tpu_torch.data.image import (
     AnyResProcessor,
+    Idefics2NaViTProcessor,
     ImageProcessor,
     ImageProcessorConfig,
     MllamaTileProcessor,
@@ -50,6 +63,7 @@ from align_anything_tpu_torch.data.image import (
 )
 from align_anything_tpu_torch.losses import cross_entropy_loss
 from align_anything_tpu_torch.models import (
+    idefics2,
     mllama,
     multimodal,
     qwen2_5_vl,
@@ -68,9 +82,11 @@ from align_anything_tpu_torch.trainers.text_to_text.sft import SupervisedTrainer
 
 VISION_LM_LOADERS = {'qwen2_vl': (load_qwen2_vl_params, qwen2_vl),
                      'qwen2_5_vl': (load_qwen2_5_vl_params, qwen2_5_vl),
-                     'mllama': (load_mllama_params, mllama)}
+                     'mllama': (load_mllama_params, mllama),
+                     'idefics2': (idefics2.load_idefics2_params, idefics2)}
 # the fault that a freeze flag missing the family's tower is (ROADMAP §3)
-MISSED_FREEZE_FAULTS = {qwen2_vl: 'R27', qwen2_5_vl: 'R27', mllama: 'R30'}
+MISSED_FREEZE_FAULTS = {qwen2_vl: 'R27', qwen2_5_vl: 'R27', mllama: 'R30',
+                        idefics2: 'R37'}
 MM_BATCH_KEYS = ('image_grid_thw', 'aspect_ratio_ids', 'aspect_ratio_mask',
                  'select_idx', 'tgt_sizes')
 
@@ -78,8 +94,8 @@ MM_BATCH_KEYS = ('image_grid_thw', 'aspect_ratio_ids', 'aspect_ratio_mask',
 def mm_kwargs(batch: dict) -> dict:
     """Extra multimodal forward kwargs present in the batch (AnyRes's
     ``select_idx``, Qwen2-VL's dynamic-resolution ``image_grid_thw``,
-    Mllama's ``aspect_ratio_ids`` / ``aspect_ratio_mask``; MiniCPM-V's
-    ``tgt_sizes``, not ported yet)."""
+    Mllama's ``aspect_ratio_ids`` / ``aspect_ratio_mask``, Idefics2's
+    ``tgt_sizes``)."""
     return {k: batch[k] for k in MM_BATCH_KEYS if batch.get(k) is not None}
 
 
@@ -102,8 +118,9 @@ def load_llava_lm(path: str, device: torch.device | str | None = None):
 def load_vision_lm(path: str, device: torch.device | str | None = None):
     """(params, cfg, model module) for a vision-LM checkpoint directory on
     ``device`` (default: the first CUDA device), by its ``model_type``, as
-    JAX's TI2T SFT and DPO dispatch: Qwen2-VL, Qwen2.5-VL and Mllama, else
-    the LLaVA family (``load_llava_lm``); another ``model_type`` raises."""
+    JAX's TI2T SFT and DPO dispatch: Qwen2-VL, Qwen2.5-VL, Mllama and
+    Idefics2, else the LLaVA family (``load_llava_lm``); another
+    ``model_type`` raises."""
     with open(os.path.join(path, 'config.json')) as f:
         model_type = json.load(f).get('model_type')
     if model_type in VISION_LM_LOADERS:
@@ -136,9 +153,9 @@ def runtime_config(trainer, cfg):
 
 
 def report_missed_freeze_flags(trainer, params: dict) -> list[str]:
-    """ROADMAP §3 R27 / R30: one line for each freeze flag that is set but
-    names no module of ``params`` (so it freezes nothing, as in JAX); the
-    lines are printed and returned."""
+    """ROADMAP §3 R27 / R30 / R37: one line for each freeze flag that is
+    set but names no module of ``params`` (so it freezes nothing, as in
+    JAX); the lines are printed and returned."""
     tc = trainer.cfgs.train_cfgs
     fault = MISSED_FREEZE_FAULTS.get(trainer.mm, 'R27')
     lines = [f'{flag}: True names {names}, which the {trainer.mm.__name__} '
@@ -159,6 +176,10 @@ class TI2TTrainerMixin:
     def init_models(self) -> None:
         path = self.cfgs.model_cfgs.model_name_or_path
         params, cfg, self.mm = load_vision_lm(path, device=self.device)
+        if self.cfgs.logger_cfgs.output_dir:
+            # the export would fail after the last step: fail before the
+            # first (ROADMAP §3 R36)
+            ckpt_lib.check_hf_slice(cfg)
         self.model_cfg = runtime_config(self, cfg)
         self.tokenizer = self.load_tokenizer_for(path, self.model_cfg)
         report_missed_freeze_flags(self, params)
@@ -166,6 +187,8 @@ class TI2TTrainerMixin:
 
     def make_image_processor(self):
         """Mllama: ``MllamaTileProcessor`` (JAX ``sft.py:107-112``).
+        Idefics2: ``Idefics2NaViTProcessor`` with the perceiver's latent
+        count (JAX ``sft.py:128-135``).
         Qwen2-VL / Qwen2.5-VL: ``DynamicPatchProcessor`` under
         ``dynamic_resolution`` (with ``min_pixels`` / ``max_pixels``), else
         the family's fixed-grid ``PatchProcessor`` (JAX ``sft.py:113-125``;
@@ -175,6 +198,10 @@ class TI2TTrainerMixin:
         tc = self.cfgs.train_cfgs
         if self.mm is mllama:
             return MllamaTileProcessor(self.model_cfg.vision)
+        if self.mm is idefics2:
+            return Idefics2NaViTProcessor(
+                self.model_cfg.vision,
+                n_latents=self.model_cfg.perceiver.resampler_n_latents)
         if self.mm in (qwen2_vl, qwen2_5_vl):
             if tc.dynamic_resolution:
                 return qwen2_vl.DynamicPatchProcessor(
@@ -192,7 +219,10 @@ class TI2TTrainerMixin:
 
     def image_num_patches(self) -> int:
         """Per-image <image> expansion count at the fixed grid (a processor
-        that returns a dict gives each image's own count)."""
+        that returns a dict gives each image's own count); Idefics2's
+        perceiver compresses every grid to its latent count."""
+        if self.mm is idefics2:
+            return self.model_cfg.perceiver.resampler_n_latents
         return self.model_cfg.vision.num_patches
 
     def make_dataset(self, dataset_cls, path, template, max_len, **kw):

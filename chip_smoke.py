@@ -201,10 +201,11 @@ Phases (any failure raises and the run exits non-zero):
      tokens/s, peak memory, the prefill seconds the prefix saves and time
      to first token (p50 / max);
  29. ``scripts/bench/bench_int4_7b.py``'s ``run`` at Llama-3-8B's 32
-     layers: int4 (128 slots, ``o`` flattened, an int8-COMPUTE head) and
-     int8-COMPUTE (64 slots), each dense and paged, one wave of requests
-     (as many as slots); every request's 64 tokens, K2's launches (those
-     on ``o`` apart), resident and peak GB;
+     layers: int4 (``PHASE29_SLOTS['int4']`` slots, ``o`` flattened, an
+     int8-COMPUTE head) and int8-COMPUTE (``PHASE29_SLOTS['int8']``), each
+     dense and paged, one wave of requests (as many as slots); every
+     request's 64 tokens, K2's launches (those on ``o`` apart), resident
+     and peak GB;
  30. (after phase 25, on phase 24's checkpoint) the OpenAI-compatible HTTP
      server (``serve/api_server.py``, ``make_stdlib_server`` on a free port
      of 127.0.0.1), dense, then paged with a 48-word system text as its
@@ -302,7 +303,7 @@ Phases (any failure raises and the run exits non-zero):
      tokens from 2 image prompts with ``init_cache_fn=mllama.init_cache``
      (fp32 compute): every id the argmax of a no-cache forward over the
      grown sequence.
- 40. (after phase 39) MoE serving at the repo's 'qwen3-moe-30b-a3b' preset
+ 40. (after phase 44) MoE serving at the repo's 'qwen3-moe-30b-a3b' preset
      (JAX's: 64 experts of 768, top 8, hidden 2048, 32 / 4 heads of 64,
      vocab 151936) at its full 24 layers, seeded random weights,
      int4-COMPUTE as ``quantize_decoder_int4`` leaves an MoE tree (experts
@@ -328,13 +329,36 @@ Phases (any failure raises and the run exits non-zero):
      ``fuse=True`` refused (ROADMAP R31), SFT through ``trainer_main``
      with its export (written as JAX writes it, with the R34 warning) and
      a resume from its step-2 train state, one DPO step (ln 2).
+ 43. (after phase 39) TI2T DPO through ``trainer_main(TI2TDPOTrainer,
+     ...)`` on Idefics2 at HuggingFaceM4/idefics2-8b's published widths
+     (the Mistral-7B trunk cut to 4 of its 32 layers; the 27-layer SigLIP
+     tower and the perceiver whole), its seeded bf16 tensors handed to
+     ``load_idefics2_params`` from memory (no Idefics2 writer: ROADMAP
+     R36; the disk budget), 4 AA_TI2T pairs over PNGs of 700 x 980, 980 x
+     560, 980 x 980 and 300 x 420 through the NaViT processor (4900
+     padded slots a row), 2 pairs a step in the 1024 bucket, 2 steps: step
+     1's loss ln 2, each row's patches and grid equal to the processor's
+     run again on the host, every module moved (the tower and connector
+     too: R37), launches exact (the trunk; the tower's and perceiver's
+     attention are plain PyTorch, as in JAX), step 1's log-prob sums
+     against a plain recompute; step time, tokens/s, MFU (over the padded
+     slots and over the valid patches) and peak memory;
+ 44. at phase 10's text widths (2 layers) under the published tower cut
+     to 2 layers and the published perceiver: Idefics2 TI2T SFT (2 steps),
+     KTO, ORPO and SimPO one step each, launches exact; a DPO run given an
+     ``--output_dir`` refused at start-up (R36), nothing written; greedy
+     ``generate`` of 16 tokens from 2 image prompts with
+     ``media={'tgt_sizes': ...}`` and ``forward`` as prefill and step (fp32
+     compute): every id the argmax of a no-cache forward over the grown
+     sequence; the fixed-square tower against the packed one on a full 70
+     x 70 grid (fp32, 1e-4 x max).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
     python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3 qwen2vl
-                                     ta2t mllama]
+                                     ta2t mllama idefics2]
                                       # instead: trace one DPO step of the
                                       # phase 7 and phase 8 configs, one
                                       # PPO round of phase 12's, one TI2T
@@ -349,8 +373,11 @@ JSON summary of each kernel.
                                       # and log-mel frontend alone, and one
                                       # Mllama DPO step of phase 38's with
                                       # its tower, the tower's attention
-                                      # and the cross layer alone (the
-                                      # ones named; all by default)
+                                      # and the cross layer alone, and one
+                                      # Idefics2 DPO step of phase 43's
+                                      # with its tower, the tower's
+                                      # attention and the connector alone
+                                      # (the ones named; all by default)
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
 each DPO config with ``torch.profiler`` and prints device time by kernel,
@@ -1230,19 +1257,24 @@ def paged_serving(params, cfg, requests: dict, dev, smi) -> dict:
     return {'launches': launches, 'rows': rows, 'page_ops': ops}
 
 
+# phase 29's slots a mode (the script's defaults are 128 and 64); cut to a
+# quarter to make room for phases 43-44 (each run serves one wave of as many
+# requests as slots, twice: a warm-up call, then the timed one)
+PHASE29_SLOTS = {'int4': 32, 'int8': 16}
+
+
 def bench_int4_8b(dev, smi) -> dict:
     """Phase 29: ``scripts/bench/bench_int4_7b.py``'s ``run`` at Llama-3-8B's
-    32 layers, int4 (128 slots) and int8 (64, as its ``main`` caps them),
-    each dense and paged, one wave of requests (as many as slots; the
-    script's default serves two); K2's launches counted, those on ``o``
-    apart."""
+    32 layers, int4 and int8 at ``PHASE29_SLOTS``, each dense and paged,
+    one wave of requests (as many as slots; the script's default serves
+    two); K2's launches counted, those on ``o`` apart."""
     from align_anything_tpu_torch.scripts.bench import bench_int4_7b  # noqa: PLC0415
 
     t_phase = time.perf_counter()
     cfg = llama_config()
     o_shape = (cfg.num_heads * cfg.head_dim, cfg.hidden_size)
     launches, rows = 0, {}
-    for mode, slots in (('int4', 128), ('int8', 64)):
+    for mode, slots in PHASE29_SLOTS.items():
         for cache_mode in ('dense', 'paged'):
             free_memory()
             on_o = [0]
@@ -5936,6 +5968,558 @@ def mllama_small(dev, smi, tmp: str, images: list) -> dict:
     return {'launches': total}
 
 
+# phases 43-44: Idefics2.  Phase 43 runs TI2T DPO at the published widths
+# of HuggingFaceM4/idefics2-8b's config.json: the Mistral-7B trunk cut to
+# 4 of its 32 layers, the whole 27-layer SigLIP tower over 980 px images
+# (4900 packed slots a row) and the perceiver connector, all trained (the
+# freeze flags miss the tower and the connector: ROADMAP R37).  The port
+# has no Idefics2 writer (R36), and a bf16 checkpoint at these widths (4.6
+# GB) would pass the card machine's disk budget: the seeded tensors, named
+# as transformers saves them, reach ``load_idefics2_params`` from memory
+# (``idefics2_in_memory``); the directory holds its config.json only.
+# Phase 44 runs the other trainers, generation and the checks at phase
+# 10's text widths under a 2-layer tower of the published widths.
+IDEFICS2_8B_TEXT = dict(vocab_size=32003, hidden_size=4096,
+                        intermediate_size=14336, num_hidden_layers=32,
+                        num_attention_heads=32, num_key_value_heads=8,
+                        max_position_embeddings=32768, rope_theta=10000.0,
+                        rms_norm_eps=1e-5, sliding_window=4096,
+                        hidden_act='silu', bos_token_id=1, eos_token_id=2,
+                        pad_token_id=0, model_type='mistral')
+IDEFICS2_8B_VISION = dict(hidden_size=1152, intermediate_size=4304,
+                          num_hidden_layers=27, num_attention_heads=16,
+                          image_size=980, patch_size=14,
+                          model_type='idefics2')
+IDEFICS2_8B_PERCEIVER = dict(resampler_n_latents=64, resampler_depth=3,
+                             resampler_n_heads=16, resampler_head_dim=96,
+                             num_key_value_heads=4, hidden_act='silu',
+                             model_type='idefics2')
+IDEFICS2_IMAGE_TOKEN = 32001
+IDEFICS2_TEXT_LAYERS = 4
+IDEFICS2_ROWS, IDEFICS2_PAIRS, IDEFICS2_BUCKET = 4, 2, 1024
+IDEFICS2_STEPS = IDEFICS2_ROWS // IDEFICS2_PAIRS
+# (h, w): landscape, portrait, square (the full 70 x 70 grid), and one the
+# processor raises to the shortest edge
+IDEFICS2_SIZES = ((700, 980), (980, 560), (980, 980), (300, 420))
+IDEFICS2_SMALL_TOWER = 2
+IDEFICS2_GEN_NEW = 16
+
+
+def idefics2_hf_config(small: bool = False) -> dict:
+    """The config.json of phase 43 (``small``: of phase 44)."""
+    text = dict(IDEFICS2_8B_TEXT, num_hidden_layers=IDEFICS2_TEXT_LAYERS)
+    vision = dict(IDEFICS2_8B_VISION)
+    if small:
+        s = SMALL
+        text.update(vocab_size=s['vocab_size'], hidden_size=s['hidden'],
+                    intermediate_size=s['mlp'], num_hidden_layers=s['layers'],
+                    num_attention_heads=s['heads'],
+                    num_key_value_heads=s['kv_heads'],
+                    max_position_embeddings=s['max_pos'])
+        vision['num_hidden_layers'] = IDEFICS2_SMALL_TOWER
+    return {'model_type': 'idefics2', 'architectures':
+            ['Idefics2ForConditionalGeneration'], 'text_config': text,
+            'vision_config': vision,
+            'perceiver_config': dict(IDEFICS2_8B_PERCEIVER),
+            'image_token_id': IDEFICS2_IMAGE_TOKEN,
+            'tie_word_embeddings': False, 'torch_dtype': 'bfloat16'}
+
+
+def idefics2_tensor_shapes(hf: dict) -> dict:
+    """HF tensor name -> shape of an Idefics2 checkpoint of ``hf``, in the
+    layout transformers' ``Idefics2ForConditionalGeneration`` saves (the
+    names ``load_idefics2_params`` reads)."""
+    tc, vc, pc = hf['text_config'], hf['vision_config'], hf['perceiver_config']
+    e, f, v = tc['hidden_size'], tc['intermediate_size'], tc['vocab_size']
+    hd = e // tc['num_attention_heads']
+    kv = tc['num_key_value_heads'] * hd
+    shapes = {'model.text_model.embed_tokens.weight': (v, e),
+              'model.text_model.norm.weight': (e,), 'lm_head.weight': (v, e)}
+    for i in range(tc['num_hidden_layers']):
+        p = f'model.text_model.layers.{i}.'
+        shapes.update({
+            p + 'self_attn.q_proj.weight': (e, e),
+            p + 'self_attn.k_proj.weight': (kv, e),
+            p + 'self_attn.v_proj.weight': (kv, e),
+            p + 'self_attn.o_proj.weight': (e, e),
+            p + 'mlp.gate_proj.weight': (f, e),
+            p + 'mlp.up_proj.weight': (f, e),
+            p + 'mlp.down_proj.weight': (e, f),
+            p + 'input_layernorm.weight': (e,),
+            p + 'post_attention_layernorm.weight': (e,)})
+    d, m, ps = vc['hidden_size'], vc['intermediate_size'], vc['patch_size']
+    side = vc['image_size'] // ps
+    vp = 'model.vision_model.'
+    shapes.update({vp + 'embeddings.patch_embedding.weight': (d, 3, ps, ps),
+                   vp + 'embeddings.patch_embedding.bias': (d,),
+                   vp + 'embeddings.position_embedding.weight': (side ** 2,
+                                                                 d),
+                   vp + 'post_layernorm.weight': (d,),
+                   vp + 'post_layernorm.bias': (d,)})
+    for i in range(vc['num_hidden_layers']):
+        p = f'{vp}encoder.layers.{i}.'
+        for name, shape in (('self_attn.q_proj', (d, d)),
+                            ('self_attn.k_proj', (d, d)),
+                            ('self_attn.v_proj', (d, d)),
+                            ('self_attn.out_proj', (d, d)),
+                            ('mlp.fc1', (m, d)), ('mlp.fc2', (d, m))):
+            shapes[p + name + '.weight'] = shape
+            shapes[p + name + '.bias'] = shape[:1]
+        for name in ('layer_norm1', 'layer_norm2'):
+            shapes[p + name + '.weight'] = (d,)
+            shapes[p + name + '.bias'] = (d,)
+    cp = 'model.connector.'
+    shapes.update({cp + 'modality_projection.gate_proj.weight': (f, d),
+                   cp + 'modality_projection.up_proj.weight': (f, d),
+                   cp + 'modality_projection.down_proj.weight': (e, f),
+                   cp + 'perceiver_resampler.latents': (
+                       pc['resampler_n_latents'], e),
+                   cp + 'perceiver_resampler.norm.weight': (e,)})
+    q = pc['resampler_n_heads'] * pc['resampler_head_dim']
+    pkv = pc['num_key_value_heads'] * pc['resampler_head_dim']
+    for i in range(pc['resampler_depth']):
+        p = f'{cp}perceiver_resampler.layers.{i}.'
+        shapes.update({
+            p + 'input_latents_norm.weight': (e,),
+            p + 'input_context_norm.weight': (e,),
+            p + 'post_attention_layernorm.weight': (e,),
+            p + 'self_attn.q_proj.weight': (q, e),
+            p + 'self_attn.k_proj.weight': (pkv, e),
+            p + 'self_attn.v_proj.weight': (pkv, e),
+            p + 'self_attn.o_proj.weight': (e, q),
+            p + 'mlp.gate_proj.weight': (4 * e, e),
+            p + 'mlp.up_proj.weight': (4 * e, e),
+            p + 'mlp.down_proj.weight': (e, 4 * e)})
+    return shapes
+
+
+def idefics2_tensors(hf: dict, seed: int, dev) -> dict:
+    """A seeded checkpoint of ``hf`` as bf16 host tensors by HF name:
+    norm weights 1, biases 0, the rest N(0, 0.02) (transformers'
+    ``initializer_range``), drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape in idefics2_tensor_shapes(hf).items():
+        if 'norm' in name and name.endswith('.weight'):
+            t = torch.ones(shape, device=dev)
+        elif name.endswith('.bias'):
+            t = torch.zeros(shape, device=dev)
+        else:
+            t = 0.02 * torch.randn(shape, generator=gen, device=dev)
+        out[name] = t.to(torch.bfloat16).cpu()
+    return out
+
+
+def idefics2_in_memory(path: str, tensors: dict):
+    """A patch under which the port's checkpoint reader returns
+    ``tensors`` for the directory ``path`` (every other directory is read
+    from its files)."""
+    from align_anything_tpu_torch.models import hf_loader  # noqa: PLC0415
+
+    real = hf_loader._read_all_tensors
+
+    def read(p):
+        return (dict(tensors) if os.path.abspath(p) == os.path.abspath(path)
+                else real(p))
+
+    return mock.patch.object(hf_loader, '_read_all_tensors', read)
+
+
+def idefics2_assets(tmp: str, name: str, small: bool, seed: int,
+                    dev) -> tuple:
+    """(checkpoint dir holding config.json, its tensors in memory, params
+    by module, config dict)."""
+    hf = idefics2_hf_config(small)
+    path = os.path.join(tmp, name)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf, f, indent=2)
+    tensors = idefics2_tensors(hf, seed, dev)
+    n = {m: sum(t.numel() for k, t in tensors.items()
+                if k.startswith(prefix))
+         for m, prefix in (('language_model', ('model.text_model.',
+                                               'lm_head.')),
+                           ('vision_model', ('model.vision_model.',)),
+                           ('connector', ('model.connector.',)))}
+    return path, tensors, n, hf
+
+
+def idefics2_step_flops(cfg, n: dict, shape: tuple, tgt: list) -> dict:
+    """FLOPs of a DPO step that trains everything, over the padded slots
+    and over the valid patches (``tgt``: each row's grid): the text by
+    bench.py's convention (``dpo_flops_per_token``); the tower's 8 x its
+    matmul params a slot (policy forward and backward, reference forward)
+    and its attention, 16 x S^2 x width a layer and row; the connector's
+    modality projection 8 x its params a slot, the perceiver's K / V
+    projections 8 x their params over the slots and latents, its other
+    leaves over the latents."""
+    vc, pc, tc = cfg.vision, cfg.perceiver, cfg.text
+    text = shape[0] * shape[1] * dpo_flops_per_token(
+        n['language_model'], shape[1], tc.hidden_size, tc.num_layers)
+    lat = pc.resampler_n_latents
+    kv = (2 * pc.resampler_depth * tc.hidden_size * pc.num_key_value_heads
+          * pc.resampler_head_dim)
+    out = {}
+    for key, slots in (('padded', [vc.patches_per_side ** 2] * shape[0]),
+                       ('valid', [h * w for h, w in tgt])):
+        tower = sum(8 * n['tower_matmul'] * s + 16 * s * s * vc.hidden_size
+                    * vc.num_hidden_layers for s in slots)
+        conn = sum(8 * n['projection'] * s + 8 * kv * (s + lat)
+                   + 8 * (n['connector'] - n['projection'] - kv) * lat
+                   for s in slots)
+        out[key] = (text + tower + conn, tower + conn)
+    return out
+
+
+def idefics2_dpo_full(dev, smi, tmp: str) -> dict:
+    """Phase 43: TI2T DPO through ``trainer_main(TI2TDPOTrainer, ...)``
+    (``python -m ...text_image_to_text.dpo``) on Idefics2 at
+    idefics2-8b's published widths, the text cut to 4 layers."""
+    from align_anything_tpu_torch.data.image import Idefics2NaViTProcessor  # noqa: PLC0415
+    from align_anything_tpu_torch.models import idefics2  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    ckpt, tensors, n, hf = idefics2_assets(tmp, 'idefics2_8b', False,
+                                           SEED + 430, dev)
+    images = png_images(tmp, IDEFICS2_SIZES, SEED + 431)
+    data = write_jsonl(os.path.join(tmp, 'pref_idefics2.jsonl'),
+                       ti2t_rows(images, SEED + 432, preference=True))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(IDEFICS2_PAIRS), '--padding_buckets',
+            f'[{IDEFICS2_BUCKET}]']
+    log(f'phase43 seeded the checkpoint in memory (idefics2-8b widths, text '
+        f'{IDEFICS2_TEXT_LAYERS} of 32 layers, the 27-layer tower, the '
+        f'perceiver of depth 3; params language_model '
+        f'{n["language_model"] / 1e9:.3f} B, vision_model '
+        f'{n["vision_model"] / 1e9:.3f} B, connector '
+        f'{n["connector"] / 1e9:.3f} B; bf16 by HF name, config.json on '
+        f'disk only); {IDEFICS2_ROWS} AA_TI2T preference rows over PNG '
+        f'files of {IDEFICS2_SIZES}; argv {" ".join(argv[2:])}')
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with idefics2_in_memory(ckpt, tensors), recording_loss(
+            TI2TDPOTrainer, 'preference_loss', first,
+            ('input_ids', 'attention_mask', 'response_mask', 'pixel_values',
+             'tgt_sizes')):
+        trainer, steps, timing = run_ti2t(
+            TI2TDPOTrainer, 'text_image_to_text/dpo', argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    frozen = trainer.frozen_modules()
+    with idefics2_in_memory(ckpt, tensors):
+        start, _ = idefics2.load_idefics2_params(ckpt, device=dev)
+    moved = changed_modules(trainer.state.params,
+                            {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    n_image = (b['input_ids'] == mcfg.image_token_id).sum(-1).tolist()
+    # each row's packed patches and grid against the processor run again
+    # on the host, the row's image found by its pixels
+    proc = Idefics2NaViTProcessor(mcfg.vision,
+                                  n_latents=mcfg.perceiver.resampler_n_latents)
+    want = [proc(p) for p in images]
+    px = b['pixel_values'].cpu().numpy()
+    row_image = [next((j for j, o in enumerate(want)
+                       if np.array_equal(px[r], o['pixel_values'])), None)
+                 for r in range(shape[0])]
+    tgt = b['tgt_sizes'].cpu().tolist()
+    grids_equal = None not in row_image and all(
+        tgt[r] == want[j]['tgt_sizes'].tolist()
+        for r, j in enumerate(row_image))
+    losses = [s['train/loss'] for s in steps]
+    step_s, tps = step_report('phase43', steps, shape, 'train/loss')
+    layers = mcfg.text.num_layers
+    # a step: the trunk's forward for the policy and the reference, its
+    # backward ('save_flash' keeps the kernel's output); the tower's and
+    # the perceiver's attention are plain PyTorch, as in JAX
+    need = {'fwd': IDEFICS2_STEPS * 2 * layers,
+            'bwd': IDEFICS2_STEPS * layers}
+    vc, tc = mcfg.vision, mcfg.text
+    n['tower_matmul'] = (vc.num_hidden_layers
+                         * (4 * vc.hidden_size ** 2 + 2 * vc.hidden_size
+                            * vc.intermediate_size)
+                         + 3 * vc.patch_size ** 2 * vc.hidden_size)
+    n['projection'] = 3 * vc.hidden_size * tc.mlp_dim
+    flops = idefics2_step_flops(mcfg, n, shape, tgt)
+    mfu = flops['padded'][0] / step_s / PEAK_FLOPS[torch.bfloat16]
+    mfu_valid = flops['valid'][0] / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f'phase43 Idefics2 TI2T DPO: batch {shape} with pixel_values '
+        f'{tuple(b["pixel_values"].shape)}, tgt_sizes {tgt} (valid patches '
+        f'{[h * w for h, w in tgt]} of {vc.patches_per_side ** 2} slots); '
+        f'grids and patches equal to the host processor\'s: {grids_equal}; '
+        f'image tokens a row {n_image} (the perceiver\'s '
+        f'{mcfg.perceiver.resampler_n_latents}; the hash tokenizer may add '
+        f'more, R12); frozen {frozen} (the tree holds {sorted(moved)}: R37); '
+        f'remat {tc.remat}, compute {tc.compute_dtype} (the tower and the '
+        f'connector in their params\' fp32, as JAX promotes); trainer_main '
+        f'{total_s:.2f} s (load {timing["load_s"]:.2f} s, {len(steps)} '
+        f'steps); step time {step_s:.4f} s (step 2), {tps:.1f} tokens/s, MFU '
+        f'{mfu:.4f} over the padded slots ({flops["padded"][0] / 1e12:.2f} '
+        f'TFLOP a step, the tower and connector '
+        f'{flops["padded"][1] / 1e12:.2f}), {mfu_valid:.4f} over the valid '
+        f'patches ({flops["valid"][0] / 1e12:.2f} TFLOP), against 989 '
+        f'TFLOP/s; peak memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB '
+        f'resident before); modules moved {moved}; flash launches fwd '
+        f'{launches["fwd"]} (need {need["fwd"]}) bwd {launches["bwd"]} (need '
+        f'{need["bwd"]}); card {smi}')
+    if len(steps) != IDEFICS2_STEPS or shape != (2 * IDEFICS2_PAIRS,
+                                                 IDEFICS2_BUCKET):
+        raise AssertionError(f'Idefics2 DPO: {len(steps)} steps at {shape}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'Idefics2 DPO step 1 loss {losses[0]!r} != '
+                             'ln 2')
+    if not all_finite(steps):
+        raise AssertionError('Idefics2 DPO: a non-finite metric')
+    if min(n_image) < mcfg.perceiver.resampler_n_latents:
+        raise AssertionError(f'Idefics2 DPO: image tokens a row {n_image}')
+    if not grids_equal:
+        raise AssertionError('Idefics2 DPO: the packed patches or grids are '
+                             'not the processor\'s')
+    if moved != {'vision_model': True, 'language_model': True,
+                 'connector': True}:
+        raise AssertionError(f'Idefics2 DPO: modules moved {moved}; under '
+                             'R37 the tower and connector train')
+    check_launches('Idefics2 DPO', launches, need, exact=True)
+
+    # step 1 recomputed from the checkpoint with the plain attention, in
+    # bf16 compute and in fp32
+    with idefics2_in_memory(ckpt, tensors):
+        params, _ = idefics2.load_idefics2_params(ckpt, device=dev)
+    sums = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            sums[dtype] = masked_sums(idefics2.token_logprobs(
+                params, mcfg.replace(compute_dtype=dtype), b['input_ids'],
+                attention_mask=b['attention_mask'],
+                pixel_values=b['pixel_values'], tgt_sizes=b['tgt_sizes']),
+                b['response_mask'])
+    del params, tensors
+    free_memory()
+    log('phase43 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'],
+                                       sums['bfloat16'], sums['float32'])
+        + '; ' + check_sums('reference', first['ref_sums'], sums['bfloat16'],
+                            sums['float32']))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase43 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase, '
+        f'{disk_written():.3f} GB by the run so far')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'mfu': mfu, 'mfu_valid': mfu_valid, 'peak_gb': peak / 1e9,
+            'images': images}
+
+
+def idefics2_generation(cfg, params: dict, images: list, dev) -> dict:
+    """Greedy ``generate`` of ``IDEFICS2_GEN_NEW`` tokens from two image
+    prompts, the packed images in the prefill (``media={'tgt_sizes':
+    ...}``) and ``idefics2.forward`` as both prefill and step, in fp32
+    compute: each generated id is the argmax of a no-cache forward over
+    the grown sequence.  ``cached`` is the flash launches counted from the
+    caller's reset to the end of ``generate``."""
+    from align_anything_tpu_torch.data.image import Idefics2NaViTProcessor  # noqa: PLC0415
+    from align_anything_tpu_torch.generation import generate  # noqa: PLC0415
+    from align_anything_tpu_torch.models import idefics2  # noqa: PLC0415
+
+    gcfg = cfg.replace(compute_dtype='float32')
+    proc = Idefics2NaViTProcessor(
+        gcfg.vision, n_latents=gcfg.perceiver.resampler_n_latents)
+    outs = [proc(p) for p in images]
+    px = torch.as_tensor(np.stack([o['pixel_values'] for o in outs]),
+                         device=dev)
+    tgt = torch.as_tensor(np.stack([o['tgt_sizes'] for o in outs]),
+                          device=dev)
+    rng = np.random.default_rng(SEED + 445)
+    lat = gcfg.perceiver.resampler_n_latents
+    top = min(30000, gcfg.vocab_size)
+    prompts = [[1] + list(rng.integers(3, top, 5))
+               + [gcfg.image_token_id] * lat + list(rng.integers(3, top, 9))
+               for _ in images]
+    ids = torch.as_tensor(prompts, device=dev)
+    mask = torch.ones_like(ids)
+    gen = GenerationConfig(max_new_tokens=IDEFICS2_GEN_NEW, greedy=True,
+                           eos_token_id=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, gcfg, gen, ids, mask, pixel_values=px,
+                   media={'tgt_sizes': tgt},
+                   prefill_forward=idefics2.forward,
+                   step_forward=idefics2.forward)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    cached = flash_counts()
+    seqs, p = out['sequences'], ids.shape[1]
+    agree = 0
+    with torch.no_grad():
+        for t in range(IDEFICS2_GEN_NEW):
+            logits = idefics2.forward(params, gcfg, seqs[:, :p + t],
+                                      pixel_values=px,
+                                      tgt_sizes=tgt).logits[:, -1]
+            agree += int((logits.argmax(-1) == seqs[:, p + t]).sum())
+    return {'gen_s': gen_s, 'agree': agree,
+            'total': IDEFICS2_GEN_NEW * len(images), 'tgt': tgt.tolist(),
+            'ids': seqs[:, p:].tolist(), 'cached': cached}
+
+
+def idefics2_small(dev, smi, tmp: str, images: list) -> dict:
+    """Phase 44: at phase 10's text widths (2 layers) under the published
+    tower cut to 2 layers and the published perceiver, through the entry
+    points' ``trainer_main``: TI2T SFT (2 steps), KTO, ORPO and SimPO one
+    step each; greedy ``generate`` with ``media={'tgt_sizes': ...}``; the
+    export's refusal at start-up (R36); the fixed-square tower against
+    the packed one on a full grid.  ``images`` are phase 43's PNG files.
+    Its flash launches, each exact: the four trainers', none in the cached
+    ``generate`` and one forward a text layer in each of the generation
+    check's no-cache forwards."""
+    from align_anything_tpu_torch.models import idefics2  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
+        kto, orpo, simpo)
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+    from align_anything_tpu_torch.trainers.text_image_to_text.sft import (  # noqa: PLC0415
+        TI2TSupervisedTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    ckpt, tensors, n, _ = idefics2_assets(tmp, 'idefics2_small', True,
+                                          SEED + 440, dev)
+    sft_data = write_jsonl(os.path.join(tmp, 'sft_idefics2.jsonl'),
+                           ti2t_rows(images, SEED + 441, preference=False))
+    pref_data = write_jsonl(os.path.join(tmp, 'pref_idefics2_small.jsonl'),
+                            ti2t_rows(images, SEED + 442, preference=True))
+    layers = SMALL['layers']
+    b = 2
+    common = ['--model_name_or_path', ckpt, '--train_template', 'AA_TI2T',
+              '--save_checkpoint', 'False', '--epochs', '1',
+              '--per_device_train_batch_size', str(b), '--padding_buckets',
+              f'[{IDEFICS2_BUCKET}]', '--learning_rate', '1e-4']
+    one_step = ['--train_datasets', pref_data, '--train_size', str(b)]
+    sft_steps = len(images) // b
+    runs = (
+        # (tag, class, task, argv, launches: the trunk's forward and
+        # backward a step ('save_flash' keeps the kernel's output); KTO's
+        # reference too, and its KL estimate at start-up two text-only
+        # passes (R14))
+        ('SFT', TI2TSupervisedTrainer, 'text_image_to_text/sft',
+         [*common, '--train_datasets', sft_data],
+         {'fwd': sft_steps * layers, 'bwd': sft_steps * layers}),
+        ('KTO', kto.TI2TKTOTrainer, 'text_to_text/kto',
+         [*common, *one_step, '--per_device_kl_batch_size', str(b)],
+         {'fwd': 2 * layers + 2 * layers, 'bwd': layers}),
+        ('ORPO', orpo.TI2TORPOTrainer, 'text_to_text/orpo',
+         [*common, *one_step], {'fwd': layers, 'bwd': layers}),
+        ('SimPO', simpo.TI2TSimPOTrainer, 'text_to_text/simpo',
+         [*common, *one_step], {'fwd': layers, 'bwd': layers}))
+    total = {'fwd': 0, 'bwd': 0}
+    with idefics2_in_memory(ckpt, tensors):
+        for tag, cls, task, argv, need in runs:
+            torch.cuda.synchronize()
+            reset_flash_counts()
+            t0 = time.perf_counter()
+            trainer, steps, _ = run_ti2t(cls, task, argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = flash_counts()
+            losses = [m['train/loss'] for m in steps]
+            log(f'phase44 Idefics2 {tag}: model {trainer.mm.__name__}; '
+                f'{len(steps)} steps, train/loss {losses}; trainer_main '
+                f'{seconds:.2f} s; flash launches fwd {launches["fwd"]} '
+                f'(need {need["fwd"]}) bwd {launches["bwd"]} (need '
+                f'{need["bwd"]}); card {smi}')
+            if (not trainer.mm.__name__.endswith('.idefics2') or not steps
+                    or not all_finite(steps)):
+                raise AssertionError(f'Idefics2 {tag}: {trainer.mm.__name__}'
+                                     ', no step, or a non-finite metric')
+            check_launches(f'Idefics2 {tag}', launches, need, exact=True)
+            for k in total:
+                total[k] += launches[k]
+            del trainer
+            free_memory()
+        # R36: an output dir fails at start-up, before any step, and
+        # writes nothing
+        out = os.path.join(tmp, 'idefics2_export')
+        reset_flash_counts()
+        try:
+            run_ti2t(TI2TDPOTrainer, 'text_image_to_text/dpo',
+                     [*common, *one_step, '--output_dir', out])
+            refused = None
+        except NotImplementedError as err:
+            refused = str(err)
+        wrote = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        params, cfg = idefics2.load_idefics2_params(ckpt, device=dev)
+    log(f'phase44 Idefics2 DPO with --output_dir: refused at start-up: '
+        f'{refused!r}; flash launches {flash_counts()}; slices written '
+        f'{[w for w in wrote if w.startswith("slice_")]}')
+    if (refused is None or 'R36' not in refused
+            or any(w.startswith('slice_') for w in wrote)
+            or flash_counts() != {'fwd': 0, 'bwd': 0}):
+        raise AssertionError('Idefics2: an export was not refused at '
+                             'start-up (ROADMAP R36)')
+    reset_flash_counts()
+    gen = idefics2_generation(cfg, params, images[:2], dev)
+    launches = flash_counts()
+    for k in total:
+        total[k] += launches[k]
+    need = {'fwd': IDEFICS2_GEN_NEW * layers, 'bwd': 0}
+    log(f'phase44 Idefics2 generate (fp32 compute, {IDEFICS2_GEN_NEW} new '
+        f'tokens from 2 image prompts of grids {gen["tgt"]}, tgt_sizes in '
+        f'the prefill): {gen["gen_s"]:.3f} s; ids equal to the argmax of '
+        f'the no-cache forward over the grown sequence '
+        f'{gen["agree"]}/{gen["total"]}; ids {gen["ids"]}; flash launches '
+        f'in generate {gen["cached"]} (need none), with the no-cache '
+        f'forwards {launches} (need {need})')
+    if gen['agree'] != gen['total']:
+        raise AssertionError('Idefics2 generate: ids off the no-cache argmax')
+    check_launches('Idefics2 generate (cached)', gen['cached'],
+                   {'fwd': 0, 'bwd': 0}, exact=True)
+    check_launches('Idefics2 generate and its no-cache forwards', launches,
+                   need, exact=True)
+    # the fixed-square tower against the packed one on the full 70 x 70
+    # grid of a 980 px image (fp32)
+    vc = cfg.vision
+    img = torch.randn((1, 3, vc.image_size, vc.image_size),
+                      generator=torch.Generator(device=dev).manual_seed(
+                          SEED + 446), device=dev)
+    side, p = vc.patches_per_side, vc.patch_size
+    packed = img.reshape(1, 3, side, p, side, p).permute(0, 2, 4, 1, 3, 5) \
+        .reshape(1, side * side, 3 * p * p)
+    with torch.no_grad():
+        fixed = idefics2.vision_forward(params['vision_model'], vc, img)
+        navit = idefics2.vision_forward_packed(
+            params['vision_model'], vc, packed,
+            torch.tensor([[side, side]], device=dev))
+    err = float((fixed - navit).abs().max())
+    scale = float(fixed.abs().max())
+    log(f'phase44 Idefics2 tower on a full {side} x {side} grid: the conv '
+        f'path against the packed path max|diff| {err:.3e} (max|out| '
+        f'{scale:.3e}; limit 1e-4 x max)')
+    if not err <= 1e-4 * scale:
+        raise AssertionError('Idefics2: the fixed-square and packed towers '
+                             'disagree on a full grid')
+    del params, tensors, fixed, navit
+    free_memory()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase44 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase; params '
+        f'language_model {n["language_model"] / 1e9:.3f} B, vision_model '
+        f'{n["vision_model"] / 1e9:.3f} B, connector '
+        f'{n["connector"] / 1e9:.3f} B')
+    return {'launches': total}
+
+
 # phases 22-23: LoRA and QLoRA through the trainers' entry points.  Phase
 # 22 runs DPO at Llama-3-8B's full size, all 32 layers, from the port's
 # 'llama-3-8b' preset (fp32 weights drawn from the trainer's seed on the
@@ -8221,6 +8805,8 @@ def profile_mllama(dev, smi, tmp: str) -> None:
     the cross layer alone (the same two ways): their shares of the step's
     device time."""
     from align_anything_tpu_torch.models import mllama  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.attention import (  # noqa: PLC0415
+        chunked_masked_attention)
     from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
     from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
         TI2TDPOTrainer)
@@ -8275,7 +8861,7 @@ def profile_mllama(dev, smi, tmp: str) -> None:
 
     def attention(grad: bool):
         for _ in range(n_layers):
-            out = mllama.vision_attention(q, k, v, invalid)
+            out = chunked_masked_attention(q, k, v, invalid, invalid)
             if grad:
                 torch.autograd.grad(out.float().sum(), (q, k, v))
 
@@ -8314,6 +8900,121 @@ def profile_mllama(dev, smi, tmp: str) -> None:
         f'layer {t_cross:.4f} s ({t_cross / step_busy:.4f}) of the step\'s '
         f'device time; card {smi}')
     del trainer, params, prof, q, k, v, x, states
+    free_memory()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def profile_idefics2(dev, smi, tmp: str) -> None:
+    """``--profile idefics2``: one Idefics2 DPO step of phase 43's config
+    after a warm-up step, traced whole; then, over that step's rows, the
+    packed tower forward and backward (the policy's pass) and forward
+    without gradients (the reference's), the tower's plain attention alone
+    at its shapes (its 27 layers, the same two ways) and the connector
+    alone (the same two ways): their shares of the step's device time.
+    The trunk (with the vocab projection) and the optimizer are the rest."""
+    from align_anything_tpu_torch.models import idefics2  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.attention import (  # noqa: PLC0415
+        chunked_masked_attention)
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    ckpt, tensors, _, _ = idefics2_assets(tmp, 'idefics2_8b', False,
+                                          SEED + 430, dev)
+    images = png_images(tmp, IDEFICS2_SIZES, SEED + 431)
+    data = write_jsonl(os.path.join(tmp, 'pref_idefics2.jsonl'),
+                       ti2t_rows(images, SEED + 432, preference=True))
+    cfgs, pc = parse_cfgs('text_image_to_text/dpo', [
+        '--model_name_or_path', ckpt, '--train_datasets', data,
+        '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+        '--epochs', '1', '--per_device_train_batch_size',
+        str(IDEFICS2_PAIRS), '--padding_buckets', f'[{IDEFICS2_BUCKET}]'])
+    with idefics2_in_memory(ckpt, tensors):
+        trainer = TI2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    del tensors
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    step_busy = report_trace('idefics2 dpo step', prof, wall, smi)
+    db = trainer.put_batch(batch)
+    params, mcfg = trainer.state.params, trainer.model_cfg
+    vc, c = mcfg.vision, mcfg.text
+    px, tgt = db['pixel_values'], db['tgt_sizes']
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    def tower(grad: bool):
+        out = idefics2.vision_forward_packed(
+            params['vision_model'], vc, px, tgt,
+            remat=c.remat if grad else 'none')
+        if grad:
+            out.float().sum().backward()
+        return out
+
+    _, prof, wall = traced(lambda: tower(True))
+    t_tower = report_trace('idefics2 tower, forward + backward', prof, wall,
+                           smi)
+    for t in param_leaves(params):
+        t.grad = None
+    feats, prof, wall = traced(no_grad(lambda: tower(False)))
+    t_tower += report_trace('idefics2 tower, forward, no grad', prof, wall,
+                            smi)
+    feats = feats.detach()
+    rows, slots = feats.shape[:2]
+    valid = idefics2.patch_mask(tgt, slots)
+    q_gate, k_invalid = torch.ones_like(valid.float()), 1.0 - valid.float()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 435)
+    hd = vc.hidden_size // vc.num_attention_heads
+    q, k, v = (torch.randn((rows, slots, vc.num_attention_heads, hd),
+                           generator=gen, device=dev).requires_grad_(True)
+               for _ in range(3))
+
+    def attention(grad: bool):
+        for _ in range(vc.num_hidden_layers):
+            out = chunked_masked_attention(q, k, v, q_gate, k_invalid)
+            if grad:
+                torch.autograd.grad(out.sum(), (q, k, v))
+
+    _, prof, wall = traced(lambda: attention(True))
+    t_attn = report_trace(f'idefics2 tower attention x '
+                          f'{vc.num_hidden_layers}, forward + backward',
+                          prof, wall, smi, top=8)
+    _, prof, wall = traced(no_grad(lambda: attention(False)))
+    t_attn += report_trace(f'idefics2 tower attention x '
+                           f'{vc.num_hidden_layers}, forward', prof, wall,
+                           smi, top=8)
+
+    def connector(grad: bool):
+        out = idefics2.connector_forward(params['connector'],
+                                         mcfg.perceiver, feats, c.norm_eps,
+                                         patch_mask=valid)
+        if grad:
+            out.float().sum().backward()
+
+    _, prof, wall = traced(lambda: connector(True))
+    t_conn = report_trace('idefics2 connector, forward + backward', prof,
+                          wall, smi, top=8)
+    for t in param_leaves(params):
+        t.grad = None
+    _, prof, wall = traced(no_grad(lambda: connector(False)))
+    t_conn += report_trace('idefics2 connector, forward, no grad', prof,
+                           wall, smi, top=8)
+    rest = step_busy - t_tower - t_conn
+    valid_share = float(valid.float().mean())
+    log(f'profile idefics2: device busy a step {step_busy:.4f} s; the tower '
+        f'(policy and reference passes over {rows} rows of {slots} slots, '
+        f'{valid_share:.4f} of them valid patches) {t_tower:.4f} s '
+        f'({t_tower / step_busy:.4f}); its plain attention at D {hd} '
+        f'{t_attn:.4f} s ({t_attn / step_busy:.4f}); the connector (the '
+        f'modality projection and the perceiver) {t_conn:.4f} s '
+        f'({t_conn / step_busy:.4f}); the rest (the trunk through the '
+        f'kernels, the vocab projection, the optimizer) {rest:.4f} s '
+        f'({rest / step_busy:.4f}) of the step\'s device time; card {smi}')
+    del trainer, params, prof, q, k, v, feats
     free_memory()
     shutil.rmtree(ckpt, ignore_errors=True)
 
@@ -8451,7 +9152,7 @@ def main() -> int:
     libs = build_kernels()
     if sys.argv[1:2] == ['--profile']:
         which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora', 'gemma3',
-                                 'qwen2vl', 'ta2t', 'mllama']
+                                 'qwen2vl', 'ta2t', 'mllama', 'idefics2']
         if 'dpo' in which:
             profile_dpo(dev, smi)
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
@@ -8461,7 +9162,8 @@ def main() -> int:
                              ('gemma3', profile_gemma3),
                              ('qwen2vl', profile_qwen2_vl),
                              ('ta2t', profile_ta2t),
-                             ('mllama', profile_mllama)):
+                             ('mllama', profile_mllama),
+                             ('idefics2', profile_idefics2)):
                 if name in which:
                     fn(dev, smi, tmp)
         finally:
@@ -8598,6 +9300,8 @@ def main() -> int:
         ta2t_sm = ta2t_small(dev, smi, tmp)
         mllama_dpo = mllama_dpo_full(dev, smi, tmp)
         mllama_sm = mllama_small(dev, smi, tmp, mllama_dpo['images'])
+        ide_dpo = idefics2_dpo_full(dev, smi, tmp)
+        ide_sm = idefics2_small(dev, smi, tmp, ide_dpo['images'])
         moe_serve = moe_serving(dev, smi)
         moe_train = moe_sft(dev, smi, tmp)
         moe_sm = moe_small(dev, smi, tmp)
@@ -8623,8 +9327,8 @@ def main() -> int:
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
                  ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, anyres, tv2t,
                  lnext_small, qwen_dpo, qwen_small, ta2t_dpo, ta2t_sm,
-                 mllama_dpo, mllama_sm, moe_serve, moe_train, moe_sm, qlora4,
-                 qlora8, lora, gemma, gemma_gen, remat, saves)
+                 mllama_dpo, mllama_sm, ide_dpo, ide_sm, moe_serve, moe_train,
+                 moe_sm, qlora4, qlora8, lora, gemma, gemma_gen, remat, saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -8693,7 +9397,12 @@ def main() -> int:
                              'layers: the 4 self-attention layers, the '
                              'tower and cross layer run no kernel) + phase '
                              '39 (Mllama SFT, KTO, ORPO and SimPO, small) '
-                             '+ phase 40 (qwen3-moe-30b-a3b at 24 layers: '
+                             '+ phase 43 (2 Idefics2 DPO steps at '
+                             'idefics2-8b widths, text 4 layers: the trunk '
+                             'only, the 27-layer tower and the perceiver '
+                             'run no kernel) + phase 44 (Idefics2 SFT, KTO, '
+                             'ORPO and SimPO, small, and the no-cache '
+                             'forwards of its generation check) + phase 40 (qwen3-moe-30b-a3b at 24 layers: '
                              'three prefill forwards without a cache) + '
                              'phase 41 (2 + 2 SFT steps at its widths, 4 '
                              'layers, and 22 forwards of bench.py\'s MoE '
@@ -8715,7 +9424,7 @@ def main() -> int:
         'launches_are': 'phase 4 (48 requests served, dense) + phase 28 '
                         '(the first 32 of them paged, on half the pool, and '
                         'with a shared prefix dense and paged) + phase 29 '
-                        '(bench_int4_7b run, int4 dense and paged at 128 '
+                        '(bench_int4_7b run, int4 dense and paged at 32 '
                         'slots, o flattened; int8 runs no K2) + phase 40 '
                         '(qwen3-moe-30b-a3b at 24 layers: q, k, v and the '
                         'head of 8 requests through generate and the '

@@ -27,7 +27,7 @@ for name in names:
 # the HTTP server and the 8B int4 / int8 serving bench, the video data and
 # the text-video-to-text trainers, the Qwen2-VL and Qwen2.5-VL models, the
 # audio frontend, the Qwen2-Audio model, the audio data, the
-# text-audio-to-text trainers and the Mllama model
+# text-audio-to-text trainers, the Mllama model and the Idefics2 model
 for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'utils.logger', 'utils.profiling', 'data.tokenizer',
              'data.template_registry', 'data.chat_template',
@@ -68,7 +68,8 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'trainers.text_audio_to_text.dpo',
              'trainers.text_audio_to_text.rm',
              'trainers.text_audio_to_text.ppo',
-             'trainers.text_audio_to_text.grpo', 'models.mllama'):
+             'trainers.text_audio_to_text.grpo', 'models.mllama',
+             'models.idefics2'):
     assert 'align_anything_tpu_torch.' + name in names, name
 # the mixture-of-experts functions of the decoder and its configs
 from align_anything_tpu_torch.models import config, transformer
@@ -113,6 +114,7 @@ def test_port_imports_no_jax():
     'align_anything_tpu_torch.trainers.text_audio_to_text.dpo',
     'align_anything_tpu_torch.trainers.text_audio_to_text.grpo',
     'align_anything_tpu_torch.models.mllama',
+    'align_anything_tpu_torch.models.idefics2',
 ])
 def test_kernel_module_imports_first(module):
     """A module that holds a kernel, or a trainer's entry point, imports on

@@ -34,6 +34,7 @@ from align_anything_tpu_torch.trainers import cli as tcli  # noqa: E402
 from align_anything_tpu_torch.trainers.text_to_text import (  # noqa: E402
     kto as tkto,
 )
+from test_torch_rl_trainers import one_compile  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_DEVICES = 8
@@ -109,7 +110,7 @@ def test_kto_steps_match_jax(assets, tmp_path, one_thread):
 
     cfgs, pc = jcli.parse_cfgs('text_to_text/kto',
                                _argv(assets, tmp_path / 'jax', 1))
-    jtrainer = KTOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    jtrainer = one_compile(KTOTrainer(cfgs=cfgs, parallel_cfgs=pc))
     cfgs, pc = tcli.parse_cfgs('text_to_text/kto',
                                _argv(assets, tmp_path / 'port', JAX_DEVICES))
     trainer = tkto.KTOTrainer(cfgs=cfgs, parallel_cfgs=pc, device='cpu')

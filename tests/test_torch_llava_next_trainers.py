@@ -34,6 +34,7 @@ from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: E402
     simpo as tsimpo,
 )
 from test_torch_llava_next import IMAGE_TOKEN, _hf_config  # noqa: E402
+from test_torch_rl_trainers import one_compile  # noqa: E402
 from test_torch_ti2t_trainers import (  # noqa: E402
     JAX_DEVICES,
     _compare,
@@ -120,7 +121,7 @@ def _pair(assets, algo, tmp_path, monkeypatch):
             'simpo': simpo.TI2TSimPOTrainer}[algo]
     cfgs, pc = jcli.parse_cfgs(TASK[algo],
                                _argv(assets, algo, tmp_path / 'jax', 1))
-    jtrainer = jcls(cfgs=cfgs, parallel_cfgs=pc)
+    jtrainer = one_compile(jcls(cfgs=cfgs, parallel_cfgs=pc))
     cfgs, pc = tcli.parse_cfgs(
         TASK[algo], _argv(assets, algo, tmp_path / 'port', JAX_DEVICES))
     return jtrainer, PORT[algo](cfgs=cfgs, parallel_cfgs=pc, device='cpu')

@@ -82,7 +82,11 @@ from align_anything_tpu_torch.trainers.text_video_to_text import (  # noqa: E402
     rm as trm,
     sft as tsft,
 )
-from test_torch_rl_trainers import NEW_TOKENS, _leaves  # noqa: E402
+from test_torch_rl_trainers import (  # noqa: E402
+    NEW_TOKENS,
+    _leaves,
+    one_compile,
+)
 from test_torch_ti2t_trainers import IMAGE_TOKEN  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -491,7 +495,7 @@ def test_r26_video_dropped_in_both(assets, tmp_path):
 
     argv = _argv(assets, tmp_path)
     cfgs, pc = jcli.parse_cfgs('text_video_to_text/dpo', argv)
-    jtrainer = TV2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    jtrainer = one_compile(TV2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc))
     cfgs, pc = tcli.parse_cfgs('text_video_to_text/dpo', argv)
     trainer = tdpo.TV2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc, device='cpu')
     batch = next(trainer.train_iterator.epoch_batches(0))

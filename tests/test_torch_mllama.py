@@ -51,6 +51,7 @@ from align_anything_tpu_torch.models.hf_loader import (  # noqa: E402
     load_mllama_params as tload,
     save_mllama_params as tsave,
 )
+from align_anything_tpu_torch.ops import attention as tattn  # noqa: E402
 from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: E402
     sft as tsft,
 )
@@ -247,9 +248,11 @@ def test_vision_tower_matches_jax(mll):
 
 
 def test_chunked_attention_matches_one_chunk(mll, monkeypatch):
-    """``vision_attention`` in chunks of 8 queries (two chunks a row) and
-    in one: the same output and the same gradients of q, k and v, which
-    autograd of the plain expression also gives."""
+    """The tower's attention (``ops/attention.py``
+    ``chunked_masked_attention`` with the both-invalid bias) in chunks of 8
+    queries (two chunks a row) and in one: the same output and the same
+    gradients of q, k and v, which autograd of the plain expression also
+    gives."""
     rng = np.random.default_rng(2)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 16, 4, 8)).astype(
         np.float32)).requires_grad_(True) for _ in range(3))
@@ -259,13 +262,13 @@ def test_chunked_attention_matches_one_chunk(mll, monkeypatch):
         np.float32))
     runs = {}
     for name, elems in (('chunked', 1), ('one', 1 << 28)):
-        monkeypatch.setattr(tm, 'VISION_ATTN_CHUNK_ELEMS', elems)
-        out = tm.vision_attention(q, k, v, invalid)
+        monkeypatch.setattr(tattn, 'CHUNKED_ATTN_ELEMS', elems)
+        out = tattn.chunked_masked_attention(q, k, v, invalid, invalid)
         runs[name] = (out,) + torch.autograd.grad(out, (q, k, v), dout)
-    assert tm._chunk_rows(2, 16, 4) == 16
-    monkeypatch.setattr(tm, 'VISION_ATTN_CHUNK_ELEMS', 1)
-    assert tm._chunk_rows(2, 16, 4) == 8
-    plain = tm._attend_chunk(q, k.float(), v, invalid, invalid)
+    assert tattn._chunk_rows(2, 16, 4) == 16
+    monkeypatch.setattr(tattn, 'CHUNKED_ATTN_ELEMS', 1)
+    assert tattn._chunk_rows(2, 16, 4) == 8
+    plain = tattn._masked_attend_chunk(q, k.float(), v, invalid, invalid)
     runs['plain'] = (plain,) + torch.autograd.grad(plain, (q, k, v), dout)
     for name in ('chunked', 'plain'):
         for got, want in zip(runs[name], runs['one']):

@@ -426,7 +426,7 @@ def test_export_bf16(llava, tmp_path):
     assert hf['torch_dtype'] == 'bfloat16'
 
 
-@pytest.mark.parametrize('model_type', ['qwen2_vl', 'idefics2'])
+@pytest.mark.parametrize('model_type', ['qwen2_vl', 'minicpmv'])
 def test_load_refuses_llava_next(tmp_path, model_type):
     """A vision-LM family still unported raises and names the ROADMAP
     item (LLaVA-Next and -Video load since they were ported)."""

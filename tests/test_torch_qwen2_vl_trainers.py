@@ -46,6 +46,7 @@ from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: E402
 from align_anything_tpu_torch.utils.tools import param_leaves  # noqa: E402
 from test_torch_qwen2_5_vl import hf_qwen2_5_vl_config  # noqa: E402
 from test_torch_qwen2_vl import IMG, hf_qwen2_vl_config  # noqa: E402
+from test_torch_rl_trainers import one_compile  # noqa: E402
 from test_torch_ti2t_trainers import _compare, _leaves, _steps  # noqa: E402
 
 JAX_DEVICES = 8
@@ -164,7 +165,7 @@ def _jax(assets, algo, out, monkeypatch, extra=()):
            'kto': kto.TI2TKTOTrainer, 'orpo': orpo.TI2TORPOTrainer,
            'simpo': simpo.TI2TSimPOTrainer}[algo]
     cfgs, pc = jcli.parse_cfgs(TASK[algo], _argv(assets, algo, out, 1, extra))
-    return cls(cfgs=cfgs, parallel_cfgs=pc)
+    return one_compile(cls(cfgs=cfgs, parallel_cfgs=pc))
 
 
 def _params_match(trainer, jtrainer):

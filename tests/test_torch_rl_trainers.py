@@ -192,13 +192,46 @@ def _scaled(argv: list, keys: tuple) -> list:
     return out
 
 
+def one_compile(jtrainer):
+    """``jtrainer``, a JAX trainer, with the optimizer moments of each of
+    its train states placed as their params are placed.  JAX's init
+    replicates the moments and its step returns them sharded like the
+    params, so the jitted step would compile again at the second update;
+    placed so up front, it compiles once.  No value changes."""
+    import dataclasses as dc
+
+    import jax
+    from align_anything_tpu.trainers.base import TrainState
+
+    keystr = jax.tree_util.keystr
+    for name, state in list(vars(jtrainer).items()):
+        if not isinstance(state, TrainState):
+            continue
+        placed = [(keystr(p), x.shape, x.sharding) for p, x in
+                  jax.tree_util.tree_flatten_with_path(state.params)[0]
+                  if hasattr(x, 'sharding')]
+        placed.sort(key=lambda e: -len(e[0]))     # the longest suffix first
+
+        def place(path, x, placed=placed):
+            key = keystr(path)
+            for suffix, shape, sharding in placed:
+                if key.endswith(suffix) and getattr(x, 'shape', None) == shape:
+                    return jax.device_put(x, sharding)
+            return x
+
+        setattr(jtrainer, name, dc.replace(
+            state, opt_state=jax.tree_util.tree_map_with_path(
+                place, state.opt_state)))
+    return jtrainer
+
+
 def _both(jax_cls, port_cls, task, argv, scaled_keys):
     """(JAX trainer, port trainer) built from the same overrides; the
     port's ``--output_dir`` gets a ``port`` subdirectory."""
     from align_anything_tpu.trainers import cli as jcli
 
     cfgs, pc = jcli.parse_cfgs(task, argv)
-    jtrainer = jax_cls(cfgs=cfgs, parallel_cfgs=pc)
+    jtrainer = one_compile(jax_cls(cfgs=cfgs, parallel_cfgs=pc))
     argv = _scaled(argv, scaled_keys)
     i = argv.index('--output_dir') + 1
     argv[i] = os.path.join(argv[i], 'port')

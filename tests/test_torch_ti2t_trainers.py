@@ -55,6 +55,7 @@ from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: E402
     simpo as tsimpo,
 )
 from align_anything_tpu_torch.utils.tools import param_leaves  # noqa: E402
+from test_torch_rl_trainers import one_compile  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_DEVICES = 8
@@ -156,7 +157,7 @@ def _jax(assets, algo, out, monkeypatch, extra=()):
            'kto': kto.TI2TKTOTrainer, 'orpo': orpo.TI2TORPOTrainer,
            'simpo': simpo.TI2TSimPOTrainer}[algo]
     cfgs, pc = jcli.parse_cfgs(TASK[algo], _argv(assets, algo, out, 1, extra))
-    return cls(cfgs=cfgs, parallel_cfgs=pc)
+    return one_compile(cls(cfgs=cfgs, parallel_cfgs=pc))
 
 
 def _steps(trainer, n):
@@ -476,7 +477,7 @@ def test_ti2t_loader_refuses_other_families(tmp_path):
     ROADMAP item; the LLaVA-only loader of the RM and RL trainers (JAX's
     ``load_multimodal_params``) refuses Qwen2-VL too."""
     (tmp_path / 'config.json').write_text(json.dumps(
-        {'model_type': 'idefics2'}))
+        {'model_type': 'minicpmv'}))
     with pytest.raises(NotImplementedError, match='item 12'):
         tsft.load_vision_lm(str(tmp_path), device='cpu')
     (tmp_path / 'config.json').write_text(json.dumps(

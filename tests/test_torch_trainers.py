@@ -44,6 +44,7 @@ from align_anything_tpu_torch.trainers.text_to_text.simpo import (  # noqa: E402
     SimPOTrainer,
 )
 from align_anything_tpu_torch.utils.logger import Logger  # noqa: E402
+from test_torch_rl_trainers import one_compile  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_DEVICES = 8
@@ -111,7 +112,7 @@ def _jax_metrics(assets, algo, out, extra=()):
            'orpo': orpo.ORPOTrainer, 'simpo': simpo.SimPOTrainer}[algo]
     cfgs, parallel_cfgs = jcli.parse_cfgs(
         f'text_to_text/{algo}', _argv(assets, algo, out, PER_DEVICE, extra))
-    trainer = cls(cfgs=cfgs, parallel_cfgs=parallel_cfgs)
+    trainer = one_compile(cls(cfgs=cfgs, parallel_cfgs=parallel_cfgs))
     return [trainer.train_step(b)
             for b in trainer.train_iterator.epoch_batches(0)]
 
