@@ -201,14 +201,16 @@ def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
     """HF-format ``slice_{step}`` export (reference output-layout parity) of
     a decoder param tree, or of a multimodal one in its family's layout:
     Qwen2-Audio (a config with ``audio`` and ``text``), Mllama (a config
-    with ``cross_attention_layers``), Qwen2.5-VL (a tower with
-    ``window_size``), Qwen2-VL (a tower with ``spatial_merge_size``), else
-    LLaVA, in JAX's order of checks.  An Idefics2 config raises
-    (``check_hf_slice``).  The JAX module's other multimodal savers
-    (MiniCPM-V / MiniCPM-o) are not ported."""
+    with ``cross_attention_layers``), MiniCPM-V (a config with a
+    ``resampler``), Qwen2.5-VL (a tower with ``window_size``), Qwen2-VL (a
+    tower with ``spatial_merge_size``), else LLaVA, in JAX's order of
+    checks.  An Idefics2 config raises (``check_hf_slice``).  JAX's
+    MiniCPM-o saver (a config with ``audio_pool_step``, checked before
+    ``resampler``) is not ported: the port has no MiniCPM-o config."""
     check_hf_slice(model_config)
     from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
         save_audio_params,
+        save_minicpmv_params,
         save_mllama_params,
         save_multimodal_params,
         save_params,
@@ -225,6 +227,8 @@ def save_hf_slice(output_dir: str, step: int, params: Any, model_config: Any,
         save_audio_params(path, params, model_config)
     elif hasattr(model_config, 'cross_attention_layers'):
         save_mllama_params(path, params, model_config)
+    elif hasattr(model_config, 'resampler'):
+        save_minicpmv_params(path, params, model_config)
     elif hasattr(vision, 'window_size'):
         save_qwen2_5_vl_params(path, params, model_config)
     elif hasattr(vision, 'spatial_merge_size'):

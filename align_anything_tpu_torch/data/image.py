@@ -26,8 +26,10 @@ resized between the shortest and longest edges becomes its patch rows,
 packed into a fixed count of slots, with ``tgt_sizes``, its patch grid,
 and the perceiver's latent count as its ``num_tokens``.
 
-Not ported yet, with the model and trainers that use it (ROADMAP §1 item
-12): ``MiniCPMVSliceProcessor``.
+``MiniCPMVSliceProcessor`` is MiniCPM-V's slice mode: an image becomes
+a source crop and up to ``max_slice_nums`` grid slices, each packed into a
+fixed count of patch slots with its grid in ``tgt_sizes``, and
+``num_tokens`` is the crop count times the resampler's query count.
 """
 
 from __future__ import annotations
@@ -240,6 +242,148 @@ def ensure_divide(length: float, patch_size: int) -> int:
     """Round to the nearest multiple of ``patch_size``, at least one
     patch."""
     return max(round(length / patch_size) * patch_size, patch_size)
+
+
+def find_best_resize(size_wh: tuple[int, int], scale_resolution: int,
+                     patch_size: int,
+                     allow_upscale: bool = False) -> tuple[int, int]:
+    """MiniCPM-V's best (w, h): area about ``scale_resolution ** 2`` at the
+    image's aspect (only downward unless ``allow_upscale``), both sides
+    multiples of ``patch_size``."""
+    w, h = size_wh
+    if (w * h > scale_resolution * scale_resolution) or allow_upscale:
+        r = w / h
+        h = int(scale_resolution / math.sqrt(r))
+        w = int(h * r)
+    return ensure_divide(w, patch_size), ensure_divide(h, patch_size)
+
+
+def get_sliced_grid(size_wh: tuple[int, int], max_slice_nums: int,
+                    scale_resolution: int) -> tuple[int, int] | None:
+    """(cols, rows) of MiniCPM-V's slicing grid, or None when the image
+    fits one crop: the slice counts m - 1, m, m + 1 around m = ceil(area /
+    scale ** 2) (never 1, never past ``max_slice_nums``), every
+    factorization of each, the one nearest the image's aspect in log
+    ratio (the first of equals)."""
+    w, h = size_wh
+    log_ratio = math.log(w / h)
+    multiple = min(math.ceil(w * h / scale_resolution ** 2), max_slice_nums)
+    if multiple <= 1:
+        return None
+    best, best_err = None, float('inf')
+    for num in (multiple - 1, multiple, multiple + 1):
+        if num == 1 or num > max_slice_nums:
+            continue
+        for m in range(1, num + 1):
+            if num % m:
+                continue
+            err = abs(log_ratio - math.log(m / (num // m)))
+            if err < best_err:
+                best, best_err = (m, num // m), err
+    return best
+
+
+def get_refine_size(size_wh: tuple[int, int], grid: tuple[int, int],
+                    scale_resolution: int,
+                    patch_size: int) -> tuple[int, int]:
+    """The (w, h) canvas whose grid cells each take ``find_best_resize``'s
+    size, upscaled or not."""
+    w, h = size_wh
+    cols, rows = grid
+    cell_w = ensure_divide(w, cols) / cols
+    cell_h = ensure_divide(h, rows) / rows
+    bw, bh = find_best_resize((cell_w, cell_h), scale_resolution,
+                              patch_size, allow_upscale=True)
+    return bw * cols, bh * rows
+
+
+class MiniCPMVSliceProcessor:
+    """MiniCPM-V's adaptive slicing (slice mode) on the host, as JAX's: a
+    source crop resized to about ``scale_resolution ** 2`` (upscaled when
+    the image fits one crop), then, when ``get_sliced_grid`` finds a grid,
+    the refined canvas cut into its cells, row by row; every resize Pillow
+    BICUBIC.  Each crop is normalized with the 0.5 / 0.5 mean and std and
+    packed row-major, each patch flattened channel-major as the conv's
+    OIHW kernel; a crop with a side past ``max_grid_side`` patches is
+    resized down to it first.  A crop's patches past ``max_patches`` are
+    cut, but its ``tgt_sizes`` keeps the whole grid, as JAX's does.
+
+    Returns ``{'pixel_values': (1 + max_slice_nums, max_patches, 3*p*p),
+    'tgt_sizes': (1 + max_slice_nums, 2) the (h, w) grids, zero for unused
+    crops, 'num_tokens': n_crops * query_num}``: the resampler turns every
+    crop into ``query_num`` tokens."""
+
+    dynamic = True
+
+    def __init__(self, vcfg, query_num: int = 64,
+                 scale_resolution: int = 448, max_slice_nums: int = 9,
+                 max_grid_side: int | None = None):
+        self.patch_size = vcfg.patch_size
+        self.query_num = query_num
+        self.scale_resolution = scale_resolution
+        self.max_slice_nums = max_slice_nums
+        self.num_crops = 1 + max_slice_nums
+        # the resampler's sincos table is (max_size, max_size): a wider
+        # grid is resized down to it
+        self.max_grid_side = max_grid_side
+        side_cap = (max_grid_side if max_grid_side is not None
+                    else scale_resolution // vcfg.patch_size + 1)
+        self.max_patches = min((scale_resolution // vcfg.patch_size + 1)
+                               ** 2, side_cap * side_cap)
+
+    @property
+    def num_patches(self) -> int:
+        """The most image tokens an image expands to."""
+        return self.num_crops * self.query_num
+
+    def _pack(self, arr: np.ndarray) -> tuple[np.ndarray, tuple[int, int]]:
+        """(H, W, 3) uint8 -> ((h*w, 3*p*p) float32, (h, w))."""
+        p = self.patch_size
+        cap = self.max_grid_side
+        if cap is not None and max(arr.shape[:2]) > cap * p:
+            from PIL import Image as PILImage  # noqa: PLC0415
+
+            nh = min(arr.shape[0], cap * p)
+            nw = min(arr.shape[1], cap * p)
+            nh, nw = ensure_divide(nh, p), ensure_divide(nw, p)
+            arr = np.asarray(PILImage.fromarray(arr).resize(
+                (nw, nh), PILImage.BICUBIC))
+        x = (arr.astype(np.float32) / 255.0 - 0.5) / 0.5
+        hg, wg = arr.shape[0] // p, arr.shape[1] // p
+        x = x.transpose(2, 0, 1).reshape(3, hg, p, wg, p)
+        return (x.transpose(1, 3, 0, 2, 4).reshape(hg * wg, 3 * p * p),
+                (hg, wg))
+
+    def __call__(self, image: Any) -> dict[str, Any]:
+        from PIL import Image as PILImage  # noqa: PLC0415
+
+        arr = ImageProcessor._to_array(image)
+        h, w = arr.shape[:2]
+        img = PILImage.fromarray(arr)
+        grid = get_sliced_grid((w, h), self.max_slice_nums,
+                               self.scale_resolution)
+        bw, bh = find_best_resize((w, h), self.scale_resolution,
+                                  self.patch_size,
+                                  allow_upscale=grid is None)
+        crops = [np.asarray(img.resize((bw, bh), PILImage.BICUBIC))]
+        if grid is not None:
+            rw, rh = get_refine_size((w, h), grid, self.scale_resolution,
+                                     self.patch_size)
+            refined = np.asarray(img.resize((rw, rh), PILImage.BICUBIC))
+            cols, rows = grid
+            cw, ch = rw // cols, rh // rows
+            crops += [refined[i * ch:(i + 1) * ch, j * cw:(j + 1) * cw]
+                      for i in range(rows) for j in range(cols)]
+        pixel = np.zeros((self.num_crops, self.max_patches,
+                          3 * self.patch_size ** 2), np.float32)
+        tgt = np.zeros((self.num_crops, 2), np.int32)
+        for i, crop in enumerate(crops):
+            patches, (hg, wg) = self._pack(crop)
+            n = min(patches.shape[0], self.max_patches)
+            pixel[i, :n] = patches[:n]
+            tgt[i] = (hg, wg)
+        return {'pixel_values': pixel, 'tgt_sizes': tgt,
+                'num_tokens': len(crops) * self.query_num}
 
 
 class Idefics2NaViTProcessor:

@@ -23,7 +23,8 @@ lists of per-layer dicts (``local_layers``, ``global_layers``, the text
 ``layers``: self and cross layers differ), carried across as lists, and
 Idefics2's ``language_model`` / ``vision_model`` / ``connector``, the last
 two nested by HF module path with torch Linear weights, their layers keyed
-by index strings.  ``trainable_from_jax_tree`` makes a
+by index strings, and MiniCPM-V's ``llm`` / ``vpm`` (nested the same way)
+/ ``resampler``.  ``trainable_from_jax_tree`` makes a
 trainable fp32 tree and its frozen reference copy for the train step;
 ``lora_from_jax_tree`` the trainable adapters of ``models/lora.py``.
 """

@@ -26,13 +26,16 @@ average-pool stride too).  ``load_qwen2_vl_params`` /
 ``save_qwen2_5_vl_params`` do it for Qwen2-VL and Qwen2.5-VL (the m-rope
 trunk's ``mrope_section`` from ``rope_scaling``; the tower under
 ``visual``), ``load_audio_params`` / ``save_audio_params`` for
-Qwen2-Audio (the Whisper-style tower under ``audio_tower``), and
+Qwen2-Audio (the Whisper-style tower under ``audio_tower``),
 ``load_mllama_params`` / ``save_mllama_params`` for Mllama
 (Llama-3.2-Vision: the tiled tower under ``vision_model``, the trunk with
-its cross-attention layers, lists of per-layer dicts).  Idefics2's
-loader is ``models/idefics2.py`` ``load_idefics2_params`` (over this
-module's codec).  Not ported yet (ROADMAP §1 item 12): the other
-multimodal families (MiniCPM, Emu3's fused codec layout).
+its cross-attention layers, lists of per-layer dicts), and
+``load_minicpmv_params`` / ``save_minicpmv_params`` for MiniCPM-V (the
+openbmb layout: the Qwen2 trunk under ``llm``, the SigLIP tower under
+``vpm``, the ``resampler``).
+Idefics2's loader is ``models/idefics2.py`` ``load_idefics2_params`` (over
+this module's codec).  Not ported yet (ROADMAP §1 item 12): the other
+multimodal families (MiniCPM-o, Emu3's fused codec layout).
 """
 
 from __future__ import annotations
@@ -379,8 +382,9 @@ def load_multimodal_params(path: str, dtype: torch.dtype = torch.float32,
     model_type = hf.get('model_type')
     if model_type not in LLAVA_MODEL_TYPES:
         raise NotImplementedError(
-            f'{model_type!r} checkpoints are not ported yet (ROADMAP §1 item '
-            f'12); the port loads the LLaVA family {LLAVA_MODEL_TYPES}')
+            f'{model_type!r}: this loader reads the LLaVA family '
+            f'{LLAVA_MODEL_TYPES}; the other vision-LM families load through '
+            'their own loaders, or are not ported yet (ROADMAP §1 item 12)')
     pinpoints = (tuple(tuple(p) for p in hf['image_grid_pinpoints'])
                  if hf.get('image_grid_pinpoints') else None)
     pool_stride = None
@@ -1343,6 +1347,162 @@ def save_mllama_params(path: str, params: dict, cfg,
                 list(vc.intermediate_layers_indices),
             'vision_output_dim': vc.output_dim,
             'norm_eps': vc.norm_eps, 'num_channels': 3,
+        },
+    }
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf_cfg, f, indent=2)
+
+
+def _minicpmv_config(hf: dict):
+    """The MiniCPMVConfig of a MiniCPM-V ``config.json`` dict, as JAX's
+    loader reads it: the Qwen2 trunk at the top level (``qkv_bias``,
+    ``head_dim = hidden // heads``), the SigLIP tower under
+    ``vision_config``, the resampler's heads ``resampler_num_heads`` or
+    ``hidden // 128``, the image token ``image_token_id`` or
+    ``unk_token_id`` or 128244."""
+    from align_anything_tpu_torch.models.idefics2 import Idefics2VisionCfg  # noqa: PLC0415
+    from align_anything_tpu_torch.models.minicpmv import (  # noqa: PLC0415
+        MiniCPMVConfig, ResamplerCfg)
+
+    text_cfg = ModelConfig(
+        vocab_size=hf['vocab_size'], hidden_size=hf['hidden_size'],
+        num_layers=hf['num_hidden_layers'],
+        num_heads=hf['num_attention_heads'],
+        num_kv_heads=hf.get('num_key_value_heads',
+                            hf['num_attention_heads']),
+        head_dim=hf['hidden_size'] // hf['num_attention_heads'],
+        mlp_dim=hf['intermediate_size'],
+        max_position_embeddings=hf.get('max_position_embeddings', 4096),
+        rope_theta=hf.get('rope_theta', 1000000.0),
+        norm_eps=hf.get('rms_norm_eps', 1e-6),
+        qkv_bias=True,
+        tie_word_embeddings=hf.get('tie_word_embeddings', False),
+        bos_token_id=hf.get('bos_token_id', 1) or 1,
+        eos_token_id=hf.get('eos_token_id', 2) or 2,
+        pad_token_id=hf.get('pad_token_id') or hf.get('eos_token_id', 2),
+    )
+    vc = hf.get('vision_config') or {}
+    vision_cfg = Idefics2VisionCfg(
+        hidden_size=vc.get('hidden_size', 1152),
+        intermediate_size=vc.get('intermediate_size', 4304),
+        num_hidden_layers=vc.get('num_hidden_layers', 27),
+        num_attention_heads=vc.get('num_attention_heads', 16),
+        image_size=vc.get('image_size', 448),
+        patch_size=vc.get('patch_size', 14))
+    resampler_cfg = ResamplerCfg(
+        num_queries=hf.get('query_num', 64),
+        num_heads=hf.get('resampler_num_heads')
+        or max(1, hf['hidden_size'] // 128),
+        kv_dim=vision_cfg.hidden_size, embed_dim=hf['hidden_size'])
+    return MiniCPMVConfig(
+        text=text_cfg, vision=vision_cfg, resampler=resampler_cfg,
+        image_token_id=hf.get('image_token_id')
+        or hf.get('unk_token_id', 128244),
+        slice_mode=hf.get('slice_mode', True))
+
+
+# the resampler's leaves by openbmb name, beside their place in the tree
+# (``kv_proj.weight`` is stored transposed, (kv_dim, E))
+_RESAMPLER_KEYS = (
+    ('query', ('query',)),
+    ('attn.in_proj_weight', ('attn', 'in_proj_w')),
+    ('attn.in_proj_bias', ('attn', 'in_proj_b')),
+    ('attn.out_proj.weight', ('attn', 'out_proj_w')),
+    ('attn.out_proj.bias', ('attn', 'out_proj_b')),
+    ('ln_q.weight', ('ln_q', 'w')), ('ln_q.bias', ('ln_q', 'b')),
+    ('ln_kv.weight', ('ln_kv', 'w')), ('ln_kv.bias', ('ln_kv', 'b')),
+    ('ln_post.weight', ('ln_post', 'w')), ('ln_post.bias', ('ln_post', 'b')),
+    ('proj', ('proj',)),
+)
+
+
+def load_minicpmv_params(path: str, dtype: torch.dtype = torch.float32,
+                         device: torch.device | str | None = None):
+    """Load a MiniCPM-V-2.6-layout checkpoint (openbmb key layout) into
+    (params, MiniCPMVConfig), every leaf on ``device`` (default: the first
+    CUDA device) in ``dtype``: ``llm.*`` becomes the decoder's tree,
+    ``vpm.*`` is nested by its module path, ``resampler.*`` takes JAX's
+    keys with ``kv_proj`` transposed."""
+    device = default_device(device)
+    with open(os.path.join(path, 'config.json')) as f:
+        cfg = _minicpmv_config(json.load(f))
+    llm: dict[str, torch.Tensor] = {}
+    vpm: dict[str, Any] = {}
+    rs: dict[str, torch.Tensor] = {}
+    for key, t in _read_all_tensors(path).items():
+        if key.startswith('llm.'):
+            llm[key[len('llm.'):]] = t
+        elif key.startswith('vpm.'):
+            node = vpm
+            *parents, leaf = key[len('vpm.'):].split('.')
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = t.to(device=device, dtype=dtype, copy=True)
+        elif key.startswith('resampler.'):
+            rs[key[len('resampler.'):]] = t
+    on = _OnDevice(rs, device, dtype)
+    resampler: dict[str, Any] = {'kv_proj': {'w': _T(on['kv_proj.weight'])}}
+    for name, where in _RESAMPLER_KEYS:
+        node = resampler
+        for part in where[:-1]:
+            node = node.setdefault(part, {})
+        node[where[-1]] = on[name]
+    text = _load_llama_like(_OnDevice(llm, device, dtype), cfg.text)
+    return {'llm': text, 'vpm': vpm, 'resampler': resampler}, cfg
+
+
+def save_minicpmv_params(path: str, params: dict, cfg) -> None:
+    """Write a MiniCPM-V checkpoint in the openbmb key layout, every
+    tensor fp32 and contiguous: the inverse of ``load_minicpmv_params``,
+    with the tensor names and ``config.json`` of JAX's
+    ``save_minicpmv_params``."""
+    os.makedirs(path, exist_ok=True)
+    tc, vc = cfg.text, cfg.vision
+    out: dict[str, torch.Tensor] = {
+        'llm.' + k: v for k, v in _dump_llama_like(params['llm'], tc).items()}
+
+    def flatten(prefix: str, tree) -> None:
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                flatten(f'{prefix}.{k}', v)
+        else:
+            out[prefix] = tree
+
+    flatten('vpm', params['vpm'])
+    rs = params['resampler']
+    out['resampler.kv_proj.weight'] = rs['kv_proj']['w'].T
+    for name, where in _RESAMPLER_KEYS:
+        node = rs
+        for part in where:
+            node = node[part]
+        out['resampler.' + name] = node
+    write_safetensors(os.path.join(path, 'model.safetensors'), out,
+                      metadata={'format': 'pt'}, dtype=torch.float32)
+    hf_cfg = {
+        'architectures': ['MiniCPMV'],
+        'model_type': 'minicpmv',
+        'auto_map': {'AutoModelForCausalLM': 'modeling_minicpmv.MiniCPMV'},
+        'vocab_size': tc.vocab_size, 'hidden_size': tc.hidden_size,
+        'num_hidden_layers': tc.num_layers,
+        'num_attention_heads': tc.num_heads,
+        'num_key_value_heads': tc.num_kv_heads,
+        'intermediate_size': tc.mlp_dim,
+        'max_position_embeddings': tc.max_position_embeddings,
+        'rope_theta': tc.rope_theta, 'rms_norm_eps': tc.norm_eps,
+        'tie_word_embeddings': tc.tie_word_embeddings,
+        'bos_token_id': tc.bos_token_id, 'eos_token_id': tc.eos_token_id,
+        'pad_token_id': tc.pad_token_id,
+        'query_num': cfg.resampler.num_queries,
+        'resampler_num_heads': cfg.resampler.num_heads,
+        'image_token_id': cfg.image_token_id,
+        'slice_mode': cfg.slice_mode,
+        'vision_config': {
+            'model_type': 'siglip_vision_model',
+            'hidden_size': vc.hidden_size,
+            'intermediate_size': vc.intermediate_size,
+            'num_hidden_layers': vc.num_hidden_layers,
+            'num_attention_heads': vc.num_attention_heads,
+            'image_size': vc.image_size, 'patch_size': vc.patch_size,
         },
     }
     with open(os.path.join(path, 'config.json'), 'w') as f:

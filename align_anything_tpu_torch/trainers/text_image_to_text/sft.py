@@ -24,24 +24,28 @@ tiles through ``MllamaTileProcessor``: ``aspect_ratio_ids`` and
 ``aspect_ratio_mask`` ride the batch, one image token a row), and so does
 Idefics2 ('idefics2', whose images become packed patch rows through
 ``Idefics2NaViTProcessor``: ``tgt_sizes`` rides the batch, and each image
-expands to the perceiver's latent count).  The JAX package's last
-vision-LM family here (MiniCPM-V) and its image processor are not ported
-yet (ROADMAP §1 item 12).
+expands to the perceiver's latent count), and so does MiniCPM-V
+('minicpmv', whose images become a source crop and grid slices through
+``MiniCPMVSliceProcessor`` in slice mode: the crops' packed patch rows and
+``tgt_sizes`` ride the batch, and each image expands to its crop count
+times the resampler's query count).
 
-ROADMAP §3 R27, R30 and R37: the freeze flags name the module keys of the
-LLaVA tree (``freeze_vision_tower`` -> ``vision_tower``, ``freeze_mm_proj``
--> ``projector``); a Qwen2-VL tree names its tower and merger ``visual``
-(R27), an Mllama tree its tower ``vision_model`` (R30), an Idefics2 tree
-its tower ``vision_model`` and its projection and perceiver ``connector``
-(R37), so under the YAMLs' ``freeze_vision_tower: True`` nothing is frozen
-and the tower trains, as in JAX.  One line at start-up names each flag
-that misses.
+ROADMAP §3 R27, R30, R37 and R40: the freeze flags name the module keys
+of the LLaVA tree (``freeze_vision_tower`` -> ``vision_tower``,
+``freeze_mm_proj`` -> ``projector``); a Qwen2-VL tree names its tower and
+merger ``visual`` (R27), an Mllama tree its tower ``vision_model`` (R30),
+an Idefics2 tree its tower ``vision_model`` and its projection and
+perceiver ``connector`` (R37), a MiniCPM-V tree its tower ``vpm`` and its
+resampler ``resampler`` (R40), so under the YAMLs' ``freeze_vision_tower:
+True`` nothing is frozen and the tower trains, as in JAX.  One line at
+start-up names each flag that misses.
 
 ROADMAP §3 R36: no Idefics2 export is ported (JAX's fails), so a run with
 an ``output_dir`` on an Idefics2 checkpoint raises at start-up.  The
 train-state checkpoint, the resume and the log directory all live under
 ``output_dir``, so an Idefics2 run has none of them until the writer is
-ported.
+ported.  A MiniCPM-V run exports, checkpoints and resumes (its writer is
+``models/hf_loader.py`` ``save_minicpmv_params``).
 """
 
 from __future__ import annotations
@@ -58,12 +62,14 @@ from align_anything_tpu_torch.data.image import (
     Idefics2NaViTProcessor,
     ImageProcessor,
     ImageProcessorConfig,
+    MiniCPMVSliceProcessor,
     MllamaTileProcessor,
     TI2TSupervisedDataset,
 )
 from align_anything_tpu_torch.losses import cross_entropy_loss
 from align_anything_tpu_torch.models import (
     idefics2,
+    minicpmv,
     mllama,
     multimodal,
     qwen2_5_vl,
@@ -72,6 +78,7 @@ from align_anything_tpu_torch.models import (
 )
 from align_anything_tpu_torch.models.hf_loader import (
     LLAVA_MODEL_TYPES,
+    load_minicpmv_params,
     load_mllama_params,
     load_multimodal_params,
     load_qwen2_5_vl_params,
@@ -83,10 +90,11 @@ from align_anything_tpu_torch.trainers.text_to_text.sft import SupervisedTrainer
 VISION_LM_LOADERS = {'qwen2_vl': (load_qwen2_vl_params, qwen2_vl),
                      'qwen2_5_vl': (load_qwen2_5_vl_params, qwen2_5_vl),
                      'mllama': (load_mllama_params, mllama),
-                     'idefics2': (idefics2.load_idefics2_params, idefics2)}
+                     'idefics2': (idefics2.load_idefics2_params, idefics2),
+                     'minicpmv': (load_minicpmv_params, minicpmv)}
 # the fault that a freeze flag missing the family's tower is (ROADMAP §3)
 MISSED_FREEZE_FAULTS = {qwen2_vl: 'R27', qwen2_5_vl: 'R27', mllama: 'R30',
-                        idefics2: 'R37'}
+                        idefics2: 'R37', minicpmv: 'R40'}
 MM_BATCH_KEYS = ('image_grid_thw', 'aspect_ratio_ids', 'aspect_ratio_mask',
                  'select_idx', 'tgt_sizes')
 
@@ -94,8 +102,8 @@ MM_BATCH_KEYS = ('image_grid_thw', 'aspect_ratio_ids', 'aspect_ratio_mask',
 def mm_kwargs(batch: dict) -> dict:
     """Extra multimodal forward kwargs present in the batch (AnyRes's
     ``select_idx``, Qwen2-VL's dynamic-resolution ``image_grid_thw``,
-    Mllama's ``aspect_ratio_ids`` / ``aspect_ratio_mask``, Idefics2's
-    ``tgt_sizes``)."""
+    Mllama's ``aspect_ratio_ids`` / ``aspect_ratio_mask``, Idefics2's and
+    MiniCPM-V's ``tgt_sizes``)."""
     return {k: batch[k] for k in MM_BATCH_KEYS if batch.get(k) is not None}
 
 
@@ -118,9 +126,9 @@ def load_llava_lm(path: str, device: torch.device | str | None = None):
 def load_vision_lm(path: str, device: torch.device | str | None = None):
     """(params, cfg, model module) for a vision-LM checkpoint directory on
     ``device`` (default: the first CUDA device), by its ``model_type``, as
-    JAX's TI2T SFT and DPO dispatch: Qwen2-VL, Qwen2.5-VL, Mllama and
-    Idefics2, else the LLaVA family (``load_llava_lm``); another
-    ``model_type`` raises."""
+    JAX's TI2T SFT and DPO dispatch: Qwen2-VL, Qwen2.5-VL, Mllama,
+    Idefics2 and MiniCPM-V, else the LLaVA family (``load_llava_lm``);
+    another ``model_type`` raises."""
     with open(os.path.join(path, 'config.json')) as f:
         model_type = json.load(f).get('model_type')
     if model_type in VISION_LM_LOADERS:
@@ -153,9 +161,9 @@ def runtime_config(trainer, cfg):
 
 
 def report_missed_freeze_flags(trainer, params: dict) -> list[str]:
-    """ROADMAP §3 R27 / R30 / R37: one line for each freeze flag that is
-    set but names no module of ``params`` (so it freezes nothing, as in
-    JAX); the lines are printed and returned."""
+    """ROADMAP §3 R27 / R30 / R37 / R40: one line for each freeze flag
+    that is set but names no module of ``params`` (so it freezes nothing,
+    as in JAX); the lines are printed and returned."""
     tc = trainer.cfgs.train_cfgs
     fault = MISSED_FREEZE_FAULTS.get(trainer.mm, 'R27')
     lines = [f'{flag}: True names {names}, which the {trainer.mm.__name__} '
@@ -189,6 +197,11 @@ class TI2TTrainerMixin:
         """Mllama: ``MllamaTileProcessor`` (JAX ``sft.py:107-112``).
         Idefics2: ``Idefics2NaViTProcessor`` with the perceiver's latent
         count (JAX ``sft.py:128-135``).
+        MiniCPM-V in slice mode: ``MiniCPMVSliceProcessor`` at
+        ``scale_resolution`` (448 unless set) capped at the sincos table's
+        side in pixels, ``max_slice_nums`` slices (9 unless set), grids
+        capped at the table's side (JAX ``sft.py:136-150``); without slice
+        mode the fixed-resolution processor below.
         Qwen2-VL / Qwen2.5-VL: ``DynamicPatchProcessor`` under
         ``dynamic_resolution`` (with ``min_pixels`` / ``max_pixels``), else
         the family's fixed-grid ``PatchProcessor`` (JAX ``sft.py:113-125``;
@@ -202,6 +215,16 @@ class TI2TTrainerMixin:
             return Idefics2NaViTProcessor(
                 self.model_cfg.vision,
                 n_latents=self.model_cfg.perceiver.resampler_n_latents)
+        if self.mm is minicpmv and self.model_cfg.slice_mode:
+            rcfg = self.model_cfg.resampler
+            patch = self.model_cfg.vision.patch_size
+            return MiniCPMVSliceProcessor(
+                self.model_cfg.vision, query_num=rcfg.num_queries,
+                scale_resolution=min(int(tc.scale_resolution or 448),
+                                     rcfg.max_size * patch),
+                max_slice_nums=(int(tc.max_slice_nums)
+                                if tc.max_slice_nums else 9),
+                max_grid_side=rcfg.max_size)
         if self.mm in (qwen2_vl, qwen2_5_vl):
             if tc.dynamic_resolution:
                 return qwen2_vl.DynamicPatchProcessor(
@@ -211,7 +234,7 @@ class TI2TTrainerMixin:
                     max_pixels=(int(tc.max_pixels) if tc.max_pixels
                                 else None))
             return self.mm.PatchProcessor(self.model_cfg.vision)
-        if self.model_cfg.image_grid_pinpoints is not None:
+        if getattr(self.model_cfg, 'image_grid_pinpoints', None) is not None:
             return AnyResProcessor(self.model_cfg.vision,
                                    self.model_cfg.image_grid_pinpoints)
         return ImageProcessor(ImageProcessorConfig(
@@ -220,9 +243,12 @@ class TI2TTrainerMixin:
     def image_num_patches(self) -> int:
         """Per-image <image> expansion count at the fixed grid (a processor
         that returns a dict gives each image's own count); Idefics2's
-        perceiver compresses every grid to its latent count."""
+        perceiver compresses every grid to its latent count, MiniCPM-V's
+        resampler every crop to its query count."""
         if self.mm is idefics2:
             return self.model_cfg.perceiver.resampler_n_latents
+        if self.mm is minicpmv:
+            return self.model_cfg.resampler.num_queries
         return self.model_cfg.vision.num_patches
 
     def make_dataset(self, dataset_cls, path, template, max_len, **kw):

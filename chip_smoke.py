@@ -49,7 +49,8 @@ Phases (any failure raises and the run exits non-zero):
      Qwen2-VL-2B's 12 / 2 heads), at phase 36's tower
      (``qwen2_audio_tower``: full attention at L 1500, 20 heads of 64) and
      at phase 41's decoder (``qwen3_moe``: L 1024 at qwen3-moe-30b-a3b's
-     32 / 4 heads of 64);
+     32 / 4 heads of 64) and at phase 45's (``minicpmv_trunk``: L 1024 at
+     MiniCPM-V-2.6's 28 / 4 heads of 128);
   7. DPO training at Llama-3-8B widths, depth cut to 4 layers (fp32 params,
      grads and AdamW moments of all 32 layers would not fit in 80 GB):
      4 steps of ``DPOStep.step`` with remat 'dots_saveable'; step 1's
@@ -209,7 +210,7 @@ Phases (any failure raises and the run exits non-zero):
  30. (after phase 25, on phase 24's checkpoint) the OpenAI-compatible HTTP
      server (``serve/api_server.py``, ``make_stdlib_server`` on a free port
      of 127.0.0.1), dense, then paged with a 48-word system text as its
-     cached prefix: 16 concurrent clients mixing ``/health``,
+     cached prefix: 8 concurrent clients mixing ``/health``,
      ``/v1/models``, completions and chat, plain and streamed (SSE), with
      prompts of 520-550 tokens (longer than the window 512) and 32 new
      tokens a request; every reply
@@ -352,13 +353,35 @@ Phases (any failure raises and the run exits non-zero):
      compute): every id the argmax of a no-cache forward over the grown
      sequence; the fixed-square tower against the packed one on a full 70
      x 70 grid (fp32, 1e-4 x max).
+ 45. (after phase 44) TI2T DPO through ``trainer_main(TI2TDPOTrainer,
+     ...)`` on MiniCPM-V at openbmb/MiniCPM-V-2_6's published widths (the
+     Qwen2-7B trunk cut to 4 of its 28 layers; the 27-layer SigLIP tower
+     and the resampler whole), its seeded bf16 tensors handed to
+     ``load_minicpmv_params`` from memory (the disk budget), 4 AA_TI2T
+     pairs over PNGs of 896 x 896, 448 x 1792, 1344 x 672 and 1960 x 1960
+     through the slice processor at its default 9 slices (5, 5, 7 and 10
+     crops of 10, 1089 slots each), 2 pairs a step in the 1024 bucket, 2
+     steps: step 1's loss ln 2, each row's crops and grids equal to the
+     processor's run again on the host, 64 image tokens a used crop,
+     every module moved (the tower and resampler too: R40), launches exact
+     (the trunk; the tower's and resampler's attention are plain PyTorch,
+     as in JAX), step 1's log-prob sums against a plain recompute; step
+     time, tokens/s, MFU (over every crop's slots and over the used crops'
+     patches) and peak memory;
+ 46. at small widths (text 512 wide, 2 layers; a 2-layer tower 192 wide):
+     MiniCPM-V TI2T SFT (2 steps) with an ``--output_dir``, its
+     ``slice_{step}`` export read back bit-equal and its train state
+     resumed bit-equal; KTO, ORPO and SimPO one step each; launches exact;
+     greedy ``generate`` of 16 tokens from 2 image prompts with the
+     slice-mode crops and ``media={'tgt_sizes': ...}`` (fp32 compute):
+     every id the argmax of a no-cache forward over the grown sequence.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit from nvidia-smi, and the one before that a
 JSON summary of each kernel.
 
     python3 chip_smoke.py --profile [dpo ppo ti2t qlora gemma3 qwen2vl
-                                     ta2t mllama idefics2]
+                                     ta2t mllama idefics2 minicpmv]
                                       # instead: trace one DPO step of the
                                       # phase 7 and phase 8 configs, one
                                       # PPO round of phase 12's, one TI2T
@@ -376,7 +399,11 @@ JSON summary of each kernel.
                                       # and the cross layer alone, and one
                                       # Idefics2 DPO step of phase 43's
                                       # with its tower, the tower's
-                                      # attention and the connector alone
+                                      # attention and the connector alone,
+                                      # and one MiniCPM-V DPO step of
+                                      # phase 45's with its tower, the
+                                      # tower's attention and the
+                                      # resampler alone
                                       # (the ones named; all by default)
 
 ``--profile`` runs no checks: after a warm-up step it traces one step of
@@ -525,6 +552,11 @@ FLASH_SHAPES = [
     # two rows
     ('qwen3_moe', 2, 1024, 32, 4, 64, True, None, 2, None, torch.bfloat16,
      True),
+    # phase 45's decoder: MiniCPM-V-2.6's Qwen2-7B heads (28 / 4 of 128, a
+    # GQA group of 7) over its DPO rows in the 1024 bucket, trailing pads
+    # on two rows
+    ('minicpmv_trunk', 4, 1024, 28, 4, 128, True, None, 2, None,
+     torch.bfloat16, True),
 ]
 # x each row's max|plain| (row_scaled_error).  bf16: kernel and plain
 # version round P (and dS) to bf16 at K1a's places, but the forward kernel
@@ -3212,21 +3244,24 @@ def png_images(tmp: str, sizes: tuple, seed: int) -> list:
     return paths
 
 
-def ti2t_rows(images: list, seed: int, preference: bool) -> list:
-    """AA_TI2T rows of random words over ``images``: a question of 100-150
-    words and responses of 50-250, so a row (576 image tokens, the chat
-    format's words) fits the 1024 bucket."""
+def ti2t_rows(images: list, seed: int, preference: bool,
+              question_words: tuple = (100, 151),
+              response_words: tuple = (50, 251)) -> list:
+    """AA_TI2T rows of random words over ``images``: by default a question
+    of 100-150 words and responses of 50-250, so a row (576 image tokens,
+    the chat format's words) fits the 1024 bucket."""
     rng = np.random.default_rng(seed)
     rows = []
     for image in images:
-        row = {'question': words(rng, int(rng.integers(100, 151))),
+        row = {'question': words(rng, int(rng.integers(*question_words))),
                'image': image}
         if preference:
-            row.update(response_1=words(rng, int(rng.integers(50, 251))),
-                       response_2=words(rng, int(rng.integers(50, 251))),
-                       overall_response=int(rng.integers(1, 3)))
+            row.update(
+                response_1=words(rng, int(rng.integers(*response_words))),
+                response_2=words(rng, int(rng.integers(*response_words))),
+                overall_response=int(rng.integers(1, 3)))
         else:
-            row['response'] = words(rng, int(rng.integers(50, 251)))
+            row['response'] = words(rng, int(rng.integers(*response_words)))
         rows.append(row)
     return rows
 
@@ -5976,7 +6011,7 @@ def mllama_small(dev, smi, tmp: str, images: list) -> dict:
 # has no Idefics2 writer (R36), and a bf16 checkpoint at these widths (4.6
 # GB) would pass the card machine's disk budget: the seeded tensors, named
 # as transformers saves them, reach ``load_idefics2_params`` from memory
-# (``idefics2_in_memory``); the directory holds its config.json only.
+# (``in_memory_checkpoint``); the directory holds its config.json only.
 # Phase 44 runs the other trainers, generation and the checks at phase
 # 10's text widths under a 2-layer tower of the published widths.
 IDEFICS2_8B_TEXT = dict(vocab_size=32003, hidden_size=4096,
@@ -6093,14 +6128,16 @@ def idefics2_tensor_shapes(hf: dict) -> dict:
     return shapes
 
 
-def idefics2_tensors(hf: dict, seed: int, dev) -> dict:
-    """A seeded checkpoint of ``hf`` as bf16 host tensors by HF name:
-    norm weights 1, biases 0, the rest N(0, 0.02) (transformers'
-    ``initializer_range``), drawn on the card."""
+def seeded_tensors(shapes: dict, seed: int, dev) -> dict:
+    """A seeded checkpoint of ``shapes`` (tensor name -> shape) as bf16
+    host tensors by name: norm weights (``norm`` or ``.ln_`` in the name)
+    1, biases 0, the rest N(0, 0.02) (transformers' ``initializer_range``),
+    drawn on the card."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name, shape in idefics2_tensor_shapes(hf).items():
-        if 'norm' in name and name.endswith('.weight'):
+    for name, shape in shapes.items():
+        if (('norm' in name or '.ln_' in name)
+                and name.endswith('.weight')):
             t = torch.ones(shape, device=dev)
         elif name.endswith('.bias'):
             t = torch.zeros(shape, device=dev)
@@ -6110,7 +6147,7 @@ def idefics2_tensors(hf: dict, seed: int, dev) -> dict:
     return out
 
 
-def idefics2_in_memory(path: str, tensors: dict):
+def in_memory_checkpoint(path: str, tensors: dict):
     """A patch under which the port's checkpoint reader returns
     ``tensors`` for the directory ``path`` (every other directory is read
     from its files)."""
@@ -6134,7 +6171,7 @@ def idefics2_assets(tmp: str, name: str, small: bool, seed: int,
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, 'config.json'), 'w') as f:
         json.dump(hf, f, indent=2)
-    tensors = idefics2_tensors(hf, seed, dev)
+    tensors = seeded_tensors(idefics2_tensor_shapes(hf), seed, dev)
     n = {m: sum(t.numel() for k, t in tensors.items()
                 if k.startswith(prefix))
          for m, prefix in (('language_model', ('model.text_model.',
@@ -6206,7 +6243,7 @@ def idefics2_dpo_full(dev, smi, tmp: str) -> dict:
     resident = torch.cuda.memory_allocated()
     reset_flash_counts()
     t0 = time.perf_counter()
-    with idefics2_in_memory(ckpt, tensors), recording_loss(
+    with in_memory_checkpoint(ckpt, tensors), recording_loss(
             TI2TDPOTrainer, 'preference_loss', first,
             ('input_ids', 'attention_mask', 'response_mask', 'pixel_values',
              'tgt_sizes')):
@@ -6218,7 +6255,7 @@ def idefics2_dpo_full(dev, smi, tmp: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     mcfg = trainer.model_cfg
     frozen = trainer.frozen_modules()
-    with idefics2_in_memory(ckpt, tensors):
+    with in_memory_checkpoint(ckpt, tensors):
         start, _ = idefics2.load_idefics2_params(ckpt, device=dev)
     moved = changed_modules(trainer.state.params,
                             {m: leaves_by_path(start[m]) for m in start})
@@ -6297,7 +6334,7 @@ def idefics2_dpo_full(dev, smi, tmp: str) -> dict:
 
     # step 1 recomputed from the checkpoint with the plain attention, in
     # bf16 compute and in fp32
-    with idefics2_in_memory(ckpt, tensors):
+    with in_memory_checkpoint(ckpt, tensors):
         params, _ = idefics2.load_idefics2_params(ckpt, device=dev)
     sums = {}
     with torch.no_grad(), plain_flash():
@@ -6323,55 +6360,51 @@ def idefics2_dpo_full(dev, smi, tmp: str) -> dict:
             'images': images}
 
 
-def idefics2_generation(cfg, params: dict, images: list, dev) -> dict:
-    """Greedy ``generate`` of ``IDEFICS2_GEN_NEW`` tokens from two image
-    prompts, the packed images in the prefill (``media={'tgt_sizes':
-    ...}``) and ``idefics2.forward`` as both prefill and step, in fp32
-    compute: each generated id is the argmax of a no-cache forward over
-    the grown sequence.  ``cached`` is the flash launches counted from the
-    caller's reset to the end of ``generate``."""
-    from align_anything_tpu_torch.data.image import Idefics2NaViTProcessor  # noqa: PLC0415
+def greedy_against_no_cache(module, cfg, params: dict, outs: list, dev,
+                            seed: int, top: int, new: int) -> dict:
+    """Greedy ``generate`` of ``new`` tokens from one image prompt for each
+    processor output of ``outs`` (its ``num_tokens`` image tokens between
+    random ids in [3, ``top``), the shorter rows given more ids after the
+    image so the rows are one length), the packed patches in the prefill
+    (``media={'tgt_sizes': ...}``) and ``module.forward`` as both prefill
+    and step, in fp32 compute: each generated id is the argmax of a
+    no-cache forward over the grown sequence.  ``cached`` is the flash
+    launches counted from the caller's reset to the end of ``generate``."""
     from align_anything_tpu_torch.generation import generate  # noqa: PLC0415
-    from align_anything_tpu_torch.models import idefics2  # noqa: PLC0415
 
     gcfg = cfg.replace(compute_dtype='float32')
-    proc = Idefics2NaViTProcessor(
-        gcfg.vision, n_latents=gcfg.perceiver.resampler_n_latents)
-    outs = [proc(p) for p in images]
     px = torch.as_tensor(np.stack([o['pixel_values'] for o in outs]),
                          device=dev)
     tgt = torch.as_tensor(np.stack([o['tgt_sizes'] for o in outs]),
                           device=dev)
-    rng = np.random.default_rng(SEED + 445)
-    lat = gcfg.perceiver.resampler_n_latents
-    top = min(30000, gcfg.vocab_size)
+    n_tok = [int(o['num_tokens']) for o in outs]
+    rng = np.random.default_rng(seed)
     prompts = [[1] + list(rng.integers(3, top, 5))
-               + [gcfg.image_token_id] * lat + list(rng.integers(3, top, 9))
-               for _ in images]
+               + [gcfg.image_token_id] * t
+               + list(rng.integers(3, top, 9 + max(n_tok) - t))
+               for t in n_tok]
     ids = torch.as_tensor(prompts, device=dev)
     mask = torch.ones_like(ids)
-    gen = GenerationConfig(max_new_tokens=IDEFICS2_GEN_NEW, greedy=True,
-                           eos_token_id=-1)
+    gen = GenerationConfig(max_new_tokens=new, greedy=True, eos_token_id=-1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = generate(params, gcfg, gen, ids, mask, pixel_values=px,
-                   media={'tgt_sizes': tgt},
-                   prefill_forward=idefics2.forward,
-                   step_forward=idefics2.forward)
+                   media={'tgt_sizes': tgt}, prefill_forward=module.forward,
+                   step_forward=module.forward)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     cached = flash_counts()
     seqs, p = out['sequences'], ids.shape[1]
     agree = 0
     with torch.no_grad():
-        for t in range(IDEFICS2_GEN_NEW):
-            logits = idefics2.forward(params, gcfg, seqs[:, :p + t],
-                                      pixel_values=px,
-                                      tgt_sizes=tgt).logits[:, -1]
+        for t in range(new):
+            logits = module.forward(params, gcfg, seqs[:, :p + t],
+                                    pixel_values=px,
+                                    tgt_sizes=tgt).logits[:, -1]
             agree += int((logits.argmax(-1) == seqs[:, p + t]).sum())
-    return {'gen_s': gen_s, 'agree': agree,
-            'total': IDEFICS2_GEN_NEW * len(images), 'tgt': tgt.tolist(),
-            'ids': seqs[:, p:].tolist(), 'cached': cached}
+    return {'gen_s': gen_s, 'agree': agree, 'total': new * len(outs),
+            'tgt': tgt.tolist(), 'n_tok': n_tok, 'ids': seqs[:, p:].tolist(),
+            'cached': cached}
 
 
 def idefics2_small(dev, smi, tmp: str, images: list) -> dict:
@@ -6384,6 +6417,7 @@ def idefics2_small(dev, smi, tmp: str, images: list) -> dict:
     Its flash launches, each exact: the four trainers', none in the cached
     ``generate`` and one forward a text layer in each of the generation
     check's no-cache forwards."""
+    from align_anything_tpu_torch.data.image import Idefics2NaViTProcessor  # noqa: PLC0415
     from align_anything_tpu_torch.models import idefics2  # noqa: PLC0415
     from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
         kto, orpo, simpo)
@@ -6424,7 +6458,7 @@ def idefics2_small(dev, smi, tmp: str, images: list) -> dict:
         ('SimPO', simpo.TI2TSimPOTrainer, 'text_to_text/simpo',
          [*common, *one_step], {'fwd': layers, 'bwd': layers}))
     total = {'fwd': 0, 'bwd': 0}
-    with idefics2_in_memory(ckpt, tensors):
+    with in_memory_checkpoint(ckpt, tensors):
         for tag, cls, task, argv, need in runs:
             torch.cuda.synchronize()
             reset_flash_counts()
@@ -6469,7 +6503,11 @@ def idefics2_small(dev, smi, tmp: str, images: list) -> dict:
         raise AssertionError('Idefics2: an export was not refused at '
                              'start-up (ROADMAP R36)')
     reset_flash_counts()
-    gen = idefics2_generation(cfg, params, images[:2], dev)
+    proc = Idefics2NaViTProcessor(
+        cfg.vision, n_latents=cfg.perceiver.resampler_n_latents)
+    gen = greedy_against_no_cache(
+        idefics2, cfg, params, [proc(p) for p in images[:2]], dev,
+        SEED + 445, min(30000, cfg.vocab_size), IDEFICS2_GEN_NEW)
     launches = flash_counts()
     for k in total:
         total[k] += launches[k]
@@ -6517,6 +6555,468 @@ def idefics2_small(dev, smi, tmp: str, images: list) -> dict:
         f'language_model {n["language_model"] / 1e9:.3f} B, vision_model '
         f'{n["vision_model"] / 1e9:.3f} B, connector '
         f'{n["connector"] / 1e9:.3f} B')
+    return {'launches': total}
+
+
+# phases 45-46: MiniCPM-V.  Phase 45 runs TI2T DPO at the published widths
+# of openbmb/MiniCPM-V-2_6's config.json: the Qwen2-7B trunk cut to 4 of
+# its 28 layers (fp32 AdamW), the whole 27-layer SigLIP tower and the
+# resampler, all trained (the freeze flags miss the tower and the
+# resampler: ROADMAP R40), over images sliced at the processor's default 9
+# slices (10 crops of 1089 slots a row, each through the tower).  A bf16
+# checkpoint at these widths (5.0 GB) would pass the card machine's disk
+# budget: the seeded tensors, named as the openbmb checkpoint names them,
+# reach ``load_minicpmv_params`` from memory (``in_memory_checkpoint``);
+# the directory holds its config.json only.  Phase 46 runs the other
+# trainers, the export, a resume and generation at widths cut so that its
+# export and train state write about 0.25 GB.
+MINICPMV_26 = dict(vocab_size=151666, hidden_size=3584,
+                   intermediate_size=18944, num_hidden_layers=28,
+                   num_attention_heads=28, num_key_value_heads=4,
+                   max_position_embeddings=32768, rope_theta=1000000.0,
+                   rms_norm_eps=1e-6, tie_word_embeddings=False,
+                   bos_token_id=151643, eos_token_id=151645,
+                   hidden_act='silu', query_num=64, slice_mode=True,
+                   image_size=448, patch_size=14)
+MINICPMV_26_VISION = dict(hidden_size=1152, intermediate_size=4304,
+                          num_hidden_layers=27, num_attention_heads=16,
+                          image_size=980, patch_size=14, model_type='siglip')
+MINICPMV_TEXT_LAYERS = 4
+MINICPMV_ROWS, MINICPMV_PAIRS, MINICPMV_BUCKET = 4, 2, 1024
+MINICPMV_STEPS = MINICPMV_ROWS // MINICPMV_PAIRS
+# (h, w): square (a 2 x 2 grid), panorama (4 x 1), portrait (2 x 3) and a
+# large one (3 x 3: every crop of the row used)
+MINICPMV_SIZES = ((896, 896), (448, 1792), (1344, 672), (1960, 1960))
+# question and response words, so a row of 10 crops (640 image tokens)
+# fits the 1024 bucket
+MINICPMV_WORDS = ((60, 101), (40, 161))
+MINICPMV_SMALL = dict(vocab_size=4096, hidden_size=512,
+                      intermediate_size=1536, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=2048, bos_token_id=1,
+                      eos_token_id=2, image_token_id=4000)
+MINICPMV_SMALL_VISION = dict(hidden_size=192, intermediate_size=768,
+                             num_hidden_layers=2, num_attention_heads=3)
+MINICPMV_GEN_NEW = 16
+
+
+def minicpmv_hf_config(small: bool = False) -> dict:
+    """The config.json of phase 45 (``small``: of phase 46)."""
+    hf = dict(MINICPMV_26, num_hidden_layers=MINICPMV_TEXT_LAYERS,
+              model_type='minicpmv', architectures=['MiniCPMV'],
+              torch_dtype='bfloat16',
+              vision_config=dict(MINICPMV_26_VISION))
+    if small:
+        hf.update(MINICPMV_SMALL)
+        hf['vision_config'].update(MINICPMV_SMALL_VISION)
+    return hf
+
+
+def minicpmv_tensor_shapes(hf: dict) -> dict:
+    """Tensor name -> shape of a MiniCPM-V checkpoint of ``hf`` in the
+    openbmb layout (``llm.*``, ``vpm.*``, ``resampler.*``: the names
+    ``load_minicpmv_params`` reads)."""
+    e, f, v = hf['hidden_size'], hf['intermediate_size'], hf['vocab_size']
+    hd = e // hf['num_attention_heads']
+    kv = hf['num_key_value_heads'] * hd
+    shapes = {'llm.model.embed_tokens.weight': (v, e),
+              'llm.model.norm.weight': (e,), 'llm.lm_head.weight': (v, e)}
+    for i in range(hf['num_hidden_layers']):
+        p = f'llm.model.layers.{i}.'
+        shapes.update({
+            p + 'self_attn.q_proj.weight': (e, e),
+            p + 'self_attn.q_proj.bias': (e,),
+            p + 'self_attn.k_proj.weight': (kv, e),
+            p + 'self_attn.k_proj.bias': (kv,),
+            p + 'self_attn.v_proj.weight': (kv, e),
+            p + 'self_attn.v_proj.bias': (kv,),
+            p + 'self_attn.o_proj.weight': (e, e),
+            p + 'mlp.gate_proj.weight': (f, e),
+            p + 'mlp.up_proj.weight': (f, e),
+            p + 'mlp.down_proj.weight': (e, f),
+            p + 'input_layernorm.weight': (e,),
+            p + 'post_attention_layernorm.weight': (e,)})
+    vc = hf['vision_config']
+    d, m, ps = vc['hidden_size'], vc['intermediate_size'], vc['patch_size']
+    side = vc['image_size'] // ps
+    shapes.update({'vpm.embeddings.patch_embedding.weight': (d, 3, ps, ps),
+                   'vpm.embeddings.patch_embedding.bias': (d,),
+                   'vpm.embeddings.position_embedding.weight': (side ** 2,
+                                                                d),
+                   'vpm.post_layernorm.weight': (d,),
+                   'vpm.post_layernorm.bias': (d,)})
+    for i in range(vc['num_hidden_layers']):
+        p = f'vpm.encoder.layers.{i}.'
+        for name, shape in (('self_attn.q_proj', (d, d)),
+                            ('self_attn.k_proj', (d, d)),
+                            ('self_attn.v_proj', (d, d)),
+                            ('self_attn.out_proj', (d, d)),
+                            ('mlp.fc1', (m, d)), ('mlp.fc2', (d, m))):
+            shapes[p + name + '.weight'] = shape
+            shapes[p + name + '.bias'] = shape[:1]
+        for name in ('layer_norm1', 'layer_norm2'):
+            shapes[p + name + '.weight'] = (d,)
+            shapes[p + name + '.bias'] = (d,)
+    shapes.update({'resampler.query': (hf['query_num'], e),
+                   'resampler.kv_proj.weight': (e, d),
+                   'resampler.attn.in_proj_weight': (3 * e, e),
+                   'resampler.attn.in_proj_bias': (3 * e,),
+                   'resampler.attn.out_proj.weight': (e, e),
+                   'resampler.attn.out_proj.bias': (e,),
+                   'resampler.proj': (e, e)})
+    for name in ('ln_q', 'ln_kv', 'ln_post'):
+        shapes[f'resampler.{name}.weight'] = (e,)
+        shapes[f'resampler.{name}.bias'] = (e,)
+    return shapes
+
+
+def minicpmv_assets(tmp: str, name: str, small: bool, seed: int,
+                    dev) -> tuple:
+    """(checkpoint dir holding config.json, its tensors in memory, params
+    by module, config dict)."""
+    hf = minicpmv_hf_config(small)
+    path = os.path.join(tmp, name)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump(hf, f, indent=2)
+    tensors = seeded_tensors(minicpmv_tensor_shapes(hf), seed, dev)
+    n = {m: sum(t.numel() for k, t in tensors.items()
+                if k.startswith(m + '.'))
+         for m in ('llm', 'vpm', 'resampler')}
+    return path, tensors, n, hf
+
+
+def minicpmv_step_flops(cfg, n: dict, shape: tuple, tgt: list,
+                        slots: int) -> dict:
+    """FLOPs of a DPO step that trains everything, over every crop's
+    padded slots and over the valid crops' patches (``tgt``: each row's
+    crop grids): the text by bench.py's convention
+    (``dpo_flops_per_token``); a crop of S slots pays the tower's 8 x its
+    matmul params a slot and 16 x S^2 x width a layer (policy forward and
+    backward, reference forward), and 4 x the resampler's forward (the kv
+    projection and K / V over the slots, the query-side products over the
+    queries, the attention over both)."""
+    vc, rc, tc = cfg.vision, cfg.resampler, cfg.text
+    text = shape[0] * shape[1] * dpo_flops_per_token(
+        n['llm'], shape[1], tc.hidden_size, tc.num_layers)
+    e, kv, q = rc.embed_dim, rc.kv_dim, rc.num_queries
+
+    def crop(s: int) -> float:
+        tower = (8 * n['tower_matmul'] * s
+                 + 16 * s * s * vc.hidden_size * vc.num_hidden_layers)
+        resampler = 4 * (2 * s * (kv * e + 2 * e * e) + 6 * q * e * e
+                         + 4 * q * s * e)
+        return tower + resampler
+
+    crops = [g for row in tgt for g in row]
+    out = {}
+    for key, sizes in (('padded', [slots] * len(crops)),
+                       ('valid', [min(h * w, slots) for h, w in crops
+                                  if h * w > 0])):
+        images = sum(crop(s) for s in sizes)
+        out[key] = (text + images, images)
+    return out
+
+
+def minicpmv_dpo_full(dev, smi, tmp: str) -> dict:
+    """Phase 45: TI2T DPO through ``trainer_main(TI2TDPOTrainer, ...)``
+    (``python -m ...text_image_to_text.dpo``) on MiniCPM-V at
+    MiniCPM-V-2.6's published widths, the text cut to 4 layers."""
+    from align_anything_tpu_torch.models import minicpmv  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_minicpmv_params)
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    ckpt, tensors, n, hf = minicpmv_assets(tmp, 'minicpmv_26', False,
+                                           SEED + 450, dev)
+    images = png_images(tmp, MINICPMV_SIZES, SEED + 451)
+    data = write_jsonl(os.path.join(tmp, 'pref_minicpmv.jsonl'),
+                       ti2t_rows(images, SEED + 452, True, *MINICPMV_WORDS))
+    argv = ['--model_name_or_path', ckpt, '--train_datasets', data,
+            '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+            '--epochs', '1', '--per_device_train_batch_size',
+            str(MINICPMV_PAIRS), '--padding_buckets',
+            f'[{MINICPMV_BUCKET}]']
+    log(f'phase45 seeded the checkpoint in memory (MiniCPM-V-2.6 widths, '
+        f'text {MINICPMV_TEXT_LAYERS} of 28 layers, the 27-layer tower, the '
+        f'resampler; params llm {n["llm"] / 1e9:.3f} B, vpm '
+        f'{n["vpm"] / 1e9:.3f} B, resampler {n["resampler"] / 1e9:.3f} B; '
+        f'bf16 by openbmb name, config.json on disk only); '
+        f'{MINICPMV_ROWS} AA_TI2T preference rows over PNG files of '
+        f'{MINICPMV_SIZES}; argv {" ".join(argv[2:])}')
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    with in_memory_checkpoint(ckpt, tensors), recording_loss(
+            TI2TDPOTrainer, 'preference_loss', first,
+            ('input_ids', 'attention_mask', 'response_mask', 'pixel_values',
+             'tgt_sizes')):
+        trainer, steps, timing = run_ti2t(
+            TI2TDPOTrainer, 'text_image_to_text/dpo', argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mcfg = trainer.model_cfg
+    frozen = trainer.frozen_modules()
+    proc = trainer.make_image_processor()
+    with in_memory_checkpoint(ckpt, tensors):
+        start, _ = load_minicpmv_params(ckpt, device=dev)
+    moved = changed_modules(trainer.state.params,
+                            {m: leaves_by_path(start[m]) for m in start})
+    del trainer, start
+    free_memory()
+    b = first['batch']
+    shape = tuple(b['input_ids'].shape)
+    q = mcfg.resampler.num_queries
+    n_image = (b['input_ids'] == mcfg.image_token_id).sum(-1).tolist()
+    # each row's crops and grids against the processor run again on the
+    # host, the row's image found by its pixels
+    want = [proc(p) for p in images]
+    px = b['pixel_values'].cpu().numpy()
+    row_image = [next((j for j, o in enumerate(want)
+                       if np.array_equal(px[r], o['pixel_values'])), None)
+                 for r in range(shape[0])]
+    tgt = b['tgt_sizes'].cpu().tolist()
+    crops_equal = None not in row_image and all(
+        tgt[r] == want[j]['tgt_sizes'].tolist()
+        for r, j in enumerate(row_image))
+    n_crops = [sum(h * w > 0 for h, w in row) for row in tgt]
+    losses = [s['train/loss'] for s in steps]
+    step_s, tps = step_report('phase45', steps, shape, 'train/loss')
+    layers = mcfg.text.num_layers
+    # a step: the trunk's forward for the policy and the reference, its
+    # backward ('save_flash' keeps the kernel's output); the tower's and
+    # the resampler's attention are plain PyTorch, as in JAX
+    need = {'fwd': MINICPMV_STEPS * 2 * layers,
+            'bwd': MINICPMV_STEPS * layers}
+    vc = mcfg.vision
+    n['tower_matmul'] = (vc.num_hidden_layers
+                         * (4 * vc.hidden_size ** 2 + 2 * vc.hidden_size
+                            * vc.intermediate_size)
+                         + 3 * vc.patch_size ** 2 * vc.hidden_size)
+    slots = px.shape[2]
+    flops = minicpmv_step_flops(mcfg, n, shape, tgt, slots)
+    mfu = flops['padded'][0] / step_s / PEAK_FLOPS[torch.bfloat16]
+    mfu_valid = flops['valid'][0] / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f'phase45 MiniCPM-V TI2T DPO: batch {shape} with pixel_values '
+        f'{tuple(b["pixel_values"].shape)}; crops a row {n_crops} of '
+        f'{px.shape[1]}, grids {tgt}; crops and grids equal to the host '
+        f'processor\'s: {crops_equal}; image tokens a row {n_image} (need '
+        f'{[c * q for c in n_crops]}: {q} a crop; the hash tokenizer may '
+        f'add more, R12); frozen {frozen} (the tree holds {sorted(moved)}: '
+        f'R40); remat {mcfg.text.remat}, compute {mcfg.text.compute_dtype} '
+        f'(the tower and the resampler in their params\' fp32, as JAX '
+        f'promotes); trainer_main {total_s:.2f} s (load '
+        f'{timing["load_s"]:.2f} s, {len(steps)} steps); step time '
+        f'{step_s:.4f} s (step 2), {tps:.1f} tokens/s, MFU {mfu:.4f} over '
+        f'the padded slots ({flops["padded"][0] / 1e12:.2f} TFLOP a step, '
+        f'the tower and resampler {flops["padded"][1] / 1e12:.2f}), '
+        f'{mfu_valid:.4f} over the valid patches '
+        f'({flops["valid"][0] / 1e12:.2f} TFLOP), against 989 TFLOP/s; '
+        f'peak memory {peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB resident '
+        f'before); modules moved {moved}; flash launches fwd '
+        f'{launches["fwd"]} (need {need["fwd"]}) bwd {launches["bwd"]} (need '
+        f'{need["bwd"]}); card {smi}')
+    if len(steps) != MINICPMV_STEPS or shape != (2 * MINICPMV_PAIRS,
+                                                 MINICPMV_BUCKET):
+        raise AssertionError(f'MiniCPM-V DPO: {len(steps)} steps at {shape}')
+    if abs(losses[0] - math.log(2)) > 1e-6:
+        raise AssertionError(f'MiniCPM-V DPO step 1 loss {losses[0]!r} != '
+                             'ln 2')
+    if not all_finite(steps):
+        raise AssertionError('MiniCPM-V DPO: a non-finite metric')
+    if any(t < c * q for t, c in zip(n_image, n_crops)):
+        raise AssertionError(f'MiniCPM-V DPO: image tokens a row {n_image} '
+                             f'for crops {n_crops}')
+    if not crops_equal:
+        raise AssertionError('MiniCPM-V DPO: the crops or grids are not the '
+                             'processor\'s')
+    if moved != {'llm': True, 'vpm': True, 'resampler': True}:
+        raise AssertionError(f'MiniCPM-V DPO: modules moved {moved}; under '
+                             'R40 the tower and resampler train')
+    check_launches('MiniCPM-V DPO', launches, need, exact=True)
+
+    # step 1 recomputed from the checkpoint with the plain attention, in
+    # bf16 compute and in fp32
+    with in_memory_checkpoint(ckpt, tensors):
+        params, _ = load_minicpmv_params(ckpt, device=dev)
+    sums = {}
+    with torch.no_grad(), plain_flash():
+        for dtype in ('bfloat16', 'float32'):
+            sums[dtype] = masked_sums(minicpmv.token_logprobs(
+                params, mcfg.replace(compute_dtype=dtype), b['input_ids'],
+                attention_mask=b['attention_mask'],
+                pixel_values=b['pixel_values'], tgt_sizes=b['tgt_sizes']),
+                b['response_mask'])
+    del params, tensors
+    free_memory()
+    log('phase45 step 1 recomputed with the plain attention, response '
+        'log-prob sums: ' + check_sums('policy', first['sums'],
+                                       sums['bfloat16'], sums['float32'])
+        + '; ' + check_sums('reference', first['ref_sums'], sums['bfloat16'],
+                            sums['float32']))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f'phase45 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase, '
+        f'{disk_written():.3f} GB by the run so far')
+    return {'launches': launches, 'step_s': step_s, 'tokens_per_s': tps,
+            'mfu': mfu, 'mfu_valid': mfu_valid, 'peak_gb': peak / 1e9,
+            'images': images}
+
+
+def minicpmv_small(dev, smi, tmp: str, images: list) -> dict:
+    """Phase 46 at ``MINICPMV_SMALL`` widths (text 2 layers, a 2-layer
+    tower), through the entry points' ``trainer_main``: TI2T SFT (2 steps)
+    with an ``output_dir``, its ``slice_{step}`` export reloaded bit-equal
+    and its train state resumed; KTO, ORPO and SimPO one step each; greedy
+    ``generate`` with slice-mode media.  ``images`` are phase 45's PNG
+    files, sliced at the processor's default.  Its flash launches, each
+    exact: the four trainers', none in the cached ``generate`` and one
+    forward a text layer in each of the generation check's no-cache
+    forwards."""
+    from align_anything_tpu_torch import checkpoint as ckpt_lib  # noqa: PLC0415
+    from align_anything_tpu_torch.models import minicpmv  # noqa: PLC0415
+    from align_anything_tpu_torch.models.hf_loader import (  # noqa: PLC0415
+        load_minicpmv_params)
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text import (  # noqa: PLC0415
+        kto, orpo, simpo)
+    from align_anything_tpu_torch.trainers.text_image_to_text.sft import (  # noqa: PLC0415
+        TI2TSupervisedTrainer)
+
+    t_phase, written0 = time.perf_counter(), disk_written()
+    free_memory()
+    ckpt, tensors, n, _ = minicpmv_assets(tmp, 'minicpmv_small', True,
+                                          SEED + 460, dev)
+    sft_data = write_jsonl(os.path.join(tmp, 'sft_minicpmv.jsonl'),
+                           ti2t_rows(images, SEED + 461, False,
+                                     *MINICPMV_WORDS))
+    pref_data = write_jsonl(os.path.join(tmp, 'pref_minicpmv_small.jsonl'),
+                            ti2t_rows(images, SEED + 462, True,
+                                      *MINICPMV_WORDS))
+    out = os.path.join(tmp, 'minicpmv_sft')
+    layers = MINICPMV_SMALL['num_hidden_layers']
+    b = 2
+    common = ['--model_name_or_path', ckpt, '--train_template', 'AA_TI2T',
+              '--save_checkpoint', 'False', '--epochs', '1',
+              '--per_device_train_batch_size', str(b), '--padding_buckets',
+              f'[{MINICPMV_BUCKET}]', '--learning_rate', '1e-4']
+    one_step = ['--train_datasets', pref_data, '--train_size', str(b)]
+    sft_steps = len(images) // b
+    runs = (
+        # (tag, class, task, argv, launches: the trunk's forward and
+        # backward a step ('save_flash' keeps the kernel's output); KTO's
+        # reference too, and its KL estimate at start-up two text-only
+        # passes (R14))
+        ('SFT', TI2TSupervisedTrainer, 'text_image_to_text/sft',
+         [*common, '--train_datasets', sft_data, '--output_dir', out,
+          '--save_checkpoint', 'True'],
+         {'fwd': sft_steps * layers, 'bwd': sft_steps * layers}),
+        ('KTO', kto.TI2TKTOTrainer, 'text_to_text/kto',
+         [*common, *one_step, '--per_device_kl_batch_size', str(b)],
+         {'fwd': 2 * layers + 2 * layers, 'bwd': layers}),
+        ('ORPO', orpo.TI2TORPOTrainer, 'text_to_text/orpo',
+         [*common, *one_step], {'fwd': layers, 'bwd': layers}),
+        ('SimPO', simpo.TI2TSimPOTrainer, 'text_to_text/simpo',
+         [*common, *one_step], {'fwd': layers, 'bwd': layers}))
+    total = {'fwd': 0, 'bwd': 0}
+    with in_memory_checkpoint(ckpt, tensors):
+        for tag, cls, task, argv, need in runs:
+            torch.cuda.synchronize()
+            reset_flash_counts()
+            t0 = time.perf_counter()
+            trainer, steps, _ = run_ti2t(cls, task, argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = flash_counts()
+            losses = [m['train/loss'] for m in steps]
+            log(f'phase46 MiniCPM-V {tag}: model {trainer.mm.__name__}; '
+                f'{len(steps)} steps, train/loss {losses}; trainer_main '
+                f'{seconds:.2f} s; flash launches fwd {launches["fwd"]} '
+                f'(need {need["fwd"]}) bwd {launches["bwd"]} (need '
+                f'{need["bwd"]}); card {smi}')
+            if (not trainer.mm.__name__.endswith('.minicpmv') or not steps
+                    or not all_finite(steps)):
+                raise AssertionError(f'MiniCPM-V {tag}: {trainer.mm.__name__}'
+                                     ', no step, or a non-finite metric')
+            check_launches(f'MiniCPM-V {tag}', launches, need, exact=True)
+            for k in total:
+                total[k] += launches[k]
+            if tag == 'SFT':
+                sft, proc = trainer, trainer.make_image_processor()
+                continue
+            del trainer
+            free_memory()
+        # the export, read back, and the train state resumed
+        ckpt_lib.wait_for_saves()
+        step = sft.global_step
+        want = leaves_by_path(sft.state.params)
+        back, cfg = load_minicpmv_params(
+            os.path.join(out, f'slice_{step}'), device=dev)
+        exported = leaves_by_path(back)
+        export_equal = set(exported) == set(want) and all(
+            torch.equal(exported[p], want[p]) for p in want)
+        reset_flash_counts()
+        cfgs, pc = parse_cfgs('text_image_to_text/sft', [
+            *common, '--train_datasets', sft_data, '--output_dir', out,
+            '--load_checkpoint', 'True'])
+        resumed = TI2TSupervisedTrainer(cfgs=cfgs, parallel_cfgs=pc)
+        got = leaves_by_path(resumed.state.params)
+        resume_equal = (resumed.global_step == step and set(got) == set(want)
+                        and all(torch.equal(got[p], want[p]) for p in want))
+        resume_launches = flash_counts()
+        params, cfg = load_minicpmv_params(ckpt, device=dev)
+    del sft, resumed, back, exported, got, want
+    free_memory()
+    written = sorted(os.listdir(out))
+    log(f'phase46 MiniCPM-V SFT with --output_dir: wrote {written}; the '
+        f'slice_{step} export reloaded bit-equal to the trained params: '
+        f'{export_equal}; the train state resumed at step {step} bit-equal: '
+        f'{resume_equal} (flash launches {resume_launches}); '
+        f'{disk_written() - written0:.3f} GB written so far by the phase')
+    if not (export_equal and resume_equal):
+        raise AssertionError('MiniCPM-V: the export or the resume is not '
+                             'bit-equal to the trained params')
+    check_launches('MiniCPM-V resume', resume_launches, {'fwd': 0, 'bwd': 0},
+                   exact=True)
+    reset_flash_counts()
+    # ids below the image token (4000), so only the image spans hold it
+    gen = greedy_against_no_cache(
+        minicpmv, cfg, params, [proc(p) for p in images[:2]], dev,
+        SEED + 465, 3900, MINICPMV_GEN_NEW)
+    launches = flash_counts()
+    for k in total:
+        total[k] += launches[k]
+    need = {'fwd': MINICPMV_GEN_NEW * layers, 'bwd': 0}
+    log(f'phase46 MiniCPM-V generate (fp32 compute, {MINICPMV_GEN_NEW} new '
+        f'tokens from 2 image prompts of {gen["n_tok"]} image tokens, the '
+        f'slice-mode crops and tgt_sizes in the prefill): '
+        f'{gen["gen_s"]:.3f} s; ids equal to the argmax of the no-cache '
+        f'forward over the grown sequence {gen["agree"]}/{gen["total"]}; '
+        f'ids {gen["ids"]}; flash launches in generate {gen["cached"]} '
+        f'(need none), with the no-cache forwards {launches} (need {need})')
+    if gen['agree'] != gen['total']:
+        raise AssertionError('MiniCPM-V generate: ids off the no-cache '
+                             'argmax')
+    check_launches('MiniCPM-V generate (cached)', gen['cached'],
+                   {'fwd': 0, 'bwd': 0}, exact=True)
+    check_launches('MiniCPM-V generate and its no-cache forwards', launches,
+                   need, exact=True)
+    del params, tensors
+    free_memory()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    log(f'phase46 done in {time.perf_counter() - t_phase:.1f} s; '
+        f'{disk_written() - written0:.3f} GB written by the phase; params '
+        f'llm {n["llm"] / 1e9:.4f} B, vpm {n["vpm"] / 1e9:.4f} B, '
+        f'resampler {n["resampler"] / 1e9:.4f} B')
     return {'launches': total}
 
 
@@ -7988,17 +8488,48 @@ def gemma3_generation(dev, smi, ckpt: str) -> dict:
 # time is the host's work in four servers' decode loops (112.5-170.2 s of
 # the call at 64).  Not a shallower model: cut to 6 of its 26 layers, the
 # random model repeats the prompt's closing EOS and every request stops
-# after one token.
-HTTP_CLIENTS, HTTP_SLOTS, HTTP_NEW = 16, 8, 32
+# after one token.  8 clients on 6 slots (16 on 8 before phases 45-46
+# took their time): two of each request kind, two of them wait in the
+# server's feed for a slot that a finished request released.
+HTTP_CLIENTS, HTTP_SLOTS, HTTP_NEW = 8, 6, 32
 HTTP_SYSTEM_WORDS, HTTP_WORDS = 48, (470, 501)
 
 
 class CountingServer(api_server.InferenceServer):
-    """An ``InferenceServer`` that also counts the tokens it generates."""
+    """An ``InferenceServer`` that also counts the tokens it generates,
+    and of its worker's prefills those into a slot that an earlier request
+    held (``late``) and, paged, the pages beside the cached prefix that an
+    earlier request held (``reused_pages``)."""
 
     def __init__(self, *args, **kwargs):
-        self.generated = 0
+        self.generated = self.late = self.reused_pages = 0
         super().__init__(*args, **kwargs)
+        engine, slots, pages = self.engine, set(), set()
+        shared = set((engine._prefix or {}).get('pages', ()))
+        prefill_paged, prefill_dense = (engine._prefill_paged,
+                                        engine._prefill_dense)
+
+        def took(slot_list):
+            # a direct engine.generate on the caller's thread starts a pool
+            # of its own: not counted
+            if threading.current_thread() is not self._worker:
+                return False
+            self.late += len(slots & set(slot_list))
+            slots.update(slot_list)
+            return True
+
+        def paged(params, st, slot, tail, row, *args):
+            if took([slot]):
+                own = set(row) - shared - {0}
+                self.reused_pages += len(pages & own)
+                pages.update(own)
+            return prefill_paged(params, st, slot, tail, row, *args)
+
+        def dense(params, st, slot_list, *args):
+            took(slot_list)
+            return prefill_dense(params, st, slot_list, *args)
+
+        engine._prefill_paged, engine._prefill_dense = paged, dense
 
     def _finish(self, rid, tokens):
         self.generated += len(tokens)
@@ -8091,8 +8622,9 @@ def stop_http(server, httpd, thread) -> None:
 
 
 def client_mix(base: str, prompts: list) -> tuple[list, float]:
-    """16 concurrent clients, each a GET of /health and /v1/models and one
-    greedy POST: completions, chat, and both streamed, in turn."""
+    """``HTTP_CLIENTS`` concurrent clients, each a GET of /health and
+    /v1/models and one greedy POST: completions, chat, and both streamed,
+    in turn."""
     kinds = ('completion', 'chat', 'stream_completion', 'stream_chat')
     replies: list = [None] * len(prompts)
 
@@ -8144,7 +8676,7 @@ def http_serving(dev, smi, ckpt: str) -> dict:
         try:
             lens = [len(server.tokenizer.encode(p)) for p in prompts]
             replies, seconds = client_mix(base, prompts)
-            generated = server.generated
+            generated, late = server.generated, server.late
             peak = torch.cuda.max_memory_allocated() / 1e9
             statuses = [r['status'] for rs in replies for r in rs]
             ttft = [rs[2]['ttft'] for rs in replies
@@ -8162,13 +8694,17 @@ def http_serving(dev, smi, ckpt: str) -> dict:
             stop_http(server, httpd, thread)
         log(f'phase30 {mode} bf16: {HTTP_CLIENTS} clients ({len(statuses)} '
             f'requests: /health, /v1/models and a completion, chat or '
-            f'stream each), prompts {min(lens)}-{max(lens)} tokens (window '
+            f'stream each) on {HTTP_SLOTS} slots, {late} admitted into a '
+            f'released slot, prompts {min(lens)}-{max(lens)} tokens (window '
             f'{server.model_cfg.sliding_window}), {generated} tokens '
             f'generated in {seconds:.3f} s = {generated / seconds:.1f} '
             f'tokens/s; time to first token (SSE) {quantiles(ttft)}; peak '
             f'memory {peak:.3f} GB; statuses '
             f'{sorted(Counter(statuses).items())}'
-            + (f'; prefix {cached} tokens cached' if mode == 'paged' else '')
+            + (f'; prefix {cached} tokens cached; pages that an earlier '
+               f'request held, taken again (the greedy submissions '
+               f'included) {server.reused_pages}' if mode == 'paged'
+               else '')
             + f'; finish reasons {sorted(reasons.items())}; greedy ids equal '
             f'to a direct engine.generate: {same}/{len(ids)} (tokens a '
             f'request {min(map(len, ids))}-{max(map(len, ids))}); card {smi}')
@@ -8176,8 +8712,14 @@ def http_serving(dev, smi, ckpt: str) -> dict:
             raise AssertionError(f'phase30 {mode}: a request failed')
         if min(lens) <= server.model_cfg.sliding_window:
             raise AssertionError('phase30: a prompt within the window')
+        if late < HTTP_CLIENTS - HTTP_SLOTS:
+            raise AssertionError(f'phase30 {mode}: {late} requests entered '
+                                 'a released slot')
+        if mode == 'paged' and not server.reused_pages:
+            raise AssertionError('phase30 paged: no request entered pages '
+                                 'that a finished request released')
         rows[mode] = {'tokens_per_s': generated / seconds, 'ttft': ttft,
-                      'peak_gb': peak, 'same': same}
+                      'peak_gb': peak, 'same': same, 'late': late}
         # the stdlib server's handler holds the server: drop both
         del server, httpd, thread
 
@@ -8196,14 +8738,17 @@ def http_serving(dev, smi, ckpt: str) -> dict:
             joined = (stream['status'] == whole['status'] == 200
                       and stream['done'] and bool(text)
                       and streamed_text(stream['events']) == text)
+            late = server.late
             same32, ids = greedy_ids_against_direct(server, prompts)
+            late = server.late - late
         finally:
             stop_http(server, httpd, thread)
         log(f'phase30 {mode} fp32: streamed deltas join into the '
             f'non-streamed text: {joined} ({len(text)} characters); greedy '
             f'ids equal to a direct engine.generate: '
-            f'{same32}/{len(ids)}')
-        if not (joined and same32 == len(ids)):
+            f'{same32}/{len(ids)} ({late} admitted into a released slot)')
+        if not (joined and same32 == len(ids)
+                and late >= HTTP_CLIENTS - HTTP_SLOTS):
             raise AssertionError(f'phase30 {mode}: the server disagrees with '
                                  'the engine in fp32')
         # the stdlib server's handler holds the server: drop both
@@ -8929,7 +9474,7 @@ def profile_idefics2(dev, smi, tmp: str) -> None:
         '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
         '--epochs', '1', '--per_device_train_batch_size',
         str(IDEFICS2_PAIRS), '--padding_buckets', f'[{IDEFICS2_BUCKET}]'])
-    with idefics2_in_memory(ckpt, tensors):
+    with in_memory_checkpoint(ckpt, tensors):
         trainer = TI2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
     del tensors
     warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
@@ -9014,6 +9559,123 @@ def profile_idefics2(dev, smi, tmp: str) -> None:
         f'({t_conn / step_busy:.4f}); the rest (the trunk through the '
         f'kernels, the vocab projection, the optimizer) {rest:.4f} s '
         f'({rest / step_busy:.4f}) of the step\'s device time; card {smi}')
+    del trainer, params, prof, q, k, v, feats
+    free_memory()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def profile_minicpmv(dev, smi, tmp: str) -> None:
+    """``--profile minicpmv``: one MiniCPM-V DPO step of phase 45's config
+    after a warm-up step, traced whole; then, over that step's rows (every
+    crop, padded ones too), the tower forward and backward (the policy's
+    pass) and forward without gradients (the reference's), the tower's
+    plain attention alone at its shapes (its 27 layers, the same two ways)
+    and the resampler alone (the same two ways): their shares of the
+    step's device time.  The trunk (with the vocab projection) and the
+    optimizer are the rest."""
+    from align_anything_tpu_torch.models import idefics2, minicpmv  # noqa: PLC0415
+    from align_anything_tpu_torch.ops.attention import (  # noqa: PLC0415
+        chunked_masked_attention)
+    from align_anything_tpu_torch.trainers.cli import parse_cfgs  # noqa: PLC0415
+    from align_anything_tpu_torch.trainers.text_image_to_text.dpo import (  # noqa: PLC0415
+        TI2TDPOTrainer)
+
+    ckpt, tensors, _, _ = minicpmv_assets(tmp, 'minicpmv_26', False,
+                                          SEED + 450, dev)
+    images = png_images(tmp, MINICPMV_SIZES, SEED + 451)
+    data = write_jsonl(os.path.join(tmp, 'pref_minicpmv.jsonl'),
+                       ti2t_rows(images, SEED + 452, True, *MINICPMV_WORDS))
+    cfgs, pc = parse_cfgs('text_image_to_text/dpo', [
+        '--model_name_or_path', ckpt, '--train_datasets', data,
+        '--train_template', 'AA_TI2T', '--save_checkpoint', 'False',
+        '--epochs', '1', '--per_device_train_batch_size',
+        str(MINICPMV_PAIRS), '--padding_buckets', f'[{MINICPMV_BUCKET}]'])
+    with in_memory_checkpoint(ckpt, tensors):
+        trainer = TI2TDPOTrainer(cfgs=cfgs, parallel_cfgs=pc)
+    del tensors
+    warm, batch = list(trainer.train_iterator.epoch_batches(0))[:2]
+    trainer.train_step(warm)
+    _, prof, wall = traced(lambda: trainer.train_step(batch))
+    step_busy = report_trace('minicpmv dpo step', prof, wall, smi)
+    db = trainer.put_batch(batch)
+    params, mcfg = trainer.state.params, trainer.model_cfg
+    vc, c = mcfg.vision, mcfg.text
+    px = db['pixel_values'].flatten(0, 1)
+    tgt = db['tgt_sizes'].reshape(-1, 2)
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    def tower(grad: bool):
+        out = idefics2.vision_forward_packed(
+            params['vpm'], vc, px.to(torch.bfloat16), tgt,
+            remat=c.remat if grad else 'none')
+        if grad:
+            out.float().sum().backward()
+        return out
+
+    _, prof, wall = traced(lambda: tower(True))
+    t_tower = report_trace('minicpmv tower, forward + backward', prof, wall,
+                           smi)
+    for t in param_leaves(params):
+        t.grad = None
+    feats, prof, wall = traced(no_grad(lambda: tower(False)))
+    t_tower += report_trace('minicpmv tower, forward, no grad', prof, wall,
+                            smi)
+    feats = feats.detach()
+    crops, slots = feats.shape[:2]
+    valid = idefics2.patch_mask(tgt, slots)
+    q_gate, k_invalid = torch.ones_like(valid.float()), 1.0 - valid.float()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 455)
+    hd = vc.hidden_size // vc.num_attention_heads
+    q, k, v = (torch.randn((crops, slots, vc.num_attention_heads, hd),
+                           generator=gen, device=dev).requires_grad_(True)
+               for _ in range(3))
+
+    def attention(grad: bool):
+        for _ in range(vc.num_hidden_layers):
+            out = chunked_masked_attention(q, k, v, q_gate, k_invalid)
+            if grad:
+                torch.autograd.grad(out.sum(), (q, k, v))
+
+    _, prof, wall = traced(lambda: attention(True))
+    t_attn = report_trace(f'minicpmv tower attention x '
+                          f'{vc.num_hidden_layers}, forward + backward',
+                          prof, wall, smi, top=8)
+    _, prof, wall = traced(no_grad(lambda: attention(False)))
+    t_attn += report_trace(f'minicpmv tower attention x '
+                           f'{vc.num_hidden_layers}, forward', prof, wall,
+                           smi, top=8)
+
+    def resampler(grad: bool):
+        out = minicpmv.resampler_forward(params['resampler'],
+                                         mcfg.resampler, feats, tgt_hw=tgt)
+        if grad:
+            out.float().sum().backward()
+
+    _, prof, wall = traced(lambda: resampler(True))
+    t_res = report_trace('minicpmv resampler, forward + backward', prof,
+                         wall, smi, top=8)
+    for t in param_leaves(params):
+        t.grad = None
+    _, prof, wall = traced(no_grad(lambda: resampler(False)))
+    t_res += report_trace('minicpmv resampler, forward, no grad', prof,
+                          wall, smi, top=8)
+    rest = step_busy - t_tower - t_res
+    used = int((tgt[:, 0] > 0).sum())
+    valid_share = float((valid & (tgt[:, :1] > 0)).float().mean())
+    log(f'profile minicpmv: device busy a step {step_busy:.4f} s; the tower '
+        f'(policy and reference passes over {crops} crops of {slots} slots, '
+        f'{used} crops used, {valid_share:.4f} of the slots valid patches of '
+        f'used crops) {t_tower:.4f} s ({t_tower / step_busy:.4f}); its plain '
+        f'attention at D {hd} {t_attn:.4f} s ({t_attn / step_busy:.4f}); the '
+        f'resampler {t_res:.4f} s ({t_res / step_busy:.4f}); the rest (the '
+        f'trunk through the kernels, the vocab projection, the optimizer) '
+        f'{rest:.4f} s ({rest / step_busy:.4f}) of the step\'s device time; '
+        f'card {smi}')
     del trainer, params, prof, q, k, v, feats
     free_memory()
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -9152,7 +9814,8 @@ def main() -> int:
     libs = build_kernels()
     if sys.argv[1:2] == ['--profile']:
         which = sys.argv[2:] or ['dpo', 'ppo', 'ti2t', 'qlora', 'gemma3',
-                                 'qwen2vl', 'ta2t', 'mllama', 'idefics2']
+                                 'qwen2vl', 'ta2t', 'mllama', 'idefics2',
+                                 'minicpmv']
         if 'dpo' in which:
             profile_dpo(dev, smi)
         tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_')
@@ -9163,7 +9826,8 @@ def main() -> int:
                              ('qwen2vl', profile_qwen2_vl),
                              ('ta2t', profile_ta2t),
                              ('mllama', profile_mllama),
-                             ('idefics2', profile_idefics2)):
+                             ('idefics2', profile_idefics2),
+                             ('minicpmv', profile_minicpmv)):
                 if name in which:
                     fn(dev, smi, tmp)
         finally:
@@ -9302,6 +9966,8 @@ def main() -> int:
         mllama_sm = mllama_small(dev, smi, tmp, mllama_dpo['images'])
         ide_dpo = idefics2_dpo_full(dev, smi, tmp)
         ide_sm = idefics2_small(dev, smi, tmp, ide_dpo['images'])
+        mcv_dpo = minicpmv_dpo_full(dev, smi, tmp)
+        mcv_sm = minicpmv_small(dev, smi, tmp, mcv_dpo['images'])
         moe_serve = moe_serving(dev, smi)
         moe_train = moe_sft(dev, smi, tmp)
         moe_sm = moe_small(dev, smi, tmp)
@@ -9323,12 +9989,14 @@ def main() -> int:
     mm_ppo = fstats['timed']['ti2t_ppo']
     timed = {name: fstats['timed'][name]
              for name in ('gemma3_1b', 'gemma3_1b_w512', 'llava_next',
-                          'qwen2_vl_2b', 'qwen2_audio_tower', 'qwen3_moe')}
+                          'qwen2_vl_2b', 'qwen2_audio_tower', 'qwen3_moe',
+                          'minicpmv_trunk')}
     main_path = (dpo, harness, rm, ppo, kto, grpo, safe, variants, ti2t,
                  ti2t_sft, ti2t_rm, ti2t_ppo, ti2t_rl, anyres, tv2t,
                  lnext_small, qwen_dpo, qwen_small, ta2t_dpo, ta2t_sm,
-                 mllama_dpo, mllama_sm, ide_dpo, ide_sm, moe_serve, moe_train,
-                 moe_sm, qlora4, qlora8, lora, gemma, gemma_gen, remat, saves)
+                 mllama_dpo, mllama_sm, ide_dpo, ide_sm, mcv_dpo, mcv_sm,
+                 moe_serve, moe_train, moe_sm, qlora4, qlora8, lora, gemma,
+                 gemma_gen, remat, saves)
     flash = {'route': 'cuda',
              'source': 'align_anything_tpu_torch/csrc/flash_attention.cu',
              'ms_is': 'B4 L1024 H32 KH8 D128 causal, 2 rows padded '
@@ -9351,7 +10019,9 @@ def main() -> int:
                       'encoder over 30 s clips), SDPA full; qwen3_moe: B2 '
                       'L1024 H32 KH4 D64 causal, 2 rows padded (phase '
                       '41\'s qwen3-moe-30b-a3b SFT decoder), SDPA causal, '
-                      'no padding',
+                      'no padding; minicpmv_trunk: B4 L1024 H28 KH4 D128 '
+                      'causal, 2 rows padded (phase 45\'s MiniCPM-V-2.6 DPO '
+                      'decoder), SDPA causal, no padding',
              'launches_are': 'phase 7 (4 bare DPO steps) + phase 9 (4 DPO '
                              'steps through trainer_main) + phase 11 (4 RM '
                              'steps) + phase 12 (3 PPO rounds) + phase 14 '
@@ -9402,7 +10072,14 @@ def main() -> int:
                              'only, the 27-layer tower and the perceiver '
                              'run no kernel) + phase 44 (Idefics2 SFT, KTO, '
                              'ORPO and SimPO, small, and the no-cache '
-                             'forwards of its generation check) + phase 40 (qwen3-moe-30b-a3b at 24 layers: '
+                             'forwards of its generation check) + phase 45 '
+                             '(2 MiniCPM-V DPO steps at MiniCPM-V-2.6 '
+                             'widths, text 4 layers: the trunk only, the '
+                             '27-layer tower and the resampler run no '
+                             'kernel) + phase 46 (MiniCPM-V SFT, KTO, ORPO '
+                             'and SimPO, small, and the no-cache forwards of '
+                             'its generation check) + phase 40 '
+                             '(qwen3-moe-30b-a3b at 24 layers: '
                              'three prefill forwards without a cache) + '
                              'phase 41 (2 + 2 SFT steps at its widths, 4 '
                              'layers, and 22 forwards of bench.py\'s MoE '

@@ -103,10 +103,11 @@ def _jax_steps(jx, params, batch, n):
             'train/reward_accuracy': out['reward_accuracy'],
             'train/reward_margin': out['reward_margin'].mean()}
 
+    # compiled once: the eager op-by-op trace took most of the test's time
+    grad_fn = jx.jax.jit(jx.jax.value_and_grad(loss_fn, has_aux=True))
     state, out = tx.init(params), []
     for step in range(n):
-        (_, metrics), grads = jx.jax.value_and_grad(
-            loss_fn, has_aux=True)(params)
+        (_, metrics), grads = grad_fn(params)
         updates, state = tx.update(grads, state, params)
         params = jx.optax.apply_updates(params, updates)
         metrics['train/lr'] = schedule(step)

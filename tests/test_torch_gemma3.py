@@ -217,7 +217,7 @@ def test_gradients_match_jax(jx, model):
                               attention_mask=jx.jnp.asarray(mask)).logits
         return (logits * weight).sum()
 
-    jgrads = np_tree(jx.jax.grad(jloss)(jparams))
+    jgrads = np_tree(jx.jax.jit(jx.jax.grad(jloss))(jparams))
     params, _ = trainable_from_jax_tree(tree, device='cpu')
     logits = tt.forward(params, tcfg, torch.from_numpy(ids),
                         attention_mask=torch.from_numpy(mask)).logits
@@ -256,10 +256,11 @@ def test_dpo_step_matches_jax(jx, model):
                           jx.jnp.asarray(rmask), scale_coeff=0.1)
         return out['loss'], out['reward_margin'].mean()
 
+    # compiled once: the eager op-by-op trace took most of the test's time
+    grad_fn = jx.jax.jit(jx.jax.value_and_grad(loss_fn, has_aux=True))
     p, opt_state, want = jparams, tx.init(jparams), []
     for _ in range(3):
-        (loss, margin), grads = jx.jax.value_and_grad(loss_fn,
-                                                      has_aux=True)(p)
+        (loss, margin), grads = grad_fn(p)
         updates, opt_state = tx.update(grads, opt_state, p)
         p = jx.optax.apply_updates(p, updates)
         want.append((float(loss), float(margin),

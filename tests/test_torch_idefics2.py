@@ -242,12 +242,14 @@ def test_vision_towers_match_jax(ide):
     rng = np.random.default_rng(5)
     img = rng.normal(size=(2, 3, 56, 56)).astype(np.float32)
     fixed = tm.vision_forward(tv, vcfg, torch.from_numpy(img))
-    _close(fixed, jm.vision_forward(jv, ide['jcfg'].vision, jnp.asarray(img)))
+    # JAX's towers compiled (the eager op-by-op trace is slow)
+    _close(fixed, jax.jit(jm.vision_forward, static_argnums=1)(
+        jv, ide['jcfg'].vision, jnp.asarray(img)))
     px, grids = _packed()
     got = tm.vision_forward_packed(tv, vcfg, torch.from_numpy(px),
                                    torch.from_numpy(grids))
-    want = jm.vision_forward_packed(jv, ide['jcfg'].vision, jnp.asarray(px),
-                                    jnp.asarray(grids))
+    want = jax.jit(jm.vision_forward_packed, static_argnums=1)(
+        jv, ide['jcfg'].vision, jnp.asarray(px), jnp.asarray(grids))
     _close(got, want)
     # a full 4 x 4 grid packed row-major is the conv's patch order
     full = img.reshape(2, 3, 4, 14, 4, 14).transpose(0, 2, 4, 1, 3, 5)
@@ -312,8 +314,9 @@ def test_forward_logits_match_jax(ide, media):
                'tgt_sizes': jnp.asarray(grids)}
     got = tm.forward(ide['tparams'], ide['tcfg'], torch.from_numpy(ids),
                      attention_mask=torch.from_numpy(mask), **kw)
-    want = jm.forward(ide['params'], ide['jcfg'], jnp.asarray(ids, jnp.int32),
-                      attention_mask=jnp.asarray(mask, jnp.int32), **jkw)
+    want = jax.jit(jm.forward, static_argnums=1)(
+        ide['params'], ide['jcfg'], jnp.asarray(ids, jnp.int32),
+        attention_mask=jnp.asarray(mask, jnp.int32), **jkw)
     _close(got.logits, want.logits)
 
 

@@ -69,7 +69,7 @@ for name in ('scripts.bench.bench_int4_kernel_ab', 'utils.config',
              'trainers.text_audio_to_text.rm',
              'trainers.text_audio_to_text.ppo',
              'trainers.text_audio_to_text.grpo', 'models.mllama',
-             'models.idefics2'):
+             'models.idefics2', 'models.minicpmv'):
     assert 'align_anything_tpu_torch.' + name in names, name
 # the mixture-of-experts functions of the decoder and its configs
 from align_anything_tpu_torch.models import config, transformer
@@ -115,6 +115,7 @@ def test_port_imports_no_jax():
     'align_anything_tpu_torch.trainers.text_audio_to_text.grpo',
     'align_anything_tpu_torch.models.mllama',
     'align_anything_tpu_torch.models.idefics2',
+    'align_anything_tpu_torch.models.minicpmv',
 ])
 def test_kernel_module_imports_first(module):
     """A module that holds a kernel, or a trainer's entry point, imports on

@@ -257,8 +257,11 @@ def test_anyres_forward_and_logprobs_match_jax(lnext):
         got = tmm.forward(tparams, tcfg, torch.from_numpy(ids), **t_in)
         got_lp = tmm.token_logprobs(tparams, tcfg, torch.from_numpy(ids),
                                     **t_in)
-    want = jmm.forward(jparams, jcfg, jnp.asarray(ids), **j_in)
-    want_lp = jmm.token_logprobs(jparams, jcfg, jnp.asarray(ids), **j_in)
+    # compiled: the eager op-by-op trace took most of the test's time
+    want = jax.jit(jmm.forward, static_argnums=1)(
+        jparams, jcfg, jnp.asarray(ids), **j_in)
+    want_lp = jax.jit(jmm.token_logprobs, static_argnums=1)(
+        jparams, jcfg, jnp.asarray(ids), **j_in)
     for g, w in ((got.logits, want.logits),
                  (got.last_hidden_state, want.last_hidden_state),
                  (got_lp, want_lp)):

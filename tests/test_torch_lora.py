@@ -200,7 +200,7 @@ def test_grads_reach_the_adapters_only(jx):
         policy = jx.lora.attach_lora(bp, lp, jcfg, r=4, alpha=8.0)
         return jx.t.forward(policy, jcfg, jx.jnp.asarray(ids)).logits.mean()
 
-    want = jx.jax.grad(jloss)(jlp, jbase)
+    want = jx.jax.jit(jx.jax.grad(jloss))(jlp, jbase)
     base = from_jax_tree(np_tree(jbase), device='cpu')
     lp = lora_from_jax_tree(np_tree(jlp), device='cpu')
     policy = tlora.attach_lora(base, lp, tcfg, r=4, alpha=8.0)

@@ -241,8 +241,9 @@ def test_vision_tower_matches_jax(mll):
     (tpx, tid, tmask), (jpx, jid, jmask) = _both(_tiles(tcfg, seed=1))
     got = tm.vision_forward(mll['tparams']['vision_model'], tcfg.vision,
                             tpx, tid, tmask)
-    want = jm.vision_forward(mll['params']['vision_model'], jcfg.vision,
-                             jpx, jid, jmask)
+    # JAX's tower compiled (the eager op-by-op trace is slow)
+    want = jax.jit(jm.vision_forward, static_argnums=1)(
+        mll['params']['vision_model'], jcfg.vision, jpx, jid, jmask)
     assert got.shape == (2, 1, 2, 5, 96)
     _close(got, want)
 
@@ -292,7 +293,7 @@ def test_vision_tower_grads_match_jax(mll):
         return (jm.vision_forward(p, jcfg.vision, jpx, jid, jmask)
                 * jnp.asarray(w)).sum()
 
-    want = leaves(jax.grad(loss)(mll['params']['vision_model']))
+    want = leaves(jax.jit(jax.grad(loss))(mll['params']['vision_model']))
     got = leaves(tree_map(lambda t: t.grad, vp))
     assert set(got) == set(want)
     for path in want:
@@ -333,8 +334,9 @@ def test_text_only_forward_skips_cross_layers(mll, monkeypatch):
                         lambda *a: calls.append(1) or real(*a))
     got = tm.forward(mll['tparams'], mll['tcfg'], torch.from_numpy(ids),
                      attention_mask=torch.from_numpy(mask))
-    want = jm.forward(mll['params'], mll['jcfg'], jnp.asarray(ids),
-                      attention_mask=jnp.asarray(mask))
+    want = jax.jit(jm.forward, static_argnums=1)(
+        mll['params'], mll['jcfg'], jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask))
     assert not calls
     m = mask.astype(bool)
     _close(got.logits.numpy()[m], np.asarray(want.logits)[m])
@@ -358,8 +360,10 @@ def test_image_forward_and_logprobs_match_jax(mll, mask_from):
     tkw, jkw = dict(zip(names, tin)), dict(zip(names, jin))
     got = tm.forward(mll['tparams'], tcfg, torch.from_numpy(ids),
                      attention_mask=torch.from_numpy(mask), **tkw)
-    want = jm.forward(mll['params'], jcfg, jnp.asarray(ids),
-                      attention_mask=jnp.asarray(mask), **jkw)
+    # JAX's forward and log-probs compiled (the eager trace is slow)
+    want = jax.jit(jm.forward, static_argnums=1)(
+        mll['params'], jcfg, jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), **jkw)
     m = mask.astype(bool)
     _close(got.logits.numpy()[m], np.asarray(want.logits)[m])
     px = tkw.pop('pixel_values')
@@ -367,9 +371,9 @@ def test_image_forward_and_logprobs_match_jax(mll, mask_from):
     got = tm.token_logprobs(mll['tparams'], tcfg, torch.from_numpy(ids),
                             attention_mask=torch.from_numpy(mask),
                             pixel_values=px, **tkw)
-    want = jm.token_logprobs(mll['params'], jcfg, jnp.asarray(ids),
-                             attention_mask=jnp.asarray(mask),
-                             pixel_values=jpx, **jkw)
+    want = jax.jit(jm.token_logprobs, static_argnums=1)(
+        mll['params'], jcfg, jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), pixel_values=jpx, **jkw)
     m = mask[:, 1:].astype(bool)
     _close(got.numpy()[m], np.asarray(want)[m])
 

@@ -109,8 +109,9 @@ def test_config_passthroughs_and_replace():
 
 def test_init_tree_matches_jax():
     jc, tc = _configs()
-    want = jax.tree.map(lambda a: tuple(a.shape),
-                        jmm.init_params(jc, jax.random.PRNGKey(0)))
+    # JAX's init traced for its shapes (``jax.eval_shape``), not run op by op
+    want = jax.tree.map(lambda a: tuple(a.shape), jax.eval_shape(
+        lambda k: jmm.init_params(jc, k), jax.random.PRNGKey(0)))
     got = jax.tree.map(lambda t: tuple(t.shape),
                        tmm.init_params(tc, torch.Generator().manual_seed(0),
                                        device='cpu'))
@@ -171,12 +172,15 @@ def test_forward_and_logprobs_match_jax(with_pixels):
     if with_pixels:
         kw_j['pixel_values'] = jnp.asarray(px)
         kw_t['pixel_values'] = torch.from_numpy(px)
-    want = jmm.forward(params, jc, jnp.asarray(ids), **kw_j).logits
+    # compiled: the eager op-by-op trace took most of the test's time
+    want = jax.jit(jmm.forward, static_argnums=1)(
+        params, jc, jnp.asarray(ids), **kw_j).logits
     got = tmm.forward(tparams, tc, torch.from_numpy(ids), **kw_t).logits
     real = mask.astype(bool)
     _close(got[torch.from_numpy(real)], np.asarray(want)[real])
-    want_lp = jmm.token_logprobs(params, jc, jnp.asarray(ids), chunk_size=4,
-                                 **kw_j)
+    want_lp = jax.jit(jmm.token_logprobs, static_argnums=1,
+                      static_argnames='chunk_size')(
+        params, jc, jnp.asarray(ids), chunk_size=4, **kw_j)
     got_lp = tmm.token_logprobs(tparams, tc, torch.from_numpy(ids),
                                 chunk_size=4, **kw_t)
     keep = real[:, 1:]
@@ -261,7 +265,8 @@ def test_dpo_gradient_matches_jax():
                            jnp.asarray(resp))
 
     trainable = {k: v for k, v in pol.items() if k != 'vision_tower'}
-    want = jax.grad(jloss)(jax.tree.map(jnp.asarray, trainable))
+    # compiled: the eager op-by-op trace took most of the test's time
+    want = jax.jit(jax.grad(jloss))(jax.tree.map(jnp.asarray, trainable))
 
     tpol, _ = trainable_from_jax_tree(pol, device='cpu')
     for t in jax.tree.leaves(tpol['vision_tower']):
@@ -426,10 +431,12 @@ def test_export_bf16(llava, tmp_path):
     assert hf['torch_dtype'] == 'bfloat16'
 
 
-@pytest.mark.parametrize('model_type', ['qwen2_vl', 'minicpmv'])
+@pytest.mark.parametrize('model_type', ['qwen2_vl', 'minicpmv', 'minicpmo'])
 def test_load_refuses_llava_next(tmp_path, model_type):
-    """A vision-LM family still unported raises and names the ROADMAP
-    item (LLaVA-Next and -Video load since they were ported)."""
+    """The LLaVA loader refuses a vision-LM family outside the LLaVA
+    family, ported through its own loader (Qwen2-VL, MiniCPM-V) or not yet
+    (MiniCPM-o), and names the ROADMAP item (LLaVA-Next and -Video load
+    since they were ported)."""
     (tmp_path / 'config.json').write_text(json.dumps(
         {'model_type': model_type, 'text_config': {}, 'vision_config': {}}))
     with pytest.raises(NotImplementedError, match='item 12'):

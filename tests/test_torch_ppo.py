@@ -310,7 +310,9 @@ def test_score_model_forward_matches_jax(jx):
     jparams = jx.sm.init_params(jcfg, jx.jax.random.PRNGKey(0))
     params = from_jax_tree(np_tree(jparams), device='cpu')
     ids, mask = _padded_batch(8)
-    want = jx.sm.forward(jparams, jcfg, ids, attention_mask=mask)
+    # compiled: the eager op-by-op trace took most of the test's time
+    fwd = jx.jax.jit(jx.sm.forward, static_argnums=1)
+    want = fwd(jparams, jcfg, ids, attention_mask=mask)
     got = tsm.forward(params, cfg, _t(ids), attention_mask=_t(mask))
     assert got.scores.shape == (4, 24, 1) and got.scores.dtype == torch.float32
     assert bool(torch.isfinite(got.scores).all())
@@ -322,7 +324,7 @@ def test_score_model_forward_matches_jax(jx):
                                   np.asarray(want.end_index))
     assert got.end_index.tolist() == [23, 23, 14, 22]
     # no mask: the last position
-    want = jx.sm.forward(jparams, jcfg, ids[:, :10])
+    want = fwd(jparams, jcfg, ids[:, :10])
     got = tsm.forward(params, cfg, _t(ids[:, :10]))
     _close(got.end_scores, want.end_scores, MODEL_TOL)
     assert got.end_index.tolist() == [9] * 4

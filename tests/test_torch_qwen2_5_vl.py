@@ -156,18 +156,21 @@ def test_forward_and_logprobs_match_jax(q25, grid):
         px, thw = _dynamic_inputs(jcfg.vision, [(8, 4), (4, 4)], 48, seed=6)
         extra_j = {'image_grid_thw': jnp.asarray(thw)}
         extra_t = {'image_grid_thw': torch.from_numpy(thw)}
-    want = jq5.forward(q25['params'], jcfg, jnp.asarray(ids),
-                       attention_mask=jnp.asarray(mask),
-                       pixel_values=jnp.asarray(px), **extra_j).logits
+    # compiled: the eager op-by-op trace took most of the test's time
+    want = jax.jit(jq5.forward, static_argnums=1)(
+        q25['params'], jcfg, jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), pixel_values=jnp.asarray(px),
+        **extra_j).logits
     got = tq5.forward(q25['tparams'], tcfg, torch.from_numpy(ids),
                       attention_mask=torch.from_numpy(mask),
                       pixel_values=torch.from_numpy(px), **extra_t).logits
     real = mask.astype(bool)
     _close(got[torch.from_numpy(real)], np.asarray(want)[real])
-    want_lp = jq5.token_logprobs(q25['params'], jcfg, jnp.asarray(ids),
-                                 attention_mask=jnp.asarray(mask),
-                                 pixel_values=jnp.asarray(px), chunk_size=4,
-                                 **extra_j)
+    want_lp = jax.jit(jq5.token_logprobs, static_argnums=1,
+                      static_argnames='chunk_size')(
+        q25['params'], jcfg, jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), pixel_values=jnp.asarray(px),
+        chunk_size=4, **extra_j)
     got_lp = tq5.token_logprobs(q25['tparams'], tcfg, torch.from_numpy(ids),
                                 attention_mask=torch.from_numpy(mask),
                                 pixel_values=torch.from_numpy(px),

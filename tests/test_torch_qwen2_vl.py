@@ -371,18 +371,21 @@ def test_forward_and_logprobs_match_jax(qvl, grid):
         px, thw = _dynamic_inputs(jcfg.vision, [(4, 8), (6, 2)], 40, seed=5)
         extra_j = {'image_grid_thw': jnp.asarray(thw)}
         extra_t = {'image_grid_thw': torch.from_numpy(thw)}
-    want = jq.forward(qvl['params'], jcfg, jnp.asarray(ids),
-                      attention_mask=jnp.asarray(mask),
-                      pixel_values=jnp.asarray(px), **extra_j).logits
+    # compiled: the eager op-by-op trace took most of the test's time
+    want = jax.jit(jq.forward, static_argnums=1)(
+        qvl['params'], jcfg, jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), pixel_values=jnp.asarray(px),
+        **extra_j).logits
     got = tq.forward(qvl['tparams'], tcfg, torch.from_numpy(ids),
                      attention_mask=torch.from_numpy(mask),
                      pixel_values=torch.from_numpy(px), **extra_t).logits
     real = mask.astype(bool)
     _close(got[torch.from_numpy(real)], np.asarray(want)[real])
-    want_lp = jq.token_logprobs(qvl['params'], jcfg, jnp.asarray(ids),
-                                attention_mask=jnp.asarray(mask),
-                                pixel_values=jnp.asarray(px), chunk_size=4,
-                                **extra_j)
+    want_lp = jax.jit(jq.token_logprobs, static_argnums=1,
+                      static_argnames='chunk_size')(
+        qvl['params'], jcfg, jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), pixel_values=jnp.asarray(px),
+        chunk_size=4, **extra_j)
     got_lp = tq.token_logprobs(qvl['tparams'], tcfg, torch.from_numpy(ids),
                                attention_mask=torch.from_numpy(mask),
                                pixel_values=torch.from_numpy(px),
@@ -446,9 +449,12 @@ def test_bridge_tree_matches_init(qvl):
     bridged = qvl['tparams']
     shapes = {p: v.shape for p, v in _leaves(init).items()}
     assert shapes == {p: v.shape for p, v in _leaves(bridged).items()}
-    want = _leaves(jax.tree.map(np.asarray, jq.init_params(
-        qvl['jcfg'], jax.random.PRNGKey(0))))
-    assert shapes == {p: v.shape for p, v in want.items()}
+    # JAX's init traced for its shapes (``jax.eval_shape``), not run op by op
+    want = jax.eval_shape(lambda k: jq.init_params(qvl['jcfg'], k),
+                          jax.random.PRNGKey(0))
+    assert shapes == {''.join(f'/{k.key}' for k in path): a.shape
+                      for path, a in jax.tree_util.tree_flatten_with_path(
+                          want)[0]}
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])

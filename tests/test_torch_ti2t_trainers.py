@@ -477,7 +477,7 @@ def test_ti2t_loader_refuses_other_families(tmp_path):
     ROADMAP item; the LLaVA-only loader of the RM and RL trainers (JAX's
     ``load_multimodal_params``) refuses Qwen2-VL too."""
     (tmp_path / 'config.json').write_text(json.dumps(
-        {'model_type': 'minicpmv'}))
+        {'model_type': 'minicpmo'}))
     with pytest.raises(NotImplementedError, match='item 12'):
         tsft.load_vision_lm(str(tmp_path), device='cpu')
     (tmp_path / 'config.json').write_text(json.dumps(

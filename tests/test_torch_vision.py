@@ -149,7 +149,7 @@ def test_vit_gradient_matches_jax():
     def jloss(p):
         return jnp.sum(jvision.forward(p, jcfg, jnp.asarray(px)) * w)
 
-    want = jax.grad(jloss)(jax.tree.map(jnp.asarray, params))
+    want = jax.jit(jax.grad(jloss))(jax.tree.map(jnp.asarray, params))
     from align_anything_tpu_torch.models.bridge import trainable_from_jax_tree
     tparams, _ = trainable_from_jax_tree(params, device='cpu')
     loss = (tvision.forward(tparams, tcfg, torch.from_numpy(px))
